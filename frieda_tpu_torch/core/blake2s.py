@@ -1,11 +1,12 @@
-"""BLAKE2s zero-state raw compression on torch int64 tensors (plain version).
+"""BLAKE2s compression on torch int64 tensors (plain version).
 
-Counterpart of the zero-state branch of `frieda_tpu/core/blake2s.py`: the
-Merkle node hash (SURVEY.md A.6) is the raw compression function applied to
-a zero chaining state, with the standard IV in v[8..15], t = 0 and no final
-flag, and out[i] = v[i] ^ v[i+8]. It is not RFC BLAKE2s-256 (that one
-preloads the parameter block into h). The channel variant comes with the
-prover. The hand-written kernel is `csrc/blake2s.cuh`.
+Counterpart of `frieda_tpu/core/blake2s.py`. The Merkle node hash (SURVEY.md
+A.6) is the raw compression function applied to a zero chaining state, with
+the standard IV in v[8..15], t = 0 and no final flag, and out[i] = v[i] ^
+v[i+8]. It is not RFC BLAKE2s-256 (that one preloads the parameter block
+into h): `blake2s_hash_one_block` is, for messages of at most one block, and
+serves the proof-of-work grind. The hand-written kernel of the Merkle hash
+is `csrc/blake2s.cuh`.
 """
 
 from __future__ import annotations
@@ -44,14 +45,22 @@ def _ror(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x >> r) | (x << (32 - r))) & _M32  # x < 2^32: x << 31 < 2^63
 
 
-def compress_rows(msg: torch.Tensor) -> torch.Tensor:
-    """Zero-state raw compression over a batch. msg: (16, ...) int64 u32
-    values; returns (8, ...) int64 output words."""
+def compress_rows(msg: torch.Tensor, h=None, t: int = 0, final: bool = False) -> torch.Tensor:
+    """Raw compression over a batch. msg: (16, ...) int64 u32 values; h: the
+    chaining state, 8 words (ints or tensors broadcastable to a row), zero
+    when None; t: the byte counter; final: the last-block flag. Returns
+    (8, ...) int64 output words h[i] ^ v[i] ^ v[i+8]."""
     if msg.shape[0] != 16:
         raise ValueError(f"expected 16 message rows, got {tuple(msg.shape)}")
     m = list(msg.unbind(0))
     zero = torch.zeros_like(m[0])
-    v = [zero] * 8 + [torch.full_like(m[0], w) for w in IV]
+    h = None if h is None else [zero + w for w in h]
+    iv = list(IV)
+    iv[4] ^= t & _M32
+    iv[5] ^= (t >> 32) & _M32
+    if final:
+        iv[6] ^= _M32
+    v = (h or [zero] * 8) + [torch.full_like(m[0], w) for w in iv]
     for rnd in range(10):
         s = SIGMA[rnd]
         for g, (a, b, c, d) in enumerate(G_INDICES):
@@ -65,4 +74,19 @@ def compress_rows(msg: torch.Tensor) -> torch.Tensor:
             vc = (vc + vd) & _M32
             vb = _ror(vb ^ vc, 7)
             v[a], v[b], v[c], v[d] = va, vb, vc, vd
-    return torch.stack([v[i] ^ v[i + 8] for i in range(8)])
+    out = [v[i] ^ v[i + 8] for i in range(8)]
+    return torch.stack(out if h is None else [o ^ w for o, w in zip(out, h)])
+
+
+# Parameter block of BLAKE2s-256 without a key: digest length 32, fanout 1,
+# depth 1, xored into IV[0].
+PARAM_IV0 = IV[0] ^ 0x01010020
+
+
+def blake2s_hash_one_block(msg: torch.Tensor, data_len: int) -> torch.Tensor:
+    """Standard BLAKE2s-256 of a message of data_len <= 64 bytes, given as
+    (16, ...) int64 u32 words zero-padded past data_len: parameter-block IV,
+    t = data_len, final flag. Returns the (8, ...) digest words."""
+    if not 0 <= data_len <= 64:
+        raise ValueError(f"one block holds at most 64 bytes, got {data_len}")
+    return compress_rows(msg, h=(PARAM_IV0,) + IV[1:], t=data_len, final=True)

@@ -3,8 +3,8 @@
 // merkle_level replaces frieda_tpu/ops/merkle_pallas.py: leaf_level
 // (_leaf_kernel), inner_level (_inner_kernel), leaf3_level (_leaf3_kernel,
 // _combine3) and inner3_level (_inner3_kernel). merkle_collapse replaces
-// collapse_level / collapse_multi (_collapse_kernel_factory), with a single
-// output width of 1.
+// collapse_level / collapse_multi (_collapse_kernel_factory): every requested
+// output width of the narrow tail in one launch.
 //
 // Bound: integer ALU work. A compression is ~1,100 32-bit operations for
 // 32-64 bytes in and 32 bytes out, so the leaf and inner levels are limited
@@ -22,11 +22,16 @@
 //
 // Design, merkle_collapse: one block of 512 threads holds a level of width
 // m <= 4096 in shared memory (8 * m u32, 128 KB at 4096, which needs the
-// opt-in above 48 KB) and halves it in place until width 1. Thread x reads
-// nodes x and x + half and writes node x, so no node is written while
-// another thread reads it; a barrier separates levels. The TPU version
-// keeps up to 8 x 32768 nodes (1 MiB) in VMEM; a Hopper block has at most
-// 227 KB, so merkle_level keeps fusing down to width 4096 first.
+// opt-in above 48 KB) and halves it in place down to the smallest requested
+// width. Thread x reads nodes x and x + half and writes node x, so no node is
+// written while another thread reads it; a barrier separates levels. When a
+// level's width is one of the requested widths (descending powers of two
+// dividing m, at most kMaxOuts of them) the block copies it out, and a
+// barrier keeps the next level from overwriting it before the copy ends. The
+// prover's pruned trees ask for m/8, m/64, ..., 1 (every third level); the
+// commit asks for 1. The TPU version keeps up to 8 x 32768 nodes (1 MiB) in
+// VMEM; a Hopper block has at most 227 KB, so merkle_level keeps fusing down
+// to width 4096 first.
 
 #include "blake2s.cuh"
 #include "common.cuh"
@@ -36,6 +41,13 @@ namespace {
 constexpr int kLevelThreads = 256;
 constexpr int kCollapseThreads = 512;
 constexpr long long kCollapseMax = 4096;
+constexpr int kMaxOuts = 13;  // distinct powers of two <= kCollapseMax
+
+struct CollapseOuts {
+  uint32_t* ptr[kMaxOuts];
+  uint32_t width[kMaxOuts];  // descending
+  int count;
+};
 
 // Node x of the level being read: a leaf hash of the 4 columns, or the 8
 // stored words of an inner node.
@@ -89,11 +101,21 @@ merkle_level_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 }
 
 __global__ void __launch_bounds__(kCollapseThreads)
-merkle_collapse_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, uint32_t m) {
+merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs, uint32_t m) {
   extern __shared__ uint32_t lvl[];  // word w of node x at lvl[w * m + x]
   for (uint32_t i = threadIdx.x; i < 8 * m; i += kCollapseThreads) lvl[i] = in[i];
   __syncthreads();
-  for (uint32_t half = m / 2; half >= 1; half /= 2) {
+  int next = 0;  // the next requested width; the same in every thread
+  for (uint32_t width = m;; width /= 2) {
+    if (width == outs.width[next]) {
+      uint32_t* __restrict__ o = outs.ptr[next];
+      for (uint32_t i = threadIdx.x; i < 8 * width; i += kCollapseThreads) {
+        o[i] = lvl[(i / width) * m + i % width];  // out is (8, width)
+      }
+      if (++next == outs.count) return;
+      __syncthreads();
+    }
+    const uint32_t half = width / 2;
     for (uint32_t x = threadIdx.x; x < half; x += kCollapseThreads) {
       uint32_t a[8], b[8], h[8];
 #pragma unroll
@@ -107,7 +129,6 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ o
     }
     __syncthreads();
   }
-  if (threadIdx.x < 8) out[threadIdx.x] = lvl[threadIdx.x * m];
 }
 
 template <bool LEAF, bool FUSED>
@@ -132,14 +153,28 @@ extern "C" int frieda_merkle_level(const void* in, void* out, long long width, i
   return fused ? launch_level<false, true>(in, out, w, s) : launch_level<false, false>(in, out, w, s);
 }
 
-// in: (8, m) u32 level, m a power of two <= 4096; out: (8, 1) u32 root node.
-extern "C" int frieda_merkle_collapse(const void* in, void* out, long long m, void* stream) {
-  if (m < 1 || m > kCollapseMax) return static_cast<int>(cudaErrorInvalidValue);
+// in: (8, m) u32 level, m a power of two <= 4096; outs[j]: (8, widths[j])
+// u32, widths descending powers of two that divide m, 1 <= n_out <= 13.
+extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const long long* widths,
+                                      int n_out, long long m, void* stream) {
+  if (m < 1 || m > kCollapseMax || (m & (m - 1)) || n_out < 1 || n_out > kMaxOuts) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CollapseOuts o{};
+  for (int j = 0; j < n_out; ++j) {
+    const long long w = widths[j];
+    if (w < 1 || w > m || (w & (w - 1)) || (j > 0 && w >= widths[j - 1])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    o.ptr[j] = static_cast<uint32_t*>(outs[j]);
+    o.width[j] = static_cast<uint32_t>(w);
+  }
+  o.count = n_out;
   const size_t smem = size_t(8) * static_cast<size_t>(m) * sizeof(uint32_t);
   const cudaError_t attr = cudaFuncSetAttribute(
       merkle_collapse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   merkle_collapse_kernel<<<1, kCollapseThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), static_cast<uint32_t>(m));
+      static_cast<const uint32_t*>(in), o, static_cast<uint32_t>(m));
   FRIEDA_LAUNCH_RESULT();
 }

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "frieda_ingest": (_VP, _VP, _I, _VP),
     "frieda_fft_pass": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _VP),
-    "frieda_merkle_collapse": (_VP, _VP, _LL, _VP),
+    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _VP),
 }
 
 _lib = None

@@ -5,13 +5,16 @@ collapse (`merkle_collapse`), both BLAKE2s zero-state raw compressions.
 `frieda_tpu/ops/merkle_pallas.py` (`leaf_level`, `inner_level`,
 `leaf3_level`, `inner3_level`): one thread per output node, one level or
 three levels per pass, leaf mode hashing [c0..c3, 0 x 12] first.
-`merkle_collapse` replaces `collapse_level` / `collapse_multi` (single
-output width here): one block takes a level of width <= COLLAPSE_MAX to the
-root with every intermediate level in shared memory. Sources:
-`csrc/merkle.cu`, `csrc/blake2s.cuh`.
+`merkle_collapse` replaces `collapse_level` / `collapse_multi`: one block
+takes a level of width <= COLLAPSE_MAX down the tree with every
+intermediate level in shared memory, and writes each requested width (the
+commit asks for the root only, the prover's pruned trees for every third
+level of the tail). Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -55,29 +58,44 @@ def merkle_level(x: torch.Tensor, leaf: bool, fused: bool) -> torch.Tensor:
 merkle_level.launches = 0
 
 
-def merkle_collapse_plain(level: torch.Tensor) -> torch.Tensor:
-    """Plain version: (8, m) int64 level -> (8, 1) root node."""
-    while level.shape[1] > 1:
-        level = hash_parents(level)
-    return level
+def _check_widths(m: int, out_widths) -> tuple:
+    widths = tuple(int(w) for w in out_widths)
+    if (not widths or any(w < 1 or m % w or w & (w - 1) for w in widths)
+            or any(a <= b for a, b in zip(widths, widths[1:]))):
+        raise ValueError(f"out_widths {out_widths} must be descending powers of two dividing {m}")
+    return widths
 
 
-def merkle_collapse(level: torch.Tensor) -> torch.Tensor:
-    """(8, m) int32 level, m a power of two <= COLLAPSE_MAX -> (8, 1) int32.
-    Launches the kernel on a CUDA tensor, runs the plain version on a CPU
-    tensor."""
+def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,)) -> list:
+    """Plain version: (8, m) int64 level -> [(8, w) level of width w for w in
+    out_widths], widths descending and dividing m."""
+    outs = []
+    for w in _check_widths(level.shape[1], out_widths):
+        while level.shape[1] > w:
+            level = hash_parents(level)
+        outs.append(level)
+    return outs
+
+
+def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
+    """(8, m) int32 level, m a power of two <= COLLAPSE_MAX -> [(8, w) int32
+    for w in out_widths] (descending powers of two dividing m), in one launch
+    on a CUDA tensor; the plain version on a CPU tensor."""
     m = level.shape[1]
     _build.check_u32(level, "level", (8, m))
     if not 1 <= m <= COLLAPSE_MAX or m & (m - 1):
         raise ValueError(f"collapse width must be a power of two <= {COLLAPSE_MAX}, got {m}")
+    widths = _check_widths(m, out_widths)
     if level.is_cuda:
-        out = torch.empty((8, 1), dtype=torch.int32, device=level.device)
+        outs = [torch.empty((8, w), dtype=torch.int32, device=level.device) for w in widths]
+        ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+        ws = (ctypes.c_longlong * len(widths))(*widths)
         lib = _build.library()
         _build.check_launch(lib.frieda_merkle_collapse(
-            level.data_ptr(), out.data_ptr(), m, _build.stream_of(level)))
+            level.data_ptr(), ptrs, ws, len(widths), m, _build.stream_of(level)))
         merkle_collapse.launches += 1
-        return out
-    return narrow(merkle_collapse_plain(widen(level)))
+        return outs
+    return [narrow(o) for o in merkle_collapse_plain(widen(level), widths)]
 
 
 merkle_collapse.launches = 0

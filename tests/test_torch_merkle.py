@@ -95,7 +95,7 @@ def test_collapse_matches_full_build(log_m):
     level = np.random.default_rng(log_m).integers(0, 1 << 32, (8, 1 << log_m), dtype=np.uint64)
     level = level.astype(np.uint32)
     want = jm.host_levels_from(level)[-1] if log_m else level
-    got = merkle_ops.merkle_collapse(from_numpy_u32(level, "cpu"))
+    got = merkle_ops.merkle_collapse(from_numpy_u32(level, "cpu"))[0]
     assert np.array_equal(to_numpy_u32(got), want)
 
 

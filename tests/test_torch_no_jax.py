@@ -23,6 +23,8 @@ import frieda_tpu_torch, frieda_tpu_torch.api, frieda_tpu_torch.config
 import frieda_tpu_torch.ops, frieda_tpu_torch.ops.fft, frieda_tpu_torch.ops.ingest
 import frieda_tpu_torch.ops.merkle, frieda_tpu_torch.ops._build
 import frieda_tpu_torch.utils.convert, frieda_tpu_torch.core.circle
+import frieda_tpu_torch.core.channel, frieda_tpu_torch.core.grind
+import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "frieda_tpu"))
 print(",".join(loaded))
 """
@@ -39,6 +41,13 @@ def test_cuda_commit_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         api.commit(b"x", 4, device="cuda")
+
+
+def test_commit_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.commit(b"x", 4)
 
 
 def test_chip_smoke_fails_without_cuda():
