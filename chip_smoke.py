@@ -7,12 +7,15 @@ card, end to end, and check it: the commit and the FRI prover.
 Phases, each printed as it runs:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. the kernel build from `frieda_tpu_torch/csrc/` (nvcc, into build/kernels/),
-     and the integer instructions of one BLAKE2s compression, counted in the
-     built SASS (cuobjdump), for the kernels' bounds;
+     and the integer instructions of one BLAKE2s compression and of one M31
+     butterfly, counted in the built SASS (cuobjdump), for the kernels'
+     bounds;
   3. each of the four kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with both
      times (CUDA events, median of a few runs) and the least time the card
-     could take for the same work (bound);
+     could take for the same work (bound); `fft_pass` at n = 24 / log_l 20
+     and n = 26 / log_l 22, with each launch of its plan timed alone (bytes,
+     TB/s, threads and dynamic shared memory a block);
   4. `api.commit(data, 4, device="cuda")` on synthetic blobs against anchor
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
@@ -38,10 +41,18 @@ Without CUDA the script exits nonzero before printing any result.
 runs only phases 1-2 and one staged prove of 2^26 felts (20 queries,
 pow_bits 20, log_blowup 4) and prints its time, stage split and peak device
 memory: whether the largest blob the JAX bench names fits one card.
+
+    python3 chip_smoke.py --commit-split
+
+runs only phases 1-2 and splits the commit at 2^22 and 2^24 felts into host
+padding, upload, ingest, LDE, Merkle, device total and root fetch (CUDA
+events or synchronized host clock, median of 9), with the device's idle
+share over 5 back-to-back device-resident commits (torch.profiler).
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
 import os
@@ -91,10 +102,9 @@ P = (1 << 31) - 1
 # 1.98 GHz boost = 33.45e12 32-bit integer instructions/s.
 HBM_BYTES_S = 3.35e12
 INT_INSTR_S = 132 * 4 * 32 * 1.98e9
-# 32-bit integer instructions of one M31 butterfly on one column, as
-# csrc/common.cuh writes it: m31_mul 9 (wide multiply, two Mersenne folds,
-# conditional subtract), m31_add 3, m31_sub 4.
-BUTTERFLY_OPS = 16
+# SASS opcodes that are not integer work: memory, control, moves.
+SASS_SKIP = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
+             "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
 
 
 def synthetic_data(n_bytes: int, seed: int = 0) -> bytes:
@@ -133,21 +143,97 @@ def plain_route():
     )
 
 
-def sass_compression_ops(so: pathlib.Path) -> int:
-    """Integer instructions of one zero-state BLAKE2s compression: the SASS of
-    merkle_level's one-level inner kernel (one compression per thread)
-    without its loads, stores, branches and special-register reads."""
+def sass_int_ops(so: pathlib.Path, *name_has: str) -> list:
+    """Integer instructions (opcodes with modifiers) of the one SASS function
+    whose name contains every string of `name_has`, without loads, stores,
+    branches, moves (IMAD.MOV too) and special-register reads."""
     cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
                           capture_output=True, text=True).stdout
-    funcs = sass.split("Function : ")
-    body = [f for f in funcs if "merkle_level_kernel" in f.split("\n", 1)[0]
-            and "ILb0ELb0E" in f.split("\n", 1)[0]]
-    check(len(body) == 1, f"expected one inner merkle_level kernel in the SASS, found {len(body)}")
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body[0])
-    skip = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
-            "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
-    return sum(1 for op in ops if op not in skip)
+    body = [f for f in sass.split("Function : ") if all(h in f.split("\n", 1)[0] for h in name_has)]
+    check(len(body) == 1, f"expected one SASS function named like {name_has}, found {len(body)}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)", body[0])
+    return [op for op in ops if op.split(".")[0] not in SASS_SKIP and not op.startswith("IMAD.MOV")]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median ms of `reps` runs of fn, CUDA events around each, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 9) -> float:
+    """Median ms of `reps` runs of fn on the host clock, synchronized at both ends."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def commit_split() -> int:
+    """The commit's stages at 2^22 and 2^24 felts, and the device's idle share."""
+    import torch
+
+    from frieda_tpu_torch import api
+    from frieda_tpu_torch.core import fft, merkle
+    from frieda_tpu_torch.utils.convert import from_numpy_u32
+    from frieda_tpu_torch.utils.packing import ingest_rev, log_total_for, pad_to_words
+
+    dev = torch.device("cuda", 0)
+    for log_felts in (22, 24):
+        data = synthetic_data(felt_bytes(log_felts))
+        log_total = log_total_for(len(data))
+        log_size = log_total - 2
+        pad_ms = host_ms(lambda: pad_to_words(data, log_total))
+        host_words = pad_to_words(data, log_total)
+        upload_ms = host_ms(lambda: from_numpy_u32(host_words, dev))
+        words = from_numpy_u32(host_words, dev)
+        tw = fft.stage_twiddles(log_size + LOG_BLOWUP, dev)
+        ingest_ms = cuda_ms(lambda: ingest_rev(words, log_size), 9)
+        coeffs = ingest_rev(words, log_size)
+        lde_ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw), 9)
+        evals = fft.evaluate_auto(coeffs, tw)
+        merkle_ms = cuda_ms(lambda: merkle.root_level(evals), 9)
+        del coeffs, evals
+        device_ms = cuda_ms(lambda: api.commit_root_pipeline(words, log_total, LOG_BLOWUP), 9)
+        root = api.commit_root_pipeline(words, log_total, LOG_BLOWUP)
+        fetch_ms = host_ms(lambda: root.cpu())
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                api.commit_root_pipeline(words, log_total, LOG_BLOWUP)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                      for e in prof.key_averages())
+        say(f"[split] commit 2^{log_felts} felts (domain 2^{log_size + LOG_BLOWUP}), ms: "
+            f"pad_to_words {pad_ms:.4f}, upload {upload_ms:.4f}, ingest {ingest_ms:.4f}, "
+            f"LDE {lde_ms:.4f}, Merkle {merkle_ms:.4f}, device {device_ms:.4f}, root fetch "
+            f"{fetch_ms:.4f}; idle share {1 - busy_us / wall_us:.3f} (device busy {busy_us:.0f} us "
+            f"of {wall_us:.0f} us over 5 commits)")
+        del words, root
+        torch.cuda.empty_cache()
+    return 0
 
 
 def prove_fit(log_felts: int) -> int:
@@ -213,20 +299,6 @@ def main() -> int:
     def rand_u32(shape, hi=1 << 32):
         return from_numpy_u32(rng.integers(0, hi, shape, dtype=np.uint64).astype(np.uint32), dev)
 
-    def cuda_ms(fn, reps: int = 5) -> float:
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     def max_abs_err(a, b) -> int:
         return int((widen(a) - widen(b)).abs().max().item())
 
@@ -237,6 +309,7 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     fit = sys.argv[sys.argv.index("--prove-fit") + 1] if "--prove-fit" in sys.argv else None
+    split = "--commit-split" in sys.argv
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -255,10 +328,17 @@ def main() -> int:
     for line in (so.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[2]   {line.strip()}")
-    comp_ops = sass_compression_ops(so)
+    # merkle_level's one-level inner kernel: one compression per thread
+    comp_ops = len(sass_int_ops(so, "merkle_level_kernel", "ILb0ELb0E"))
     say(f"[2] one BLAKE2s compression: {comp_ops} integer instructions in the SASS")
+    bfly = sass_int_ops(so, "frieda_fft_butterfly_probe")
+    bfly_ops = len(bfly)
+    say(f"[2] one M31 butterfly on one column (twiddle doubled once per round): {bfly_ops} "
+        f"integer instructions in the SASS: {' '.join(bfly)}")
     if fit is not None:
         return prove_fit(int(fit))
+    if split:
+        return commit_split()
 
     # -- 3. each kernel against its plain version, at main-path shapes --------
     kernels = {}
@@ -281,26 +361,44 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by)
         del words, w64, got, want
 
-    n, log_l = 24, 20
-    tw = fft.stage_twiddles(n, dev)
-    coeffs = rand_u32((4, 1 << log_l), P)
-    c64 = widen(coeffs)
-    got = fft.evaluate_auto(coeffs, tw)
-    want = narrow(fft.evaluate(c64, tw))
-    check(torch.equal(got, want), f"fft_pass plan at n={n}, log_l={log_l} differs from plain")
-    ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw))
-    plain_ms = cuda_ms(lambda: fft.evaluate(c64, tw), reps=3)
-    groups = fft_ops.pass_plan(n, log_l)[1]
-    b_ms, b_by = bound(16 * (1 << log_l) + 4 * tw.numel() + 16 * (1 << n),
-                       4 * log_l * (1 << (n - 1)) * BUTTERFLY_OPS)
-    say(f"[3] fft_pass n={n} log_l={log_l}, groups {groups}: bit-equal; "
-        f"kernel {ms:.4f} ms ({len(groups)} launches), plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    kernels["fft_pass"] = dict(
-        source="frieda_tpu_torch/csrc/fft.cu",
-        replaces="frieda_tpu/ops/fft_pallas.py:294", max_abs_err=max_abs_err(got, want),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    del coeffs, c64, got, want, tw
+    # the 2^22-felt commit's LDE (the kernels entry, as in earlier runs) and
+    # the 2^24-felt commit's and proof's
+    for n, log_l in ((24, 20), (26, 22)):
+        tw = fft.stage_twiddles(n, dev)
+        coeffs = rand_u32((4, 1 << log_l), P)
+        c64 = widen(coeffs)
+        got = fft.evaluate_auto(coeffs, tw)
+        want = narrow(fft.evaluate(c64, tw))
+        check(torch.equal(got, want), f"fft_pass plan at n={n}, log_l={log_l} differs from plain")
+        err = max_abs_err(got, want)
+        del want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw))
+        plain_ms = cuda_ms(lambda: fft.evaluate(c64, tw), reps=3)
+        p_min, groups = fft_ops.pass_plan(n, log_l)
+        b_ms, b_by = bound(16 * (1 << log_l) + 4 * tw.numel() + 16 * (1 << n),
+                           4 * log_l * (1 << (n - 1)) * bfly_ops)
+        say(f"[3] fft_pass n={n} log_l={log_l}, groups {groups}: bit-equal; "
+            f"kernel {ms:.4f} ms ({len(groups)} launches), plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {bfly_ops} instructions a butterfly)")
+        src, shift = coeffs, p_min
+        for p_lo, p_hi, k in groups:
+            g_ms = cuda_ms(lambda: fft_ops.fft_pass(src, tw, got, p_lo, p_hi, k, shift))  # noqa: B023
+            n_bytes = 4 * (src.numel() + got.numel() + (1 << p_hi) - (1 << p_lo))
+            threads, smem = ctypes.c_int(), ctypes.c_int()
+            _build.library().frieda_fft_pass_launch_shape(p_hi - p_lo, k, ctypes.byref(threads),
+                                                         ctypes.byref(smem))
+            say(f"[3]   launch ({p_lo}, {p_hi}, {k}): {g_ms:.4f} ms, {n_bytes} bytes, "
+                f"{n_bytes / g_ms / 1e9:.3f} TB/s; {threads.value} threads and {smem.value} "
+                f"bytes of dynamic shared memory a block")
+            src, shift = got, 0
+        if n == 24:
+            kernels["fft_pass"] = dict(
+                source="frieda_tpu_torch/csrc/fft.cu",
+                replaces="frieda_tpu/ops/fft_pallas.py:294", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del coeffs, c64, got, tw, src
+        torch.cuda.empty_cache()
 
     def level_bound(leaf: bool, fused: bool, width: int) -> tuple:
         out_w = width // (8 if fused else (1 if leaf else 2))

@@ -8,91 +8,221 @@
 //   out[j + 2^p] = x[j] - T_p[j mod 2^p] * x[j + 2^p]      (bit p of j clear)
 // with T_p = tw[2^p - 1 + (j mod 2^p)] from one flat table indexed by bit.
 //
-// Bound: device-memory bytes. A stage is one M31 product and an add and a
-// subtract per pair of u32 words, far below the card's integer rate, so a
-// stage-per-launch loop would cost one full read and write of the array per
-// stage (24 at n = 24 with log_l = 20).
+// Bound: integer issue and device-memory bytes, near each other. A butterfly
+// is 7 integer instructions per column in the SASS (chip_smoke.py counts them
+// in frieda_fft_butterfly_probe: wide multiply, one fold, and a fused add-min
+// for each of the reduction, the sum and the difference); each group reads and
+// writes the (C, 2^n) array once, so the number of groups sets the bytes. On
+// an H100 the first group is bound by instructions and the in-place group by
+// its strided 64-byte rows (PERF.md, tools/torch_lde_times.py --ablate).
 //
-// Design: a block loads the 2^g elements that differ only in the group's
-// bits, times 2^k contiguous low-bit columns (g + k <= 12, 16 KB), into
-// shared memory, runs all g stages there with a barrier between stages, and
-// writes the tile back: one read and one write of the array per group, about
-// 3 groups at n = 24. The k low-bit columns make neighbouring threads touch
-// neighbouring words. The first group reads the UNDILATED coefficients:
-// element j of the dilated vector is src[j >> src_shift], so the dilated
-// array never exists in memory. Tiles are disjoint and a block reads only
-// what it writes, so the later groups run in place. The TPU version's
-// transposed views, LANES and GROUP_BITS_MAX exist for its (8, 128) vector
-// tiles and have no counterpart here.
+// Plan (ops/fft.py pass_plan): at most 11 stage bits a group, split evenly, so
+// the main-path shapes take two launches (n = 22, 24, 26 with log_l = n - 4;
+// three at n = 28). A block owns a tile of the 2^g elements that differ only
+// in the group's bits, times 2^k contiguous low-bit columns: k = 4, 64-byte
+// rows, except that the dilating first group keeps its tile within 2^14 words
+// (k = 3 at n = 26). The tile lives in dynamic shared memory with 1/2^r0 of
+// padding: up to 68 KB for 2^14 words, 512 threads and two blocks an SM, and
+// 136 KB for 2^15, 1024 threads and one block. Both are above the 48 KB
+// default, so the host raises the kernel's limit once, at its first launch.
+//
+// Rounds: the g stages run in rounds of at most 4 bits. In a round, each
+// thread holds the 2^r elements that differ only in the round's bits in
+// registers and runs those r stages with no barrier; the element positions
+// and the twiddle offsets are worked out once per round. The first round reads
+// device memory straight into registers, the last writes registers straight
+// back, and shared memory only carries the exchange between rounds: g = 11
+// is three rounds (4, 4, 3) and two barriers. The first group reads the
+// UNDILATED coefficients: element j of the dilated vector is src[j >> src_shift],
+// so the dilated array never exists in memory. Tiles are disjoint and a block
+// reads all of its tile before it writes, so the later groups run in place.
+//
+// Twiddles: they depend on j, not on the column. The grid puts the column
+// fastest (blockIdx = tile * C + c), so the C blocks that need the same table
+// words run side by side and L2 serves all but the first; a block covering all
+// C columns would need C times the tile, beyond the 227 KB a block may have at
+// g = 11. The TPU version's transposed views, LANES and GROUP_BITS_MAX exist
+// for its (8, 128) vector tiles and have no counterpart here.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTileLog = 12;
-constexpr int kThreads = 256;
+constexpr int kRadixLog = 4;     // stage bits a round runs in registers, at most
+constexpr int kTileLogMax = 15;  // the caller's limit on g + k (ops/fft.py TILE_LOG)
+// A tile of up to 2^14 words runs 512 threads, two blocks an SM; a larger one
+// takes an SM's shared memory alone and runs 1024. 64 registers a thread.
+constexpr int kThreadsLogMax = 10;
+// g > 4 means two rounds or more, and then the first round has r0 >= 2 bits.
+constexpr int kSmemBytesMax = 4 * ((1 << kTileLogMax) + (1 << (kTileLogMax - 2)));
 
-// src is not __restrict__: later groups run in place (src == dst).
-__global__ void __launch_bounds__(kThreads)
-fft_pass_kernel(const uint32_t* src, uint32_t* dst, const uint32_t* __restrict__ tw,
-                int n, int p_lo, int g, int k, int src_shift, uint32_t blocks_per_col) {
-  __shared__ uint32_t tile[1 << kTileLog];
-  const uint32_t c = blockIdx.x / blocks_per_col;
-  const uint32_t rem = blockIdx.x % blocks_per_col;
-  const int mid_bits = p_lo - k;  // bits [k, p_lo): fixed per block
-  const uint32_t mid = rem & ((1u << mid_bits) - 1u);
-  const uint32_t hi = rem >> mid_bits;  // bits [p_lo + g, n): fixed per block
-  const uint32_t base = (hi << (p_lo + g)) | (mid << k);
-  const size_t N = size_t(1) << n;
-  const uint32_t* s = src + c * (N >> src_shift);
-  uint32_t* d = dst + c * N;
-  const uint32_t tile_n = 1u << (g + k);
+struct Group {
+  const uint32_t* src;  // not __restrict__: later groups run in place (src == dst)
+  uint32_t* dst;
+  const uint32_t* tw;
+  int n, p_lo, g, k, src_shift, C;
+};
+
+// g stage bits in ceil(g / 4) rounds of near-equal size, the larger first;
+// a zero-stage group (a constant polynomial's dilated copy) is one round of 0.
+struct Rounds {
+  int count, r_lo, extra, r0;
+  __host__ __device__ explicit Rounds(int g)
+      : count(g == 0 ? 1 : (g + kRadixLog - 1) / kRadixLog),
+        r_lo(g / count), extra(g % count), r0(r_lo + (extra > 0)) {}
+  __host__ __device__ int bits(int q) const { return r_lo + (q < extra); }
+};
+
+// One butterfly on one column; t2 = 2 * twiddle.
+__device__ __forceinline__ void butterfly(uint32_t& a, uint32_t& b, uint32_t t2) {
+  const uint32_t u = frieda::m31_mul_dbl(b, t2);
+  b = frieda::m31_sub(a, u);
+  a = frieda::m31_add(a, u);
+}
+
+// One round: stage bits [s0, s0 + R) of the tile's rows, j bits [sh, sh + R).
+// Tile index i = row << k | col; thread job m holds i = ib + (e << a), e < 2^R,
+// ib = m with R zero bits inserted at bit a. Shared-memory slot of i:
+// i + ((i >> (k + r0)) << k), 2^k words of padding after each 2^(k + r0):
+// the first round's stores (lanes on i's k low bits and on the bits above its
+// own) then hit 32 distinct banks, every later round's lanes cover i's 5 low
+// bits, and within a round the slot of element e is slot(ib) + e * step.
+template <int R>
+__device__ __forceinline__ void run_round(const Group& G, uint32_t* tile, uint32_t c,
+                                          uint32_t base, int s0, int r0, bool first, bool last) {
+  const int k = G.k;
+  const int a = s0 + k;
+  const int sh = G.p_lo + s0;
+  const int pad_at = k + r0;
+  const uint32_t step = (1u << a) + (a >= pad_at ? 1u << (a - r0) : 0u);
+  const uint32_t a_mask = (1u << a) - 1u;
   const uint32_t col_mask = (1u << k) - 1u;
-
-  // tile index i = r * 2^k + col  <->  j = base | r << p_lo | col
-  for (uint32_t i = threadIdx.x; i < tile_n; i += kThreads) {
-    const uint32_t j = base | ((i >> k) << p_lo) | (i & col_mask);
-    tile[i] = s[j >> src_shift];
-  }
-  __syncthreads();
-
-  for (int st = 0; st < g; ++st) {
-    const int p = p_lo + st;
-    const uint32_t* T = tw + ((1u << p) - 1u);
-    const uint32_t pmask = (1u << p) - 1u;
-    const uint32_t low_r = (1u << st) - 1u;
-    for (uint32_t q = threadIdx.x; q < tile_n / 2; q += kThreads) {
-      const uint32_t col = q & col_mask;
-      const uint32_t rr = q >> k;
-      const uint32_t r0 = ((rr >> st) << (st + 1)) | (rr & low_r);  // bit st clear
-      const uint32_t i0 = (r0 << k) | col;
-      const uint32_t i1 = i0 | (1u << (st + k));
-      const uint32_t j0 = base | (r0 << p_lo) | col;
-      const uint32_t u = frieda::m31_mul(T[j0 & pmask], tile[i1]);
-      const uint32_t a = tile[i0];
-      tile[i0] = frieda::m31_add(a, u);
-      tile[i1] = frieda::m31_sub(a, u);
+  const uint32_t w_mask = (1u << sh) - 1u;
+  const uint32_t jobs = 1u << (G.g + k - R);
+  const size_t N = size_t(1) << G.n;
+  for (uint32_t m = threadIdx.x; m < jobs; m += blockDim.x) {
+    const uint32_t ib = (m & a_mask) | ((m >> a) << (a + R));
+    const uint32_t jb = base | ((ib >> k) << G.p_lo) | (ib & col_mask);
+    const uint32_t sb = ib + ((ib >> pad_at) << k);
+    // Every loop below has a trip count fixed by R alone, so all of them
+    // unroll and x[] and t2[] live in registers (an inner trip count that
+    // depends on an outer index leaves a loop that indexes x[] at run time).
+    uint32_t x[1 << R];
+    if (first) {
+      // sh >= src_shift: the round's bits sit above the dilation's
+      const uint32_t* s = G.src + c * (N >> G.src_shift) + (jb >> G.src_shift);
+      const uint32_t s_stride = 1u << (sh - G.src_shift);
+#pragma unroll
+      for (int e = 0; e < (1 << R); ++e, s += s_stride) x[e] = *s;
+    } else {
+#pragma unroll
+      for (int e = 0; e < (1 << R); ++e) x[e] = tile[sb + uint32_t(e) * step];
     }
-    __syncthreads();
+    // stage sh + b pairs e and e | 1 << b (bit b of e clear) with the twiddle
+    // at (jb + (e << sh)) mod 2^(sh + b) = (jb & w_mask) + ((e mod 2^b) << sh);
+    // t2[(1 << b) - 1 + lo] holds stage b's for e mod 2^b = lo, doubled
+    const uint32_t j_stride = 1u << sh;
+    uint32_t t2[(1 << R) - 1 + (R == 0)];
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+      const uint32_t* T = G.tw + ((j_stride << b) - 1u) + (jb & w_mask);
+#pragma unroll
+      for (int lo = 0; lo < ((1 << R) >> 1); ++lo) {
+        if (lo < (1 << b)) {
+          t2[(1 << b) - 1 + lo] = *T << 1;
+          T += j_stride;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+#pragma unroll
+      for (int q = 0; q < ((1 << R) >> 1); ++q) {
+        const int lo = q & ((1 << b) - 1);
+        const int e = ((q >> b) << (b + 1)) | lo;
+        butterfly(x[e], x[e | (1 << b)], t2[(1 << b) - 1 + lo]);
+      }
+    }
+    if (last) {
+      uint32_t* d = G.dst + c * N + jb;
+#pragma unroll
+      for (int e = 0; e < (1 << R); ++e, d += j_stride) *d = x[e];
+    } else {
+#pragma unroll
+      for (int e = 0; e < (1 << R); ++e) tile[sb + uint32_t(e) * step] = x[e];
+    }
   }
+}
 
-  for (uint32_t i = threadIdx.x; i < tile_n; i += kThreads) {
-    const uint32_t j = base | ((i >> k) << p_lo) | (i & col_mask);
-    d[j] = tile[i];
+__global__ void __launch_bounds__(1 << kThreadsLogMax, 1) fft_pass_kernel(Group G) {
+  extern __shared__ uint32_t tile[];
+  const uint32_t c = blockIdx.x % G.C;  // the column runs fastest: see the twiddles note
+  const uint32_t t = blockIdx.x / G.C;
+  const int mid_bits = G.p_lo - G.k;    // j bits [k, p_lo): fixed per block
+  const uint32_t base = ((t >> mid_bits) << (G.p_lo + G.g)) |
+                        ((t & ((1u << mid_bits) - 1u)) << G.k);
+  const Rounds rs(G.g);
+  int s0 = 0;
+  for (int q = 0; q < rs.count; ++q) {
+    const int r = rs.bits(q);
+    const bool first = q == 0, last = q == rs.count - 1;
+    if (!first) __syncthreads();
+    switch (r) {
+      case 0: run_round<0>(G, tile, c, base, s0, rs.r0, first, last); break;
+      case 1: run_round<1>(G, tile, c, base, s0, rs.r0, first, last); break;
+      case 2: run_round<2>(G, tile, c, base, s0, rs.r0, first, last); break;
+      case 3: run_round<3>(G, tile, c, base, s0, rs.r0, first, last); break;
+      default: run_round<4>(G, tile, c, base, s0, rs.r0, first, last); break;
+    }
+    s0 += r;
   }
+}
+
+// (threads, dynamic shared-memory bytes) of a group's launch.
+void launch_shape(int g, int k, int* threads, int* smem_bytes) {
+  const Rounds rs(g);
+  const int cap = g + k > kTileLogMax - 1 ? kThreadsLogMax : kThreadsLogMax - 1;
+  const int tlog = g + k - rs.r0 < cap ? g + k - rs.r0 : cap;
+  const int tile = 1 << (g + k);
+  *threads = 1 << tlog;
+  *smem_bytes = rs.count > 1 ? 4 * (tile + (tile >> rs.r0)) : 0;
 }
 
 }  // namespace
 
+// The butterfly alone, for counting its instructions in the SASS
+// (chip_smoke.py phase 2); never launched.
+extern "C" __global__ void frieda_fft_butterfly_probe(uint32_t* x, const uint32_t* t2) {
+  uint32_t a = x[0], b = x[1];
+  butterfly(a, b, t2[0]);
+  x[0] = a;
+  x[1] = b;
+}
+
+extern "C" int frieda_fft_pass_launch_shape(int g, int k, int* threads, int* smem_bytes) {
+  launch_shape(g, k, threads, smem_bytes);
+  return 0;
+}
+
 // src: (C, 2^(n - src_shift)) u32, dst: (C, 2^n) u32, tw: (2^n - 1,) u32.
-// The caller checks 0 <= k <= p_lo <= p_hi <= n and (p_hi - p_lo) + k <= 12.
+// The caller checks 0 <= k <= p_lo <= p_hi <= n, src_shift <= p_lo and
+// (p_hi - p_lo) + k <= 15.
 extern "C" int frieda_fft_pass(const void* src, void* dst, const void* tw, int C, int n,
                                int p_lo, int p_hi, int k, int src_shift, void* stream) {
+  static const cudaError_t opt_in = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fft_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytesMax);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        fft_pass_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const int g = p_hi - p_lo;
-  const uint32_t blocks_per_col = 1u << (n - g - k);
-  const dim3 grid(static_cast<unsigned>(C) * blocks_per_col);
-  fft_pass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
-      static_cast<const uint32_t*>(tw), n, p_lo, g, k, src_shift, blocks_per_col);
+  int threads, smem;
+  launch_shape(g, k, &threads, &smem);
+  const dim3 grid(static_cast<unsigned>(C) << (n - g - k));
+  const Group G{static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
+                static_cast<const uint32_t*>(tw), n, p_lo, g, k, src_shift, C};
+  fft_pass_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(G);
   FRIEDA_LAUNCH_RESULT();
 }

@@ -35,6 +35,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "frieda_ingest": (_VP, _VP, _I, _VP),
     "frieda_fft_pass": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
+    "frieda_fft_pass_launch_shape": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _VP),
     "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _VP),
 }

@@ -7,11 +7,12 @@ bits [p_lo, p_hi) of a (C, 2^n) array, and the first group of a transform
 reads the undilated coefficients through read-index math.
 
 Tiles: a block owns the 2^g elements that differ only in the group's bits
-[p_lo, p_hi), times 2^k contiguous low-bit columns (bits [0, k)), and keeps
-them in shared memory for all g stages. Tiles are disjoint, so every group
-after the first updates the output in place. `pass_plan` is a pure function
-of (n, log_l), so the CPU tests run the same groups through the plain
-version.
+[p_lo, p_hi), times 2^k contiguous low-bit columns (bits [0, k)), and runs
+all g stages on them: in registers, in rounds of at most 4 stage bits, with
+shared memory only for the exchange between rounds (`csrc/fft.cu`). Tiles
+are disjoint, so every group after the first updates the output in place.
+`pass_plan` is a pure function of (n, log_l), so the CPU tests run the same
+groups through the plain version.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from ..core import fft as core_fft
 from ..utils.convert import narrow, widen
 from . import _build
 
-TILE_LOG = 12  # a block keeps 2^12 u32 = 16 KB of shared memory
-COL_LOG = 6    # contiguous low-bit columns per tile once p_lo allows it
+TILE_LOG = 15        # a tile holds at most 2^15 u32: 128 KB of shared memory
+FIRST_TILE_LOG = 14  # the dilating first group's: 64 KB, two blocks an SM
+COL_LOG = 4          # 16 contiguous low-bit columns: 64-byte rows
 
 
 @functools.lru_cache(maxsize=64)
@@ -33,18 +35,23 @@ def pass_plan(n: int, log_l: int):
     """Group the executed stage bits [p_min, n) into kernel launches.
 
     Returns (p_min, groups), each group (p_lo, p_hi, col_log) with
-    (p_hi - p_lo) + col_log <= TILE_LOG and col_log <= p_lo. A constant
-    polynomial (log_l == 0) still gets one zero-stage group: it writes the
-    dilated copy."""
+    (p_hi - p_lo) + col_log <= TILE_LOG and col_log <= p_lo: as few groups
+    of at most TILE_LOG - COL_LOG stage bits as cover log_l, of near-equal
+    size, the larger first (two at n = 22, 24, 26 with log_l = n - 4). The
+    first group reads 1/2^p_min of what it writes and is bound by
+    instructions, not bytes: its tile stays within FIRST_TILE_LOG, so two
+    blocks share an SM (col_log 3 at n = 26). A constant polynomial
+    (log_l == 0) still gets one zero-stage group: it writes the dilated
+    copy."""
     p_min = n - log_l
-    if p_min >= n:
+    if log_l == 0:
         return p_min, ((n, n, min(n, TILE_LOG)),)
+    count = -(-log_l // (TILE_LOG - COL_LOG))
     groups = []
     p = p_min
-    while p < n:
-        g = min(TILE_LOG - min(p, COL_LOG), n - p)
-        k = min(p, TILE_LOG - g)
-        groups.append((p, p + g, k))
+    for q in range(count):
+        g = log_l // count + (q < log_l % count)
+        groups.append((p, p + g, min(p, COL_LOG, (TILE_LOG if q else FIRST_TILE_LOG) - g)))
         p += g
     return p_min, tuple(groups)
 
@@ -59,9 +66,10 @@ def fft_pass_plain(src: torch.Tensor, twiddles: torch.Tensor, n: int,
 def fft_pass(src: torch.Tensor, twiddles: torch.Tensor, out: torch.Tensor,
              p_lo: int, p_hi: int, col_log: int, src_shift: int) -> torch.Tensor:
     """Stages at bits [p_lo, p_hi) into `out` ((C, 2^n) int32), reading
-    `src` ((C, 2^(n - src_shift)) int32) dilated by 2^src_shift. `out` may
-    be `src` when src_shift == 0 (in place). Launches the kernel on a CUDA
-    tensor, runs the plain version on a CPU tensor."""
+    `src` ((C, 2^(n - src_shift)) int32) dilated by 2^src_shift, with
+    src_shift <= p_lo. `out` may be `src` when src_shift == 0 (in place).
+    Launches the kernel on a CUDA tensor, runs the plain version on a CPU
+    tensor."""
     C, N = out.shape
     n = N.bit_length() - 1
     _build.check_u32(out, "out", (C, N))
@@ -70,7 +78,8 @@ def fft_pass(src: torch.Tensor, twiddles: torch.Tensor, out: torch.Tensor,
     if N != 1 << n or not 0 <= src_shift <= n:
         raise ValueError(f"bad shapes: out {tuple(out.shape)}, src_shift {src_shift}")
     g = p_hi - p_lo
-    if not (0 <= col_log <= p_lo <= p_hi <= n and g + col_log <= TILE_LOG):
+    if not (0 <= col_log <= p_lo <= p_hi <= n and g + col_log <= TILE_LOG
+            and src_shift <= p_lo):
         raise ValueError(f"bad stage group ({p_lo}, {p_hi}, {col_log}) for n={n}")
     if src_shift and src.data_ptr() == out.data_ptr():
         raise ValueError("a dilating pass cannot run in place")

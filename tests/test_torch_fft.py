@@ -1,7 +1,8 @@
 """Port's circle FFT vs the JAX package: the plain `evaluate` and the
 stage-group plan `evaluate_auto` runs (each group through its plain version
 on CPU), against JAX `fft.evaluate` and the fused Pallas passes in interpret
-mode. Tolerance: exact equality."""
+mode, and the CUDA kernel's index mapping mirrored in Python. Tolerance:
+exact equality."""
 
 import pytest
 
@@ -9,6 +10,7 @@ pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from frieda_tpu.core import fft as jfft  # noqa: E402
 from frieda_tpu.ops import fft_pallas  # noqa: E402
@@ -74,6 +76,7 @@ def test_pass_plan_groups_emulated(monkeypatch, n, log_l):
     launches run (the first group reads the undilated coefficients), and
     compare with the one-shot stage loop."""
     monkeypatch.setattr(fft_ops, "TILE_LOG", 6)
+    monkeypatch.setattr(fft_ops, "FIRST_TILE_LOG", 5)
     monkeypatch.setattr(fft_ops, "COL_LOG", 3)
     fft_ops.pass_plan.cache_clear()
     try:
@@ -83,6 +86,8 @@ def test_pass_plan_groups_emulated(monkeypatch, n, log_l):
         assert bits == list(range(p_min, n))
         for p_lo, p_hi, k in groups:
             assert 0 <= k <= p_lo and (p_hi - p_lo) + k <= fft_ops.TILE_LOG
+        sizes = [hi - lo for lo, hi, _ in groups]
+        assert max(sizes) - min(sizes) <= 1
         if log_l > fft_ops.TILE_LOG:
             assert len(groups) >= 2
         tw = tfft.stage_twiddles(n, "cpu")
@@ -96,8 +101,102 @@ def test_pass_plan_groups_emulated(monkeypatch, n, log_l):
         fft_ops.pass_plan.cache_clear()
 
 
-def test_pass_plan_at_main_path_shapes():
-    """The plan the card runs: three launches at n = 24 (2^22 felts, blowup
-    4), and one zero-stage copy for a constant polynomial."""
-    assert fft_ops.pass_plan(24, 20) == (4, ((4, 12, 4), (12, 18, 6), (18, 24, 6)))
-    assert fft_ops.pass_plan(5, 0) == (5, ((5, 5, 5),))
+@pytest.mark.parametrize("n,log_l,expect", [
+    (22, 18, ((4, 13, 4), (13, 22, 4))),                # 2^20-felt prove
+    (24, 20, ((4, 14, 4), (14, 24, 4))),                # 2^22-felt commit
+    (26, 22, ((4, 15, 3), (15, 26, 4))),                # 2^24-felt commit and prove
+    (28, 24, ((4, 12, 4), (12, 20, 4), (20, 28, 4))),   # 2^26-felt prove
+    (5, 0, ((5, 5, 5),)),                               # constant: one zero-stage copy
+])
+def test_pass_plan_at_main_path_shapes(n, log_l, expect):
+    """The plan the card runs: two launches up to n = 26, every stage bit
+    exactly once, each group within the tile (the first within
+    FIRST_TILE_LOG), whole 32-byte sectors a row (k >= 3)."""
+    p_min, groups = fft_ops.pass_plan(n, log_l)
+    assert (p_min, groups) == (n - log_l, expect)
+    assert [p for lo, hi, _ in groups for p in range(lo, hi)] == list(range(p_min, n))
+    for q, (p_lo, p_hi, k) in enumerate(groups):
+        assert k <= p_lo and (p_hi - p_lo) + k <= fft_ops.TILE_LOG
+        assert k >= 3
+        if q == 0 and log_l:
+            assert (p_hi - p_lo) + k <= fft_ops.FIRST_TILE_LOG
+    if log_l and n <= 26:
+        assert len(groups) == 2
+
+
+def _kernel_rounds(g):
+    """csrc/fft.cu `Rounds`: ceil(g / 4) rounds of near-equal size, the
+    larger first; a zero-stage group is one round of 0 bits."""
+    count = 1 if g == 0 else -(-g // 4)
+    return [g // count + (q < g % count) for q in range(count)]
+
+
+def _block_base(t, p_lo, g, k):
+    """csrc/fft.cu fft_pass_kernel: j bits fixed by tile number t."""
+    mid_bits = p_lo - k
+    return ((t >> mid_bits) << (p_lo + g)) | ((t & ((1 << mid_bits) - 1)) << k)
+
+
+# (n, p_lo, g, k, tiles checked; None = all): the small plans' groups, and
+# the 2^24-felt LDE's two groups (n = 26) on a few of their tiles
+@pytest.mark.parametrize("n,p_lo,g,k,tiles", [
+    (15, 4, 11, 3, None), (14, 4, 10, 4, None), (13, 4, 9, 4, None), (20, 12, 8, 4, None),
+    (16, 0, 8, 0, None), (9, 9, 0, 9, None), (3, 2, 1, 2, None),
+    (26, 4, 11, 3, (0, 1, 2047, 4095)), (26, 15, 11, 4, (0, 1, 1023, 2047)),
+])
+def test_kernel_rounds_touch_every_element_once(n, p_lo, g, k, tiles):
+    """Mirror of csrc/fft.cu's thread -> element and round -> stage mapping:
+    in every round the blocks' jobs hold each (column, j) of the group
+    exactly once, every thread gets the same number of jobs, the padded
+    shared-memory slots are distinct and in bounds and step by a constant
+    per element, and the twiddle offsets equal T_p[j mod 2^p]."""
+    radices = _kernel_rounds(g)
+    assert sum(radices) == g and max(radices) <= 4 and max(radices) - min(radices) <= 1
+    r0 = radices[0]
+    threads = 1 << min(10 if g + k > 14 else 9, g + k - r0)
+    n_tiles = 1 << (n - g - k)
+    bases = np.array([_block_base(t, p_lo, g, k) for t in range(n_tiles)], np.int64)
+    tile_bits = ((1 << g) - 1) << p_lo | ((1 << k) - 1)
+    assert np.all(bases & tile_bits == 0) and len(np.unique(bases)) == n_tiles
+    tiles = range(n_tiles) if tiles is None else tiles
+    rows, cols = np.meshgrid(np.arange(1 << g), np.arange(1 << k), indexing="ij")
+    want_rel = np.sort((rows << p_lo | cols).ravel())
+    s0 = 0
+    for r in radices:
+        a, sh = s0 + k, p_lo + s0
+        jobs = 1 << (g + k - r)
+        assert jobs % threads == 0
+        m = np.arange(jobs, dtype=np.int64)[:, None]
+        e = np.arange(1 << r, dtype=np.int64)[None, :]
+        ib = (m & ((1 << a) - 1)) | ((m >> a) << (a + r))
+        i = ib + (e << a)
+        assert np.array_equal(np.sort(i.ravel()), np.arange(1 << (g + k)))
+        slot = i + ((i >> (k + r0)) << k)
+        step = (1 << a) + ((1 << (a - r0)) if a >= k + r0 else 0)
+        assert np.array_equal(slot, slot[:, :1] + e * step)
+        assert len(np.unique(slot)) == slot.size and slot.max() < (1 << (g + k)) + ((1 << (g + k)) >> r0)
+        for t in tiles:
+            jb = int(bases[t]) | ((ib >> k) << p_lo) | (ib & ((1 << k) - 1))
+            j = jb + (e << sh)
+            assert np.array_equal(np.sort(j.ravel()) - bases[t], want_rel)
+            for b in range(r):
+                p = sh + b
+                tw_idx = ((1 << p) - 1) + (jb & ((1 << sh) - 1)) + ((e & ((1 << b) - 1)) << sh)
+                assert np.array_equal(tw_idx, ((1 << p) - 1) + (j & ((1 << p) - 1)))
+        s0 += r
+    assert s0 == g
+
+
+# (p_lo, p_hi, col_log, src_shift) that the kernel cannot run, at n = 8
+@pytest.mark.parametrize("p_lo,p_hi,col_log,src_shift", [
+    (4, 3, 3, 0),    # p_hi < p_lo
+    (2, 4, 3, 0),    # col_log > p_lo
+    (4, 8, 12, 0),   # beyond the tile
+    (2, 8, 2, 3),    # dilation bits above p_lo
+])
+def test_fft_pass_rejects_bad_groups(p_lo, p_hi, col_log, src_shift):
+    n = 8
+    src = torch.zeros((2, 1 << (n - src_shift)), dtype=torch.int32)
+    out = torch.zeros((2, 1 << n), dtype=torch.int32)
+    with pytest.raises(ValueError, match="bad stage group"):
+        fft_ops.fft_pass(src, tfft.stage_twiddles(n, "cpu"), out, p_lo, p_hi, col_log, src_shift)
