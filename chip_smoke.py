@@ -11,11 +11,21 @@ Phases, each printed as it runs:
      butterfly, counted in the built SASS (cuobjdump), for the kernels'
      bounds;
   3. each of the four kernels against its plain PyTorch version on the card,
-     at the shapes the commit and prove paths give it, bit-equal, with both
-     times (CUDA events, median of a few runs) and the least time the card
-     could take for the same work (bound); `fft_pass` at n = 24 / log_l 20
-     and n = 26 / log_l 22, with each launch of its plan timed alone (bytes,
-     TB/s, threads and dynamic shared memory a block);
+     at the shapes the commit and prove paths give it, bit-equal, with the
+     least time the card could take for the same work (bound) and two times:
+     "device" ms, the time of the call's launches alone on the card (CUDA
+     events around a CUDA graph of 20 calls, divided by 20:
+     `tools/torch_harness.device_ms`), and "call" ms, CUDA events around one
+     Python call of the wrapper, which also hold the host's work (checks,
+     allocations, ctypes) while the card waits (median of a few runs; the
+     plain versions are timed this way only). `ingest` in each of its forms
+     (`ingest_tile`): log_size 9 (per-element), 10, 11, 12 (1, 2, 4 tiles a
+     block), 20 and 22 (8 tiles); `fft_pass` at n = 24 / log_l 20 and
+     n = 26 / log_l 22, with each launch of its plan timed alone (bytes,
+     TB/s, threads and dynamic shared memory a block); `merkle_collapse` at
+     every width m = 2^0 ... 2^12 with width 1 and the prover's tail widths,
+     so at every cluster size its plan picks (1 ... 16), timed at the widths
+     the 2^24-felt proof's 22 trees give it (with their sum);
   4. `api.commit(data, 4, device="cuda")` on synthetic blobs against anchor
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
@@ -64,6 +74,9 @@ import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
+from torch_harness import card, cuda_ms, device_ms, host_ms, proof_collapse_widths  # noqa: E402
 
 # (blob bytes, root of commit(synthetic_data(bytes), 4)): computed with the
 # JAX package, frieda_tpu.api.commit on CPU; tests/test_torch_commit.py keeps
@@ -154,38 +167,6 @@ def sass_int_ops(so: pathlib.Path, *name_has: str) -> list:
     check(len(body) == 1, f"expected one SASS function named like {name_has}, found {len(body)}")
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)", body[0])
     return [op for op in ops if op.split(".")[0] not in SASS_SKIP and not op.startswith("IMAD.MOV")]
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median ms of `reps` runs of fn, CUDA events around each, after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def host_ms(fn, reps: int = 9) -> float:
-    """Median ms of `reps` runs of fn on the host clock, synchronized at both ends."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def commit_split() -> int:
@@ -312,10 +293,7 @@ def main() -> int:
     split = "--commit-split" in sys.argv
 
     # -- 1. the card ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
+    smi = card()
     say(f"[1] nvidia-smi: {smi}")
     say(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device 0: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}")
@@ -325,9 +303,17 @@ def main() -> int:
     so = _build.build()
     _build.library()
     say(f"[2] kernels built in {time.perf_counter() - t0:.1f} s: {so}")
+    kernel, spills = "?", ""
     for line in (so.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say(f"[2]   {line.strip()}")
+        if "Compiling entry function" in line:  # ptxas -v: entry, then spills, then registers
+            mangled = line.split("'")[1]
+            kernel = re.search(r"([a-z_]+_kernel|frieda_\w+)", mangled).group(1)
+            targs = re.findall(r"L[bj](\d+)E", mangled)
+            kernel += f"<{', '.join(targs)}>" if targs else ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            say(f"[2]   {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
     # merkle_level's one-level inner kernel: one compression per thread
     comp_ops = len(sass_int_ops(so, "merkle_level_kernel", "ILb0ELb0E"))
     say(f"[2] one BLAKE2s compression: {comp_ops} integer instructions in the SASS")
@@ -343,22 +329,28 @@ def main() -> int:
     # -- 3. each kernel against its plain version, at main-path shapes --------
     kernels = {}
 
-    for log_size in (20, 22):
+    for log_size in (9, 10, 11, 12, 20, 22):  # every tile form: 0, 1, 2, 4, 8 tiles a block
         words = rand_u32((words_for(log_size + 2),))
         w64 = widen(words)
-        got = ingest_ops.ingest(words, log_size)
         want = narrow(ingest_ops.ingest_plain(w64, log_size))
+        got = ingest_ops.ingest(words, log_size)
         check(torch.equal(got, want), f"ingest log_size={log_size} differs from plain")
-        ms = cuda_ms(lambda: ingest_ops.ingest(words, log_size))
+        plan = ingest_ops.ingest_tile(log_size)
+        form = f"{plan} tiles of 32 x 32 a block" if plan else "per-element form"
+        if log_size in (10, 11, 12):
+            say(f"[3] ingest log_size={log_size} ({form}): bit-equal")
+            continue
+        ms = device_ms(lambda: ingest_ops.ingest(words, log_size))
+        call = cuda_ms(lambda: ingest_ops.ingest(words, log_size))
         plain_ms = cuda_ms(lambda: ingest_ops.ingest_plain(w64, log_size))
         err = max_abs_err(got, want)
         b_ms, b_by = bound(4 * words.numel() + 16 * (1 << log_size), 0)
-        say(f"[3] ingest log_size={log_size}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        say(f"[3] ingest log_size={log_size} ({form}): bit-equal; device {ms:.4f} ms, call {call:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; share {b_ms / ms:.3f})")
         kernels["ingest"] = dict(
             source="frieda_tpu_torch/csrc/ingest.cu",
-            replaces="frieda_tpu/ops/ingest_pallas.py:66", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            replaces="frieda_tpu/ops/ingest_pallas.py:66", max_abs_err=err, ms=ms, call_ms=call,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         del words, w64, got, want
 
     # the 2^22-felt commit's LDE (the kernels entry, as in earlier runs) and
@@ -373,13 +365,14 @@ def main() -> int:
         err = max_abs_err(got, want)
         del want
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw))
+        ms = device_ms(lambda: fft.evaluate_auto(coeffs, tw), reps=4)  # 4 outputs of up to 1 GiB
+        call = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw))
         plain_ms = cuda_ms(lambda: fft.evaluate(c64, tw), reps=3)
         p_min, groups = fft_ops.pass_plan(n, log_l)
         b_ms, b_by = bound(16 * (1 << log_l) + 4 * tw.numel() + 16 * (1 << n),
                            4 * log_l * (1 << (n - 1)) * bfly_ops)
         say(f"[3] fft_pass n={n} log_l={log_l}, groups {groups}: bit-equal; "
-            f"kernel {ms:.4f} ms ({len(groups)} launches), plain {plain_ms:.4f} ms, "
+            f"device {ms:.4f} ms ({len(groups)} launches), call {call:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}; {bfly_ops} instructions a butterfly)")
         src, shift = coeffs, p_min
         for p_lo, p_hi, k in groups:
@@ -396,7 +389,7 @@ def main() -> int:
             kernels["fft_pass"] = dict(
                 source="frieda_tpu_torch/csrc/fft.cu",
                 replaces="frieda_tpu/ops/fft_pallas.py:294", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         del coeffs, c64, got, tw, src
         torch.cuda.empty_cache()
 
@@ -411,12 +404,13 @@ def main() -> int:
         got = merkle_ops.merkle_level(x, leaf=leaf, fused=fused)
         want = narrow(merkle_ops.merkle_level_plain(x64, leaf=leaf, fused=fused))
         check(torch.equal(got, want), f"merkle_level leaf={leaf} fused={fused} width={width} differs")
-        ms = cuda_ms(lambda: merkle_ops.merkle_level(x, leaf=leaf, fused=fused))
+        ms = device_ms(lambda: merkle_ops.merkle_level(x, leaf=leaf, fused=fused))
+        call = cuda_ms(lambda: merkle_ops.merkle_level(x, leaf=leaf, fused=fused))
         plain_ms = cuda_ms(lambda: merkle_ops.merkle_level_plain(x64, leaf=leaf, fused=fused), reps=3)
         b_ms, b_by = level_bound(leaf, fused, width)
         say(f"[3] merkle_level leaf={leaf} fused={fused} width {width} ({what}): bit-equal; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        return dict(max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
+            f"device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=max_abs_err(got, want), ms=ms, call_ms=call, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by)
 
     kernels["merkle_level"] = dict(
@@ -426,31 +420,50 @@ def main() -> int:
     level_case(True, False, 1 << 12, "leaf_level, prove's leaf rebuilds")
     level_case(False, False, 1 << 13, "inner_level, prove's node rebuilds")
 
-    for m in (1, 2, 8, 4096):
-        level = rand_u32((8, m))
-        got = merkle_ops.merkle_collapse(level)[0]
-        want = narrow(merkle_ops.merkle_collapse_plain(widen(level))[0])
-        check(torch.equal(got, want), f"merkle_collapse width {m} differs from plain")
-    for m in (8, 64, 512, 4096):
-        widths = merkle.tail_widths(m)
+    def collapse_case(m: int, widths: tuple) -> list:
         level = rand_u32((8, m))
         got = merkle_ops.merkle_collapse(level, widths)
-        want = merkle_ops.merkle_collapse_plain(widen(level), widths)
-        check(len(got) == len(want) and all(torch.equal(g, narrow(w)) for g, w in zip(got, want)),
+        want = [narrow(w) for w in merkle_ops.merkle_collapse_plain(widen(level), widths)]
+        check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want)),
               f"merkle_collapse {m} -> {widths} differs from plain")
-    l64 = widen(level)  # the last loop's: 4096 -> (512, 64, 8, 1), a 2^26 tree's tail
-    ms = cuda_ms(lambda: merkle_ops.merkle_collapse(level, widths))
-    plain_ms = cuda_ms(lambda: merkle_ops.merkle_collapse_plain(l64, widths))
-    ms_root = cuda_ms(lambda: merkle_ops.merkle_collapse(level))
-    b_ms, b_by = bound(32 * (4096 + sum(widths)), 4095 * comp_ops)
-    say(f"[3] merkle_collapse widths 1, 2, 8, 4096 -> 1 and 8, 64, 512, 4096 -> m/8^j, 1: "
-        f"bit-equal; 4096 -> {widths}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by}); 4096 -> 1: kernel {ms_root:.4f} ms")
-    kernels["merkle_collapse"] = dict(
-        source="frieda_tpu_torch/csrc/merkle.cu",
-        replaces="frieda_tpu/ops/merkle_pallas.py:240",
-        max_abs_err=max(max_abs_err(g, narrow(w)) for g, w in zip(got, want)),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        return [level, got, want]
+
+    for log_m in range(13):
+        m = 1 << log_m
+        for widths in {(1,), merkle.tail_widths(m) if m > 1 else (1,)}:
+            collapse_case(m, widths)
+    say("[3] merkle_collapse m = 2^0 ... 2^12 -> 1 and -> m/8^j, 1 at the planned cluster sizes "
+        f"{[merkle_ops.collapse_plan(1 << k) for k in range(13)]}: bit-equal")
+    collapse_dev = {}
+    for m in (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2):
+        widths = merkle.tail_widths(m)
+        plan = merkle_ops.collapse_plan(m)
+        level, got, want = collapse_case(m, widths)
+        dev_ms = collapse_dev[m] = device_ms(lambda: merkle_ops.merkle_collapse(level, widths))  # noqa: B023
+        call = cuda_ms(lambda: merkle_ops.merkle_collapse(level, widths))  # noqa: B023
+        root_dev = device_ms(lambda: merkle_ops.merkle_collapse(level))  # noqa: B023
+        root_call = cuda_ms(lambda: merkle_ops.merkle_collapse(level))  # noqa: B023
+        say(f"[3] merkle_collapse m={m}, cluster {plan} x {max(32, m // plan // 2)} threads: -> {widths} "
+            f"device {dev_ms:.4f} ms, call {call:.4f} ms; -> 1 device {root_dev:.4f} ms, call "
+            f"{root_call:.4f} ms")
+        if m == 4096:  # 4096 -> (512, 64, 8, 1), a 2^26 tree's tail
+            l64 = widen(level)
+            plain_ms = cuda_ms(lambda: merkle_ops.merkle_collapse_plain(l64, widths))  # noqa: B023
+            b_ms, b_by = bound(32 * (4096 + sum(widths)), 4095 * comp_ops)
+            kernels["merkle_collapse"] = dict(
+                source="frieda_tpu_torch/csrc/merkle.cu",
+                replaces="frieda_tpu/ops/merkle_pallas.py:240",
+                max_abs_err=max(max_abs_err(g, w) for g, w in zip(got, want)),
+                ms=dev_ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            say(f"[3] merkle_collapse 4096 -> {widths}: plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+                f"({b_by})")
+    shapes = proof_collapse_widths(merkle_ops.COLLAPSE_MAX)
+    one = rand_u32((8, 1))
+    gap_ms = device_ms(lambda: merkle_ops.merkle_collapse(one))
+    say(f"[3] merkle_collapse over the 2^24-felt proof's {len(shapes)} trees (m = "
+        f"{sorted(shapes, reverse=True)}): device {sum(collapse_dev[m] for m in shapes):.4f} ms in all; "
+        f"chain floor at m = 4096: 12 x {collapse_dev[2]:.4f} = {12 * collapse_dev[2]:.4f} ms; "
+        f"m = 1 (a copy of 8 words: the graph's time a launch) {gap_ms:.4f} ms")
     torch.cuda.synchronize()
 
     # -- 4. end-to-end commits against the JAX package's roots ---------------
@@ -582,7 +595,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": commit_counts[name] + prove_counts[name], "max_abs_err": k["max_abs_err"],
-         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "ms": k["ms"], "ms_is": "device time: CUDA events around a replayed CUDA graph of the calls, per call",
+         "call_ms": k["call_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None}
         for name, k in kernels.items()
     ]}))

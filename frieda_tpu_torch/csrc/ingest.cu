@@ -6,17 +6,28 @@
 // L = 2^log_size, and felt f is bits [30f, 30f + 30) of the little-endian
 // word stream (SURVEY.md A.1).
 //
-// Bound: device-memory bytes, about 16 B read and 4 B written per felt, and
-// no arithmetic worth counting.
+// Bound: device-memory bytes, 3.75 B read and 4 B written per felt, and no
+// arithmetic worth counting.
 //
-// Design: one thread per output element, in output order, so the writes are
-// coalesced; each thread reads the two words holding its felt. Bit offsets
-// are 64-bit (30f passes 2^32 once log_size + 2 > 27) and the high word is
-// read only when the felt straddles it (s > 2), never past the
-// ceil(30 * 4L / 32) + 1 words pad_to_words provides. The TPU version's
-// 15-word groups, in-VMEM transpose and two-step bit-reversal exist to avoid
-// element-granular gathers on the TPU; here a gather costs a sector read,
-// and the reads of one warp span few sectors only for small L.
+// Design: a bit-reversal tile through shared memory (log_size >= 10). With
+// r = hi * 2^(ls-5) + mid * 2^5 + lo (hi, lo < 32), rev(r) = rev5(lo) *
+// 2^(ls-5) + rev(mid) * 2^5 + rev5(hi). For one (c, mid, lo) the 32 values
+// of hi read the felts base + 0..31, base a multiple of 32: one 30-word run
+// (960 bits), word-aligned; for one hi the 32 values of lo write 32
+// contiguous outputs. A block takes P tiles whose rev(mid) are consecutive
+// (P = ops/ingest.py:ingest_tile(log_size): 8 from log_size 13 on), so for
+// each lo its P runs are one span of 30P words: at P = 8, 960 bytes, 32-byte
+// aligned, every sector read by one block, whole. The block reads its 32
+// spans with coalesced loads into runs padded to 31 words (odd, so the
+// unpack's 32 lanes, one run each, hit 32 banks), then each warp takes one
+// output row (one tile, one hi): lane lo unpacks felt rev5(hi) of run lo
+// (a field may straddle two words; the high word is read only when s > 2)
+// and writes it, 128 contiguous bytes a warp. Every word is read once and
+// every output written once. Below a full tile (log_size < 10) the
+// per-element form runs instead, chosen by shape alone: one thread per
+// output in output order, reading the one or two words of its felt. Bit
+// offsets there are 64-bit (30f passes 2^32 once log_size + 2 > 27), and no
+// word past the ceil(30 * 4L / 32) + 1 that pad_to_words provides is read.
 
 #include "common.cuh"
 
@@ -24,9 +35,47 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr uint32_t kMask30 = (1u << 30) - 1u;
+constexpr uint32_t kRunWords = 30;   // 32 felts of 30 bits
+constexpr uint32_t kRunStride = 31;  // a run's words in shared memory, padded
+
+__device__ __forceinline__ uint32_t rev5(uint32_t x) { return __brev(x) >> 27; }
+
+// Felt k (< 32) of a run of 30 words.
+__device__ __forceinline__ uint32_t unpack(const uint32_t* run, uint32_t k) {
+  const uint32_t bit = 30 * k, s = bit & 31;
+  uint32_t v = run[bit >> 5] >> s;
+  if (s > 2) v |= run[(bit >> 5) + 1] << (32 - s);
+  return v & kMask30;
+}
+
+template <uint32_t P>
+__global__ void __launch_bounds__(kThreads)
+ingest_tile_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out, int log_size) {
+  __shared__ uint32_t runs[P * 32 * kRunStride];  // run (pp, lo) at runs[(pp * 32 + lo) * 31]
+  const int mid_bits = log_size - 10;
+  const uint32_t per_column = (1u << mid_bits) / P;  // blocks a column
+  const uint32_t c = blockIdx.x / per_column;
+  const uint32_t p0 = (blockIdx.x % per_column) * P;  // rev(mid) of the block's first tile
+  const size_t column = size_t(c) << log_size;
+#pragma unroll 4
+  for (uint32_t i = threadIdx.x; i < 32 * kRunWords * P; i += kThreads) {
+    const uint32_t lo = i / (kRunWords * P), at = i % (kRunWords * P);
+    const size_t felt0 = column + (size_t(rev5(lo)) << (log_size - 5)) + size_t(p0) * 32;
+    runs[((at / kRunWords) * 32 + lo) * kRunStride + at % kRunWords] =
+        words[felt0 / 32 * kRunWords + at];
+  }
+  __syncthreads();
+  const uint32_t lo = threadIdx.x & 31;
+  for (uint32_t q = threadIdx.x / 32; q < 32 * P; q += kThreads / 32) {  // row (pp, hi)
+    const uint32_t pp = q / 32, hi = q % 32;
+    const uint32_t mid = mid_bits ? __brev(p0 + pp) >> (32 - mid_bits) : 0u;
+    out[column + (size_t(hi) << (log_size - 5)) + mid * 32 + lo] =
+        unpack(&runs[(pp * 32 + lo) * kRunStride], rev5(hi));
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
-ingest_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out, int log_size) {
+ingest_element_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out, int log_size) {
   const uint64_t L = uint64_t(1) << log_size;
   const uint64_t idx = uint64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= 4 * L) return;
@@ -41,15 +90,39 @@ ingest_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out, in
   out[idx] = v & kMask30;
 }
 
+template <uint32_t P>
+int launch_tile(const uint32_t* words, uint32_t* out, int log_size, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((uint64_t(4) << (log_size - 10)) / P));
+  ingest_tile_kernel<P><<<grid, kThreads, 0, stream>>>(words, out, log_size);
+  FRIEDA_LAUNCH_RESULT();
+}
+
 }  // namespace
 
-// words: >= ceil(30 * 2^(log_size + 2) / 32) + 1 u32; out: (4, 2^log_size) u32.
-extern "C" int frieda_ingest(const void* words, void* out, int log_size, void* stream) {
-  const uint64_t total = uint64_t(4) << log_size;
-  const dim3 grid(static_cast<unsigned>((total + kThreads - 1) / kThreads));
-  ingest_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), log_size);
-  FRIEDA_LAUNCH_RESULT();
+// words: >= ceil(30 * 2^(log_size + 2) / 32) + 1 u32; out: (4, 2^log_size)
+// u32. tile: tiles a block (1, 2, 4 or 8, at most 2^(log_size - 10)), or 0
+// for the per-element form.
+extern "C" int frieda_ingest(const void* words, void* out, int log_size, int tile, void* stream) {
+  const auto* w = static_cast<const uint32_t*>(words);
+  auto* o = static_cast<uint32_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (log_size < 0 || log_size > 30 ||
+      (tile && (log_size < 10 || tile > (1 << (log_size - 10))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (tile) {
+    case 0: {
+      const uint64_t total = uint64_t(4) << log_size;
+      const dim3 grid(static_cast<unsigned>((total + kThreads - 1) / kThreads));
+      ingest_element_kernel<<<grid, kThreads, 0, s>>>(w, o, log_size);
+      FRIEDA_LAUNCH_RESULT();
+    }
+    case 1: return launch_tile<1>(w, o, log_size, s);
+    case 2: return launch_tile<2>(w, o, log_size, s);
+    case 4: return launch_tile<4>(w, o, log_size, s);
+    case 8: return launch_tile<8>(w, o, log_size, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Message of a code returned by any frieda_* entry point.

@@ -8,7 +8,9 @@
 //
 // Bound: integer ALU work. A compression is ~1,100 32-bit operations for
 // 32-64 bytes in and 32 bytes out, so the leaf and inner levels are limited
-// by the SMs' integer throughput, not by device memory.
+// by the SMs' integer throughput, not by device memory. The collapse has too
+// little work for that: it is bound by its chain of log2(m) dependent
+// compressions, one per level.
 //
 // Design, merkle_level: one thread per output node, the whole compression in
 // registers, every 16-word message indexed with constants. Pairing is by
@@ -20,26 +22,42 @@
 // child hashes are live at once. Word w of node x sits at level[w * M + x]:
 // neighbouring threads read neighbouring words.
 //
-// Design, merkle_collapse: one block of 512 threads holds a level of width
-// m <= 4096 in shared memory (8 * m u32, 128 KB at 4096, which needs the
-// opt-in above 48 KB) and halves it in place down to the smallest requested
-// width. Thread x reads nodes x and x + half and writes node x, so no node is
-// written while another thread reads it; a barrier separates levels. When a
-// level's width is one of the requested widths (descending powers of two
-// dividing m, at most kMaxOuts of them) the block copies it out, and a
-// barrier keeps the next level from overwriting it before the copy ends. The
-// prover's pruned trees ask for m/8, m/64, ..., 1 (every third level); the
-// commit asks for 1. The TPU version keeps up to 8 x 32768 nodes (1 MiB) in
-// VMEM; a Hopper block has at most 227 KB, so merkle_level keeps fusing down
-// to width 4096 first.
+// Design, merkle_collapse: one thread-block cluster of B blocks (B from
+// ops/merkle.py:collapse_plan, a pure function of m: B = 1, 2, ..., 16) takes
+// a level of width m <= 4096 down the tree. Level width w pairs node x with
+// x + w/2, so the nodes x = b (mod B) form a subtree down to width B with no
+// exchange: block b reads its m/B nodes x = b + B*i (strided reads of a level
+// that the previous launch left in L2), pairs them into its own shared memory
+// on the first level, halves them in place down to one node, node b of the
+// width-B level, and stores that node into rank 0's shared memory through
+// distributed shared memory. After the cluster barrier, rank 0 ends the tree
+// from width B. A block has m/B/2 threads (at least one warp): one per
+// compression of its first level, so at 128 threads each scheduler of the SM
+// runs one warp, and the four independent G functions of a BLAKE2s
+// half-round are what hides the latency of the next. The requested widths
+// (descending powers of two dividing m, at most kMaxOuts; the prover's pruned
+// trees ask for m/8, m/64, ..., 1, the commit for 1) are written by the
+// blocks that own their nodes when w >= B, by rank 0 below B. Inside a block,
+// thread x reads nodes x and x + half and writes node x, so no node is
+// written while another thread reads it; a barrier separates levels, and
+// another keeps a level from being overwritten while it is copied out. With
+// B = 1 the same kernel runs as one block and no cluster barrier is reached.
+// The non-portable cluster size 16 is opted into once per process. The TPU
+// version keeps up to 8 x 32768 nodes (1 MiB) in VMEM; here merkle_level
+// keeps fusing down to width 4096 first.
+
+#include <cooperative_groups.h>
 
 #include "blake2s.cuh"
 #include "common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLevelThreads = 256;
-constexpr int kCollapseThreads = 512;
+constexpr uint32_t kClusterMax = 16;      // blocks of a collapse cluster (non-portable above 8)
+constexpr uint32_t kBlockNodesMax = 512;  // input nodes a collapse block takes
 constexpr long long kCollapseMax = 4096;
 constexpr int kMaxOuts = 13;  // distinct powers of two <= kCollapseMax
 
@@ -100,33 +118,92 @@ merkle_level_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   for (int w = 0; w < 8; ++w) out[w * out_width + j] = h[w];
 }
 
-__global__ void __launch_bounds__(kCollapseThreads)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Node j of a level held as 8 rows of `stride` words, hashed with node
+// j + half into node j.
+__device__ __forceinline__ void pair_in_place(uint32_t* lvl, uint32_t stride, uint32_t j,
+                                              uint32_t half) {
+  uint32_t a[8], b[8], h[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    a[w] = lvl[w * stride + j];
+    b[w] = lvl[w * stride + j + half];
+  }
+  frieda::blake2s_hash_pair(a, b, h);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) lvl[w * stride + j] = h[w];
+}
+
+__global__ void __launch_bounds__(kBlockNodesMax / 2)
 merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs, uint32_t m) {
-  extern __shared__ uint32_t lvl[];  // word w of node x at lvl[w * m + x]
-  for (uint32_t i = threadIdx.x; i < 8 * m; i += kCollapseThreads) lvl[i] = in[i];
+  __shared__ uint32_t lvl[8 * kBlockNodesMax / 2];  // word w of local node j at lvl[w * S + j]
+  __shared__ uint32_t top[8 * kClusterMax];         // rank 0's: the width-B level, word w of node b at top[w * B + b]
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t B = cluster.num_blocks(), b = cluster.block_rank();
+  const uint32_t t = threadIdx.x, T = blockDim.x;
+  const uint32_t n0 = m / B;              // input nodes of this block: x = b + B * i
+  const uint32_t S = n0 > 1 ? n0 / 2 : 1;  // row stride of lvl
+  const bool finish = outs.width[outs.count - 1] < B;  // rank 0 ends the tree below width B
+  if (finish) cluster_arrive_relaxed();  // paired with the wait before the remote stores
+  int next = 0;  // the next requested width; the same in every thread of the cluster
+  if (outs.width[0] == m) {
+    uint32_t* __restrict__ o = outs.ptr[0];
+    for (uint32_t i = t; i < 8 * n0; i += T) {
+      const uint32_t at = (i / n0) * m + b + B * (i % n0);
+      o[at] = in[at];
+    }
+    if (++next == outs.count) return;
+  }
+  if (n0 == 1) {
+    if (t < 8) lvl[t] = in[t * m + b];
+  } else {
+    for (uint32_t j = t; j < S; j += T) {  // the first level, straight from device memory
+      uint32_t a[8], c[8], h[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        a[w] = in[w * m + b + B * j];
+        c[w] = in[w * m + b + B * (j + S)];
+      }
+      frieda::blake2s_hash_pair(a, c, h);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) lvl[w * S + j] = h[w];
+    }
+  }
   __syncthreads();
-  int next = 0;  // the next requested width; the same in every thread
-  for (uint32_t width = m;; width /= 2) {
+  for (uint32_t n = S;; n /= 2) {  // this block's n nodes of the level of width n * B
+    const uint32_t width = n * B;
     if (width == outs.width[next]) {
       uint32_t* __restrict__ o = outs.ptr[next];
-      for (uint32_t i = threadIdx.x; i < 8 * width; i += kCollapseThreads) {
-        o[i] = lvl[(i / width) * m + i % width];  // out is (8, width)
+      for (uint32_t i = t; i < 8 * n; i += T) {
+        o[(i / n) * width + b + B * (i % n)] = lvl[(i / n) * S + i % n];  // out is (8, width)
       }
+      if (++next == outs.count) return;  // never when finish: a width below B is left
+      __syncthreads();
+    }
+    if (n == 1) break;
+    for (uint32_t j = t; j < n / 2; j += T) pair_in_place(lvl, S, j, n / 2);
+    __syncthreads();
+  }
+  // finish: node b of the width-B level goes to rank 0
+  cluster_wait();  // every block of the cluster has started
+  if (t < 8) *cluster.map_shared_rank(&top[t * B + b], 0) = lvl[t * S];
+  cluster.sync();
+  if (b != 0) return;
+  for (uint32_t width = B;; width /= 2) {  // width B itself is never requested here
+    if (width == outs.width[next]) {
+      uint32_t* __restrict__ o = outs.ptr[next];
+      for (uint32_t i = t; i < 8 * width; i += T) o[i] = top[(i / width) * B + i % width];
       if (++next == outs.count) return;
       __syncthreads();
     }
-    const uint32_t half = width / 2;
-    for (uint32_t x = threadIdx.x; x < half; x += kCollapseThreads) {
-      uint32_t a[8], b[8], h[8];
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        a[w] = lvl[w * m + x];
-        b[w] = lvl[w * m + x + half];
-      }
-      frieda::blake2s_hash_pair(a, b, h);
-#pragma unroll
-      for (int w = 0; w < 8; ++w) lvl[w * m + x] = h[w];
-    }
+    if (t < width / 2) pair_in_place(top, B, t, width / 2);
     __syncthreads();
   }
 }
@@ -154,10 +231,14 @@ extern "C" int frieda_merkle_level(const void* in, void* out, long long width, i
 }
 
 // in: (8, m) u32 level, m a power of two <= 4096; outs[j]: (8, widths[j])
-// u32, widths descending powers of two that divide m, 1 <= n_out <= 13.
+// u32, widths descending powers of two that divide m, 1 <= n_out <= 13;
+// cluster: blocks of the cluster, a power of two <= 16 with m / cluster
+// <= 512.
 extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const long long* widths,
-                                      int n_out, long long m, void* stream) {
-  if (m < 1 || m > kCollapseMax || (m & (m - 1)) || n_out < 1 || n_out > kMaxOuts) {
+                                      int n_out, long long m, int cluster, void* stream) {
+  if (m < 1 || m > kCollapseMax || (m & (m - 1)) || n_out < 1 || n_out > kMaxOuts ||
+      cluster < 1 || cluster > static_cast<int>(kClusterMax) || (cluster & (cluster - 1)) ||
+      cluster > m || m / cluster > kBlockNodesMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CollapseOuts o{};
@@ -170,11 +251,24 @@ extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const l
     o.width[j] = static_cast<uint32_t>(w);
   }
   o.count = n_out;
-  const size_t smem = size_t(8) * static_cast<size_t>(m) * sizeof(uint32_t);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      merkle_collapse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  merkle_collapse_kernel<<<1, kCollapseThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), o, static_cast<uint32_t>(m));
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      merkle_collapse_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const uint32_t nodes = static_cast<uint32_t>(m / cluster);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.blockDim = dim3(nodes > 64 ? nodes / 2 : 32);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, merkle_collapse_kernel,
+                                           static_cast<const uint32_t*>(in), o,
+                                           static_cast<uint32_t>(m));
+  if (e != cudaSuccess) return static_cast<int>(e);
   FRIEDA_LAUNCH_RESULT();
 }

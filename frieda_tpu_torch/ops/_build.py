@@ -33,11 +33,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "frieda_ingest": (_VP, _VP, _I, _VP),
+    "frieda_ingest": (_VP, _VP, _I, _I, _VP),
     "frieda_fft_pass": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     "frieda_fft_pass_launch_shape": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _VP),
-    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _VP),
+    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _VP),
 }
 
 _lib = None

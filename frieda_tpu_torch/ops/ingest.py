@@ -2,8 +2,10 @@
 
 Replaces `frieda_tpu/ops/ingest_pallas.py::ingest_rows` together with the
 `bitrev_rows_device` step after it (`utils/packing.device_ingest_rev`): one
-CUDA kernel (`csrc/ingest.cu`) writes each output element straight from its
-two source words, for every log_size >= 0.
+CUDA kernel launch (`csrc/ingest.cu`) for every log_size >= 0. From
+log_size 10 on, a block reads whole aligned 30-word runs (32 felts) into
+shared memory and writes 32 x 32 bit-reversal tiles (`ingest_tile`); below
+that, one thread per output reads the words of its felt.
 
 Output [c, r] is felt f = c*L + rev_{log_size}(r) (L = 2^log_size), and
 felt f is bits [30f, 30f + 30) of the little-endian word stream:
@@ -22,6 +24,14 @@ from . import _build
 
 _MASK30 = (1 << 30) - 1
 _M32 = 0xFFFFFFFF
+TILE_LOG = 10  # log_size of one 32 x 32 tile: r = hi * 2^(log_size - 5) + mid * 32 + lo
+TILES_MAX = 8  # tiles a block: at 8, each span a block reads is 960 bytes, 32-byte aligned
+
+
+def ingest_tile(log_size: int) -> int:
+    """Tiles a block of the kernel takes (consecutive rev(mid)), or 0 for the
+    per-element form below a full tile."""
+    return 0 if log_size < TILE_LOG else min(TILES_MAX, 1 << (log_size - TILE_LOG))
 
 
 def ingest_plain(words: torch.Tensor, log_size: int) -> torch.Tensor:
@@ -41,8 +51,8 @@ def ingest_plain(words: torch.Tensor, log_size: int) -> torch.Tensor:
 def ingest(words: torch.Tensor, log_size: int) -> torch.Tensor:
     """words: (nw,) int32 from `pad_to_words` (log_total = log_size + 2),
     nw >= ceil(30 * 2^log_total / 32) + 1. Returns (4, 2^log_size) int32.
-    Launches the kernel on a CUDA tensor, runs the plain version on a CPU
-    tensor."""
+    Launches the kernel on a CUDA tensor, with `ingest_tile(log_size)` tiles
+    a block, runs the plain version on a CPU tensor."""
     if log_size < 0:
         raise ValueError(f"log_size must be >= 0, got {log_size}")
     need = words_for(log_size + 2)
@@ -53,7 +63,7 @@ def ingest(words: torch.Tensor, log_size: int) -> torch.Tensor:
         out = torch.empty((4, 1 << log_size), dtype=torch.int32, device=words.device)
         lib = _build.library()
         _build.check_launch(lib.frieda_ingest(
-            words.data_ptr(), out.data_ptr(), log_size, _build.stream_of(words)))
+            words.data_ptr(), out.data_ptr(), log_size, ingest_tile(log_size), _build.stream_of(words)))
         ingest.launches += 1
         return out
     return narrow(ingest_plain(widen(words), log_size))

@@ -5,11 +5,13 @@ collapse (`merkle_collapse`), both BLAKE2s zero-state raw compressions.
 `frieda_tpu/ops/merkle_pallas.py` (`leaf_level`, `inner_level`,
 `leaf3_level`, `inner3_level`): one thread per output node, one level or
 three levels per pass, leaf mode hashing [c0..c3, 0 x 12] first.
-`merkle_collapse` replaces `collapse_level` / `collapse_multi`: one block
-takes a level of width <= COLLAPSE_MAX down the tree with every
-intermediate level in shared memory, and writes each requested width (the
-commit asks for the root only, the prover's pruned trees for every third
-level of the tail). Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
+`merkle_collapse` replaces `collapse_level` / `collapse_multi`: one
+thread-block cluster of `collapse_plan(m)` blocks takes a level of width
+<= COLLAPSE_MAX down the tree with every intermediate level in shared
+memory (block b the subtree of the nodes x = b mod B down to width B, then
+rank 0 the rest), and writes each requested width (the commit asks for the
+root only, the prover's pruned trees for every third level of the tail).
+Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
 from __future__ import annotations
@@ -22,9 +24,16 @@ from ..core.merkle import hash_leaves, hash_parents
 from ..utils.convert import narrow, widen
 from . import _build
 
-# Widest level the collapse block holds: 8 x 4096 u32 = 128 KB of the 227 KB
-# of shared memory a Hopper block may opt into.
-COLLAPSE_MAX = 4096
+CLUSTER_MAX = 16  # the largest cluster a Hopper card runs (non-portable above 8)
+BLOCK_NODES = 256  # input nodes a block of the plan takes: 128 compressions, a warp per scheduler
+BLOCK_NODES_MAX = 512  # the kernel's limit (8 KB of shared memory for its first level)
+COLLAPSE_MAX = CLUSTER_MAX * BLOCK_NODES  # 4096: the widest level the collapse takes
+
+
+def collapse_plan(m: int) -> int:
+    """Blocks of the collapse cluster for a level of width m: one block per
+    BLOCK_NODES nodes, 1 to CLUSTER_MAX."""
+    return min(CLUSTER_MAX, max(1, m // BLOCK_NODES))
 
 
 def merkle_level_plain(x: torch.Tensor, leaf: bool, fused: bool) -> torch.Tensor:
@@ -79,8 +88,9 @@ def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,)) -> list:
 
 def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
     """(8, m) int32 level, m a power of two <= COLLAPSE_MAX -> [(8, w) int32
-    for w in out_widths] (descending powers of two dividing m), in one launch
-    on a CUDA tensor; the plain version on a CPU tensor."""
+    for w in out_widths] (descending powers of two dividing m), in one
+    cluster launch of `collapse_plan(m)` blocks on a CUDA tensor; the plain
+    version on a CPU tensor."""
     m = level.shape[1]
     _build.check_u32(level, "level", (8, m))
     if not 1 <= m <= COLLAPSE_MAX or m & (m - 1):
@@ -92,7 +102,7 @@ def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
         ws = (ctypes.c_longlong * len(widths))(*widths)
         lib = _build.library()
         _build.check_launch(lib.frieda_merkle_collapse(
-            level.data_ptr(), ptrs, ws, len(widths), m, _build.stream_of(level)))
+            level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), _build.stream_of(level)))
         merkle_collapse.launches += 1
         return outs
     return [narrow(o) for o in merkle_collapse_plain(widen(level), widths)]

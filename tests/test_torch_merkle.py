@@ -9,6 +9,7 @@ pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from frieda_tpu.core import merkle as jm  # noqa: E402
 from frieda_tpu.spec import blake2s as sb  # noqa: E402
@@ -97,6 +98,60 @@ def test_collapse_matches_full_build(log_m):
     want = jm.host_levels_from(level)[-1] if log_m else level
     got = merkle_ops.merkle_collapse(from_numpy_u32(level, "cpu"))[0]
     assert np.array_equal(to_numpy_u32(got), want)
+
+
+def _cluster_collapse(level, widths, B):
+    """Mirror of `merkle_collapse`'s cluster split: block b takes the nodes
+    x = b + B * i (its local node i) and halves them with `hash_parents`
+    down to one node, writing each requested width w >= B at the columns it
+    owns; rank 0 then ends the tree from the width-B level (node b at column
+    b), writing the widths below B."""
+    m = level.shape[1]
+    blocks = [level[:, b::B] for b in range(B)]
+    outs, width = {}, m
+    while True:
+        if width in widths:
+            outs[width] = torch.stack(blocks, dim=2).reshape(8, width)  # column b + B * i
+        if width == B:
+            break
+        blocks = [tm.hash_parents(blk) for blk in blocks]
+        width //= 2
+    top = torch.cat(blocks, 1)
+    while width > min(widths):
+        top = tm.hash_parents(top)
+        width //= 2
+        if width in widths:
+            outs[width] = top
+    return [outs[w] for w in widths]
+
+
+_SPLITS = [(log_m, B) for log_m in range(13) for B in (1, 2, 4, 8, 16)
+           if B <= 1 << log_m and (1 << log_m) // B <= merkle_ops.BLOCK_NODES_MAX]
+
+
+@pytest.mark.parametrize("log_m,B", _SPLITS)
+def test_cluster_collapse_mirror_matches_plain(log_m, B):
+    m = 1 << log_m
+    level = np.random.default_rng(100 + log_m).integers(0, 1 << 32, (8, m), dtype=np.uint64)
+    level = widen(from_numpy_u32(level.astype(np.uint32), "cpu"))
+    for widths in {(1,), tm.tail_widths(m) if m > 1 else (1,), tuple(sorted({m, B, 1}, reverse=True))}:
+        got = _cluster_collapse(level, widths, B)
+        want = merkle_ops.merkle_collapse_plain(level, widths)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (m, B, widths)
+
+
+def test_collapse_plan():
+    plans = [merkle_ops.collapse_plan(1 << k) for k in range(13)]
+    for k, B in enumerate(plans):
+        m = 1 << k
+        assert B & (B - 1) == 0 and 1 <= B <= min(merkle_ops.CLUSTER_MAX, m)
+        assert m // B <= merkle_ops.BLOCK_NODES
+    assert plans == sorted(plans) and plans[0] == 1 and plans[-1] == merkle_ops.CLUSTER_MAX
+    for bad in (2 * merkle_ops.COLLAPSE_MAX, 48):  # wider than the plan covers; not a power of two
+        with pytest.raises(ValueError):
+            merkle_ops.merkle_collapse(from_numpy_u32(np.zeros((8, bad), np.uint32), "cpu"))
 
 
 def test_root_bytes_little_endian():

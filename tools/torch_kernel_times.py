@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Time the port's kernels on one CUDA card at the shapes the main path
+gives them, each checked bit-equal to its plain version first.
+
+    python3 tools/torch_kernel_times.py [--root DIR] [--parts lde,ingest,merkle] [--reps N]
+    python3 tools/torch_kernel_times.py --compare DIR [--parts ...]
+    python3 tools/torch_kernel_times.py --ablate
+    python3 tools/torch_kernel_times.py --plans
+
+Parts, one line each shape:
+- `lde`: `core.fft.evaluate_auto` (the `fft_pass` launches of
+  `ops.fft.pass_plan`) at n = 22, 24, 26, whole and per launch, with bytes
+  and TB/s a launch: call time (`torch_harness.cuda_ms`, median of --reps);
+- `ingest`: `ingest` at log_size 20 and 22;
+- `merkle`: `merkle_collapse` at each width m at which a tree of the
+  2^24-felt proof reaches it, with the prover's tail widths, and their sum
+  over the proof's 22 trees, the commit's 2048 -> 1; `merkle_level` leaf
+  2^12 and inner 2^13 (the proof's rebuilds), fused leaf 2^24 and inner
+  2^23. `ingest` and `merkle` give device time (`torch_harness.device_ms`:
+  CUDA events around a replayed CUDA graph of 20 calls, per call).
+The first line gives the card's `nvidia-smi` name and power limit. Exits
+nonzero without CUDA.
+
+`--root` imports `frieda_tpu_torch` from another checkout (for example an
+older commit unpacked under build/). `--compare DIR` builds both checkouts'
+kernels at once, then runs DIR, this checkout, this checkout and DIR, one
+process each, on the same card.
+
+`--ablate` copies this checkout's package under build/kernel_variants/,
+once with each part of `csrc/fft.cu` in ABLATIONS taken out, and times the
+LDE of the kernel as it is and of the copies in turns (the copies' outputs
+are wrong by design and not checked): what bounds each `fft_pass` launch.
+`--plans` copies it with the plans' neighbours in PLANS (half and twice the
+collapse cluster of `collapse_plan`, half the ingest tiles of
+`ingest_tile`) and times the ingest and the Merkle kernels of the package
+as it is and of the copies in turns, each checked.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+from torch_harness import (REPO, build_all, card, cuda_ms, device_ms, in_turns,
+                           package_copies, proof_collapse_widths)
+
+LDE_SHAPES = ((22, 18), (24, 20), (26, 22))  # 2^20-felt prove, 2^22 commit, 2^24 commit and prove
+P = (1 << 31) - 1
+SEED = 20261016
+# (name, [(file in the package, text, its replacement), ...])
+ABLATIONS = (
+    ("no_arith", [("csrc/fft.cu", "butterfly(x[e], x[e | (1 << b)], t2[(1 << b) - 1 + lo]);", "x[e] ^= 1u;"),
+                  ("csrc/fft.cu", "t2[(1 << b) - 1 + lo] = *T << 1;", "t2[(1 << b) - 1 + lo] = 0;")]),
+    ("no_twiddle_loads", [("csrc/fft.cu", "t2[(1 << b) - 1 + lo] = *T << 1;",
+                           "t2[(1 << b) - 1 + lo] = (jb + lo + b) << 1;")]),
+    ("no_device_memory", [("csrc/fft.cu", "x[e] = *s;", "x[e] = (jb + e) & 0x3fffffffu;"),
+                          ("csrc/fft.cu", "*d = x[e];", "if (x[e] == 0xffffffffu) *d = x[e];")]),
+)
+PLAN_RULE = "max(1, m // BLOCK_NODES))"
+PLANS = (
+    ("cluster_half", [("ops/merkle.py", PLAN_RULE, "max(1, m // (2 * BLOCK_NODES)))")]),
+    ("cluster_double", [("ops/merkle.py", PLAN_RULE, "max(1, 2 * m // BLOCK_NODES))")]),
+    ("tiles_half", [("ops/ingest.py", "TILES_MAX = 8", "TILES_MAX = 4")]),
+)
+
+
+def time_lde(dev, rng, reps: int, checked: bool) -> None:
+    from frieda_tpu_torch.core import fft
+    from frieda_tpu_torch.ops import fft as fft_ops
+    from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, widen
+
+    for n, log_l in LDE_SHAPES:
+        tw = fft.stage_twiddles(n, dev)
+        coeffs = from_numpy_u32(rng.integers(0, P, (4, 1 << log_l), dtype=np.uint32), dev)
+        got = fft.evaluate_auto(coeffs, tw)
+        if checked and not torch.equal(got, narrow(fft.evaluate(widen(coeffs), tw))):
+            raise SystemExit(f"torch_kernel_times: LDE n={n} log_l={log_l} differs from plain")
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw), reps)  # noqa: B023
+        p_min, groups = fft_ops.pass_plan(n, log_l)
+        what = "bit-equal" if checked else "not checked"
+        print(f"[times] LDE n={n} log_l={log_l}: {what}; call {ms:.4f} ms, {len(groups)} launches", flush=True)
+        src, shift = coeffs, p_min
+        for p_lo, p_hi, k in groups:
+            g_ms = cuda_ms(lambda: fft_ops.fft_pass(src, tw, got, p_lo, p_hi, k, shift), reps)  # noqa: B023
+            n_bytes = 4 * (src.numel() + got.numel() + (1 << p_hi) - (1 << p_lo))
+            print(f"[times]   launch ({p_lo}, {p_hi}, {k}): {g_ms:.4f} ms, {n_bytes} bytes, "
+                  f"{n_bytes / g_ms / 1e9:.3f} TB/s", flush=True)
+            src, shift = got, 0
+        del tw, coeffs, got, src
+        torch.cuda.empty_cache()
+
+
+def time_ingest(rand_u32) -> None:
+    from frieda_tpu_torch.ops import ingest as ingest_ops
+    from frieda_tpu_torch.utils.convert import narrow, widen
+    from frieda_tpu_torch.utils.packing import words_for
+
+    for log_size in (20, 22):
+        words = rand_u32((words_for(log_size + 2),))
+        if not torch.equal(ingest_ops.ingest(words, log_size),
+                           narrow(ingest_ops.ingest_plain(widen(words), log_size))):
+            raise SystemExit(f"torch_kernel_times: ingest log_size={log_size} differs from plain")
+        ms = device_ms(lambda: ingest_ops.ingest(words, log_size))  # noqa: B023
+        form = (f" ({ingest_ops.ingest_tile(log_size)} tiles a block)"
+                if hasattr(ingest_ops, "ingest_tile") else "")
+        print(f"[times] ingest log_size={log_size}{form}: bit-equal; device {ms:.4f} ms", flush=True)
+
+
+def time_merkle(rand_u32) -> None:
+    from frieda_tpu_torch.core import merkle
+    from frieda_tpu_torch.ops import merkle as merkle_ops
+    from frieda_tpu_torch.utils.convert import narrow, widen
+
+    shapes = proof_collapse_widths()
+    times = {}
+    for m, widths in sorted({(m, merkle.tail_widths(m)) for m in shapes} | {(2048, (1,))}, reverse=True):
+        level = rand_u32((8, m))
+        got = merkle_ops.merkle_collapse(level, widths)
+        want = merkle_ops.merkle_collapse_plain(widen(level), widths)
+        if not all(torch.equal(g, narrow(w)) for g, w in zip(got, want)):
+            raise SystemExit(f"torch_kernel_times: merkle_collapse {m} -> {widths} differs from plain")
+        ms = times[m, widths] = device_ms(lambda: merkle_ops.merkle_collapse(level, widths))  # noqa: B023
+        plan = f" (cluster {merkle_ops.collapse_plan(m)})" if hasattr(merkle_ops, "collapse_plan") else ""
+        print(f"[times] merkle_collapse {m} -> {widths}{plan}: bit-equal; device {ms:.4f} ms", flush=True)
+    print(f"[times] merkle_collapse over the 2^24-felt proof's {len(shapes)} trees: device "
+          f"{sum(times[m, merkle.tail_widths(m)] for m in shapes):.4f} ms", flush=True)
+    for leaf, fused, width in ((True, False, 1 << 12), (False, False, 1 << 13),
+                               (True, True, 1 << 24), (False, True, 1 << 23)):
+        x = rand_u32((4, width), P) if leaf else rand_u32((8, width))
+        if not torch.equal(merkle_ops.merkle_level(x, leaf, fused),
+                           narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused))):
+            raise SystemExit(f"torch_kernel_times: merkle_level leaf={leaf} fused={fused} width {width} "
+                             "differs from plain")
+        ms = device_ms(lambda: merkle_ops.merkle_level(x, leaf, fused))  # noqa: B023
+        print(f"[times] merkle_level leaf={leaf} fused={fused} width {width}: bit-equal; "
+              f"device {ms:.4f} ms", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--parts", default="lde,ingest,merkle")
+    ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--compare")
+    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--plans", action="store_true")
+    args = ap.parse_args()
+    if args.compare or args.ablate or args.plans:
+        if args.compare:
+            roots, parts = [pathlib.Path(args.compare).resolve(), REPO], args.parts
+        else:
+            roots = [REPO] + package_copies(REPO / "build" / "kernel_variants",
+                                            ABLATIONS if args.ablate else PLANS)
+            parts = "lde" if args.ablate else "ingest,merkle"
+        if not build_all(roots):
+            return 1
+        return in_turns(roots, lambda root: [
+            sys.executable, __file__, "--root", str(root), "--reps", str(args.reps), "--parts", parts]
+            + (["--no-check"] if args.ablate and root != REPO else []))
+    parts = args.parts.split(",")
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: CUDA is not available", file=sys.stderr)
+        return 1
+    from frieda_tpu_torch.utils.convert import from_numpy_u32
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+
+    def rand_u32(shape, hi=1 << 32):
+        return from_numpy_u32(rng.integers(0, hi, shape, dtype=np.uint64).astype(np.uint32), dev)
+
+    print(f"[times] root {args.root}; card {card()}", flush=True)
+    if "lde" in parts:
+        time_lde(dev, rng, args.reps, not args.no_check)
+        torch.cuda.empty_cache()
+    if "ingest" in parts:
+        time_ingest(rand_u32)
+    if "merkle" in parts:
+        time_merkle(rand_u32)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
