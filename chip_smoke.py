@@ -10,7 +10,7 @@ Phases, each printed as it runs:
      and the integer instructions of one BLAKE2s compression and of one M31
      butterfly, counted in the built SASS (cuobjdump), for the kernels'
      bounds;
-  3. each of the four kernels against its plain PyTorch version on the card,
+  3. each of the five kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with the
      least time the card could take for the same work (bound) and two times:
      "device" ms, the time of the call's launches alone on the card (CUDA
@@ -25,7 +25,11 @@ Phases, each printed as it runs:
      TB/s, threads and dynamic shared memory a block); `merkle_collapse` at
      every width m = 2^0 ... 2^12 with width 1 and the prover's tail widths,
      so at every cluster size its plan picks (1 ... 16), timed at the widths
-     the 2^24-felt proof's 22 trees give it (with their sum);
+     the 2^24-felt proof's 22 trees give it (with their sum); `merkle_open`
+     at the openings of a 2^20-felt / 64-query and a 2^24-felt / 20-query
+     proof (their real layers, trees and queries, from `fri.commit_phase`
+     and `fri.plan_openings`), with the chain floor of one launch and three
+     dependent compressions;
   4. `api.commit(data, 4, device="cuda")` on synthetic blobs against anchor
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
@@ -37,10 +41,12 @@ Phases, each printed as it runs:
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
      path's (the same prover on the plain versions); median
-     prove time, a per-stage split, kernel launches per proof and peak device
-     memory;
+     prove time of three runs, each run's stage split (the decommitment as
+     plan, open and assemble), kernel launches per proof (`merkle_open` once,
+     no `merkle_level` in the decommitment) and peak device memory;
   8. every kernel's launch count over the commit phases (4-5) and over the
-     prove phases (6-7): each must be > 0 in both.
+     prove phases (6-7): each must be > 0 in both, except `merkle_open`,
+     which only a proof launches.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON.
@@ -153,6 +159,8 @@ def plain_route():
         level=lambda x, leaf, fused: narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused)),
         collapse=lambda lvl, widths: [
             narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths)],
+        open=lambda layers, trees, values, nodes: narrow(
+            merkle_ops.merkle_open_plain(layers, trees, values, nodes)),
     )
 
 
@@ -417,8 +425,8 @@ def main() -> int:
         source="frieda_tpu_torch/csrc/merkle.cu", replaces="frieda_tpu/ops/merkle_pallas.py:188",
         **level_case(True, True, 1 << 24, "leaf3_level, 2^22-felt commit's first tree"))
     level_case(False, True, 1 << 23, "inner3_level, 2^24-felt prove's first tree")
-    level_case(True, False, 1 << 12, "leaf_level, prove's leaf rebuilds")
-    level_case(False, False, 1 << 13, "inner_level, prove's node rebuilds")
+    level_case(True, False, 1 << 12, "leaf_level; root_level and build_pruned below 8 leaves")
+    level_case(False, False, 1 << 13, "inner_level; no main-path caller")
 
     def collapse_case(m: int, widths: tuple) -> list:
         level = rand_u32((8, m))
@@ -464,6 +472,44 @@ def main() -> int:
         f"{sorted(shapes, reverse=True)}): device {sum(collapse_dev[m] for m in shapes):.4f} ms in all; "
         f"chain floor at m = 4096: 12 x {collapse_dev[2]:.4f} = {12 * collapse_dev[2]:.4f} ms; "
         f"m = 1 (a copy of 8 words: the graph's time a launch) {gap_ms:.4f} ms")
+
+    # merkle_open at two proofs' openings; its chain floor: one launch and
+    # three dependent compressions, a compression timed as a level of the
+    # one-block collapse chain (m = 256 has 8 levels, m = 2 one)
+    level_ms = (collapse_dev[256] - collapse_dev[2]) / 7
+    for log_felts, nq in ((20, 64), (24, 20)):
+        cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
+        data = synthetic_data(felt_bytes(log_felts))
+        log_total = log_total_for(len(data))
+        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev), log_total, 7, cfg)
+        values, nodes = fri.plan_openings(committed.layers, committed.trees, committed.queries)[0].jobs()
+        args = (committed.layers, committed.trees, values, nodes)
+        got = merkle_ops.merkle_open(*args)
+        want = narrow(merkle_ops.merkle_open_plain(*args))
+        check(torch.equal(got, want), f"merkle_open at the 2^{log_felts}-felt proof's opening differs")
+        table = torch.from_numpy(merkle_ops.open_table(*args)).to(dev)
+        ms = device_ms(lambda: merkle_ops.merkle_open(*args, table))  # noqa: B023
+        call = cuda_ms(lambda: merkle_ops.merkle_open(*args))  # noqa: B023
+        plain_ms = cuda_ms(lambda: merkle_ops.merkle_open_plain(*args), reps=3)  # noqa: B023
+        _, _, _, r, leaf, _ = merkle_ops.open_plan(committed.trees, values, nodes)
+        hashes = int(((leaf + 1) * (1 << r) - 1).sum())  # leaf hashes, then 2^r - 1 pairs a read
+        read = np.where(leaf, 16, 32) << r  # 2^r leaves (4 words) or stored nodes (8 words)
+        n_bytes = 8 * table.numel() + 16 * len(values) + int(read.sum()) + 4 * got.numel()
+        b_ms, b_by = bound(n_bytes, hashes * comp_ops)
+        say(f"[3] merkle_open, 2^{log_felts}-felt / {nq}-query proof ({len(committed.layers)} layers, "
+            f"{len(values)} values, {len(nodes)} nodes, {hashes} compressions): bit-equal; device "
+            f"{ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
+            f"{n_bytes} bytes); chain floor {gap_ms:.4f} + 3 x {level_ms:.4f} = "
+            f"{gap_ms + 3 * level_ms:.4f} ms")
+        if log_felts == 24:
+            kernels["merkle_open"] = dict(
+                source="frieda_tpu_torch/csrc/merkle.cu",
+                replaces="frieda_tpu/ops/merkle_pallas.py:111 and :127 (in frieda_tpu/core/fri.py:68)",
+                max_abs_err=max_abs_err(got, want), ms=ms, call_ms=call, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+        del committed, args, got, want, table
+        torch.cuda.empty_cache()
+    fri._fold_tables.clear()  # phase 7's peak memory counts no tables of these proofs
     torch.cuda.synchronize()
 
     # -- 4. end-to-end commits against the JAX package's roots ---------------
@@ -513,8 +559,8 @@ def main() -> int:
     say(f"[5] 2^24-felt commit: kernel path root == plain path root {plain_root}")
     commit_counts = ops.launch_counts()
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
-    for name, count in commit_counts.items():
-        check(count > 0, f"kernel {name} was never launched by the commit path")
+    for name, count in commit_counts.items():  # merkle_open reads a proof's openings only
+        check(count > 0 or name == "merkle_open", f"kernel {name} was never launched by the commit path")
 
     # -- 6. proofs against the JAX package's ---------------------------------
     ops.reset_launch_counts()
@@ -537,7 +583,6 @@ def main() -> int:
             f"({wire_note(proof)}), commitment == api.commit ({wall:.3f} s)")
 
     # -- 7. the staged prove at full width ------------------------------------
-    prove_rows = {}
     for log_felts, nq in ((20, 64), (24, 20)):
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
@@ -552,25 +597,26 @@ def main() -> int:
         per_proof = {k: v - before[k] for k, v in ops.launch_counts().items()}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
-        walls = []
+        walls, splits = [], []
         for _ in range(3):
+            stats = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, proof = api.commit_and_prove_staged(words, log_total, 7, cfg)
+            _, proof = fri.prove_words(words, log_total, 7, cfg, stats=stats)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            splits.append(" ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items()))
             check(proof.to_bytes() == wire, f"2^{log_felts}-felt proof changed between runs")
-        stats = {}
-        fri.prove_words(words, log_total, 7, cfg, stats=stats)
-        split = " ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items())
-        prove_rows[log_felts] = dict(ms=statistics.median(walls) * 1e3, walls_ms=[w * 1e3 for w in walls],
-                                     split_ms={k: v * 1e3 for k, v in stats["stage_s"].items()},
-                                     launches=per_proof, rebuild=stats["rebuild_launches"], peak=peak)
-        say(f"[7] staged prove 2^{log_felts} felts, {nq} queries, pow 20: median "
-            f"{prove_rows[log_felts]['ms']:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
-            f"stages (synchronized run, ms): {split}; kernel launches per proof {per_proof} "
-            f"(of them merkle_level for node rebuilds: {stats['rebuild_launches']}); "
+            opened = stats["stage_launches"]["decommit_open"]
+            check(stats["open_launches"] == 1 and opened["merkle_open"] == 1 and opened["merkle_level"] == 0,
+                  f"2^{log_felts}-felt proof: the decommitment launched {opened}")
+        say(f"[7] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (stages synchronized): median "
+            f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
+            f"kernel launches per proof {per_proof} (in the decommitment: merkle_open "
+            f"{opened['merkle_open']}, merkle_level rebuilds {opened['merkle_level']}); "
             f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
+        for i, split in enumerate(splits):
+            say(f"[7]   run {i + 1} stages (ms): {split}")
         if log_felts == 24:
             del warm, proof
             torch.cuda.empty_cache()

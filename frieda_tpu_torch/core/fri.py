@@ -18,10 +18,11 @@ dispatch with a device-side transcript, to spare round trips to a remote
 TPU. Here the device work is enqueued eagerly and the host drives the
 channel: each layer's 32-byte root is fetched before its alpha is drawn (one
 small sync per layer). The evaluations, every folded layer and every pruned
-tree stay on the device until the queries are known; `merkle.Opening` then
-reads exactly the values and nodes the deduplicated query set needs, in a
-few launches and one fetch, where the JAX package gathers every raw query's
-full authentication path into one packed vector (`_packed_layout`).
+tree stay on the device until the queries are known (`commit_phase`);
+`merkle.Opening` then reads exactly the values and nodes the deduplicated
+query set needs (`plan_openings`), in one `merkle_open` launch and one
+fetch, where the JAX package gathers every raw query's full authentication
+path into one packed vector (`_packed_layout`).
 
 The pipeline's LDE and tree functions come in a `Route`: the kernel wrappers
 (`KERNELS`) for callers, and any other route of the same signatures (the
@@ -37,6 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import ops
 from ..config import DEFAULT_CONFIG, PcsConfig
 from ..ops import ingest as ingest_ops
 from ..ops import merkle as merkle_ops
@@ -61,10 +63,11 @@ class Route(NamedTuple):
     evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (4, 2^n) evaluations
     level: Callable  # (x, leaf, fused) -> Merkle level
     collapse: Callable  # (level, out_widths) -> [levels]
+    open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening
 
 
 KERNELS = Route(ingest_ops.ingest, fft.evaluate_auto, merkle_ops.merkle_level,
-                merkle_ops.merkle_collapse)
+                merkle_ops.merkle_collapse, merkle_ops.merkle_open)
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +183,16 @@ def _merkle_witness_plans(log_n: int, known_leaves):
 
 class _Clock:
     """Host wall time per stage, synchronized at both ends, when `stats` is a
-    dict (stats["stage_s"][name] accumulates seconds); a no-op otherwise."""
+    dict (stats["stage_s"][name] accumulates seconds, and
+    stats["stage_launches"][name][kernel] the stage's kernel launches); a
+    no-op otherwise."""
 
     def __init__(self, device: torch.device, stats):
         self.stats = stats
         self.sync = device.type == "cuda"
         if stats is not None:
             stats["stage_s"] = {}
+            stats["stage_launches"] = {}
 
     @contextlib.contextmanager
     def __call__(self, name: str):
@@ -195,12 +201,16 @@ class _Clock:
             return
         if self.sync:
             torch.cuda.synchronize()
+        before = ops.launch_counts()
         t0 = time.perf_counter()
         yield
         if self.sync:
             torch.cuda.synchronize()
         stages = self.stats["stage_s"]
         stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        launches = self.stats["stage_launches"].setdefault(name, {})
+        for kernel, count in ops.launch_counts().items():
+            launches[kernel] = launches.get(kernel, 0) + count - before[kernel]
 
 
 def _qm31s(cols: np.ndarray, sl: slice) -> list:
@@ -208,17 +218,22 @@ def _qm31s(cols: np.ndarray, sl: slice) -> list:
     return [tuple(int(v) for v in cols[:, j]) for j in range(sl.start, sl.stop)]
 
 
-def prove_words(words: torch.Tensor, log_total: int, seed,
-                pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
-                stats: dict | None = None):
-    """(commitment, Proof) for a blob given as its `pad_to_words(data,
-    log_total)` words, int32, on the device that runs the proof. Counterpart
-    of `fri.dispatch_commit_phase_staged` + `fri.finish_proof`.
+class Committed(NamedTuple):
+    """What the commit phase of one proof leaves for its decommitment."""
 
-    stats, when a dict, receives the host wall time of each stage
-    (synchronized: "lde_trees", "folds", "transcript", "grind", "decommit")
-    and `rebuild_launches`, the `merkle_level` launches of the decommitment's
-    node rebuilds."""
+    layers: list  # (4, N_t) int32 evaluations of each FRI layer, on the device
+    trees: list  # their pruned trees
+    roots: list  # their 32-byte roots
+    last_layer_poly: list  # QM31 coefficients
+    nonce: int
+    queries: list  # positions in the first layer's domain (stored order)
+
+
+def commit_phase(words: torch.Tensor, log_total: int, seed,
+                 pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
+                 clock: _Clock | None = None) -> Committed:
+    """The commit phase of `prove_words`: LDE, a pruned tree and a fold per
+    layer, the last layer, the grind and the queries."""
     fri_cfg = pcs_config.fri_config
     log_size = log_total - 2
     n = log_size + fri_cfg.log_blowup_factor
@@ -229,7 +244,7 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
             f"config unsatisfiable: log_last_layer_degree_bound "
             f"{fri_cfg.log_last_layer_degree_bound} >= poly log size {log_size}")
     device = words.device
-    clock = _Clock(device, stats)
+    clock = clock or _Clock(device, None)
     channel = Blake2sChannel()
     if seed is not None:
         channel.mix_u64(int(seed))
@@ -270,40 +285,67 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
     with clock("transcript"):
         channel.mix_u64(nonce)
         queries = sample_query_positions(channel, n, fri_cfg.n_queries)
+    return Committed(layers, trees, roots, last_layer_poly, nonce, queries)
 
-    with clock("decommit"):
-        opening = Opening(layers, trees)
-        eval_sl = opening.values(0, np.array(queries, np.int64))
-        plan = []
-        pos = list(queries)
-        for t, tree in enumerate(trees):
-            sibs = [lone ^ 1 for _, _, lone in _pair_groups(pos) if lone is not None]
-            wit_sl = opening.values(t, np.array(sibs, np.int64))
-            plans = _merkle_witness_plans(tree.log_leaves, _all_leaf_indices(pos))
-            node_sls = [opening.nodes(t, k, np.array(s, np.int64)) for k, s in enumerate(plans) if s]
-            plan.append((wit_sl, node_sls))
-            pos = sorted({p >> 1 for p in pos})
-        vals, nodes = opening.run(route.level)
+
+def plan_openings(layers: list, trees: list, queries) -> tuple:
+    """(opening, slice of the evaluations, [(slice of the FRI witness, [slices
+    of the Merkle witness per level]) per layer]): every value and node a
+    proof reveals, registered on one `Opening`."""
+    opening = Opening(layers, trees)
+    eval_sl = opening.values(0, np.array(queries, np.int64))
+    plan = []
+    pos = list(queries)
+    for t, tree in enumerate(trees):
+        sibs = [lone ^ 1 for _, _, lone in _pair_groups(pos) if lone is not None]
+        wit_sl = opening.values(t, np.array(sibs, np.int64))
+        plans = _merkle_witness_plans(tree.log_leaves, _all_leaf_indices(pos))
+        node_sls = [opening.nodes(t, k, np.array(s, np.int64)) for k, s in enumerate(plans) if s]
+        plan.append((wit_sl, node_sls))
+        pos = sorted({p >> 1 for p in pos})
+    return opening, eval_sl, plan
+
+
+def prove_words(words: torch.Tensor, log_total: int, seed,
+                pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
+                stats: dict | None = None):
+    """(commitment, Proof) for a blob given as its `pad_to_words(data,
+    log_total)` words, int32, on the device that runs the proof. Counterpart
+    of `fri.dispatch_commit_phase_staged` + `fri.finish_proof`.
+
+    stats, when a dict, receives the host wall time of each stage
+    (synchronized: "lde_trees", "folds", "transcript", "grind", and the
+    decommitment's "decommit_plan" (witness planning and registration),
+    "decommit_open" (upload, `merkle_open`, fetch) and "decommit_assemble"
+    (the proof objects)), each stage's kernel launches, and
+    `open_launches`, the calls of the route's `open` step."""
+    clock = _Clock(words.device, stats)
+    c = commit_phase(words, log_total, seed, pcs_config, route, clock)
+    with clock("decommit_plan"):
+        opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries)
+    with clock("decommit_open"):
+        vals, nodes = opening.run(route.open)
+    with clock("decommit_assemble"):
         node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
         layer_proofs = [
             FriLayerProof(
                 fri_witness=_qm31s(vals, wit_sl),
                 decommitment=MerkleDecommitment(
                     [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)]),
-                commitment=roots[t],
+                commitment=c.roots[t],
             )
             for t, (wit_sl, node_sls) in enumerate(plan)
         ]
         proof = Proof(
-            proof=FriProof(layer_proofs[0], layer_proofs[1:], last_layer_poly),
-            proof_of_work=nonce,
+            proof=FriProof(layer_proofs[0], layer_proofs[1:], c.last_layer_poly),
+            proof_of_work=c.nonce,
             pcs_config=pcs_config,
-            log_size_bound=log_size,
+            log_size_bound=log_total - 2,
             evaluations=_qm31s(vals, eval_sl),
         )
     if stats is not None:
-        stats["rebuild_launches"] = opening.rebuild_launches
-    return roots[0], proof
+        stats["open_launches"] = opening.open_calls
+    return c.roots[0], proof
 
 
 def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):

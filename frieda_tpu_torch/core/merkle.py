@@ -17,10 +17,10 @@ one block. The JAX package finishes the last 2^6 nodes on the host to spare
 TPU round trips; here the tree ends on the device, with the same root.
 
 The prover's half: `build_pruned` keeps every third level of a tree (the
-counterpart of `device_levels_pruned`), and `Opening` reads the nodes a
-proof reveals from it, rebuilding the two missing levels of each group
-from the level below in a handful of launches. `MerkleDecommitment` is the
-proof's hash witness.
+counterpart of `device_levels_pruned`), and `Opening` reads the values and
+nodes a proof reveals from the layers and their trees, rebuilding the two
+missing levels of each group from the level below, in one `merkle_open`
+launch. `MerkleDecommitment` is the proof's hash witness.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from .blake2s import compress_rows
-from .circle import bitrev_array
 
 
 def hash_leaves(columns: torch.Tensor) -> torch.Tensor:
@@ -152,162 +151,58 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> Prun
     return PrunedTree(n.bit_length() - 1, flat, offsets)
 
 
-def _pow2_at_least(x: int) -> int:
-    return 1 << max(x - 1, 0).bit_length()
-
-
 class Opening:
     """The column values and tree nodes one proof reveals, read from a list of
     layers (`columns[t]`, (4, N_t) int32) and their pruned trees (`trees[t]`)
-    in a few device operations, then fetched in one copy.
+    in one `merkle_open` launch and fetched in one copy.
 
     Register reads with `values(t, stored)` and `nodes(t, k, stored)` (stored,
     i.e. bit-reversed, indices as numpy arrays); each returns the slice of
-    `run()`'s result where its answers land, in order.
-
-    A node of a stored level is gathered. A node of a missing level k is
-    rebuilt from its 2^r descendants r = k - 3*(k//3) levels down: stored
-    nodes, or for k <= 2 the hashed leaves (counterpart of
-    `frieda_tpu/core/fri.py:_auth_sibling_nodes`, which does this per layer
-    and per level). Here every rebuild of one depth r, over all layers and
-    levels, is one batch: child u of job q sits at slot bitrev_r(u) * Q + q
-    (Q a power of two), so the natural-halves pairing of `merkle_level` forms
-    the stored-order parents H(2s, 2s+1). The leaves are hashed in one
-    one-level leaf launch, then r = 1 and r = 2 take one and two inner
-    launches: at most four `merkle_level` launches per proof
-    (`rebuild_launches`)."""
+    `run()`'s result where its answers land, in order. A node of a stored
+    level is gathered; a node of a missing level k is rebuilt from its 2^r
+    descendants r = k - 3*(k//3) levels down: stored nodes, or for k <= 2 the
+    hashed leaves (`ops.merkle.open_plan`; counterpart of
+    `frieda_tpu/core/fri.py:_auth_sibling_nodes`)."""
 
     def __init__(self, columns: list, trees: list):
         self.columns = columns
         self.trees = trees
-        self._values = []  # (t, natural column indices)
-        self._nodes = []  # (t, k, stored indices)
+        self._values = []  # (n, 2) int64 rows (t, stored leaf index)
+        self._nodes = []  # (n, 3) int64 rows (t, k, stored node index)
         self._n_values = 0
         self._n_nodes = 0
-        self.rebuild_launches = 0
+        self.open_calls = 0
 
     def values(self, t: int, stored: np.ndarray) -> slice:
-        stored = np.asarray(stored, np.int64)
-        nat = bitrev_array(stored, self.trees[t].log_leaves)
-        self._values.append((t, nat))
-        self._n_values += len(nat)
-        return slice(self._n_values - len(nat), self._n_values)
+        s = np.asarray(stored, np.int64).reshape(-1)
+        self._values.append(np.stack([np.full_like(s, t), s], 1))
+        self._n_values += len(s)
+        return slice(self._n_values - len(s), self._n_values)
 
     def nodes(self, t: int, k: int, stored: np.ndarray) -> slice:
-        stored = np.asarray(stored, np.int64)
-        self._nodes.append((t, k, stored))
-        self._n_nodes += len(stored)
-        return slice(self._n_nodes - len(stored), self._n_nodes)
+        s = np.asarray(stored, np.int64).reshape(-1)
+        self._nodes.append(np.stack([np.full_like(s, t), np.full_like(s, k), s], 1))
+        self._n_nodes += len(s)
+        return slice(self._n_nodes - len(s), self._n_nodes)
 
-    def run(self, level_fn=None):
-        """-> (values (4, V), nodes (8, R)) uint32 numpy arrays."""
+    def jobs(self) -> tuple:
+        """(values (V, 2), nodes (R, 3)): the int64 rows of every read, in
+        registration order."""
+        return (np.concatenate(self._values or [np.zeros((0, 2), np.int64)]),
+                np.concatenate(self._nodes or [np.zeros((0, 3), np.int64)]))
+
+    def run(self, open_fn=None):
+        """-> (values (4, V), nodes (8, R)) uint32 numpy arrays: one call of
+        `open_fn` (`ops.merkle.merkle_open` or a function of its signature)
+        over every read, one fetch."""
         from ..ops import merkle as merkle_ops
         from ..utils.convert import to_numpy_u32
 
-        level_fn = level_fn or merkle_ops.merkle_level
-        T = len(self.columns)
-        col_reads = [[] for _ in range(T)]  # natural column indices, per layer
-        node_reads = [[] for _ in range(T)]  # (8, c) flat indices, per layer
-        col_count = [0] * T
-        node_count = [0] * T
-
-        def read_cols(t, nat):
-            col_reads[t].append(nat.reshape(-1))
-            col_count[t] += nat.size
-            return np.arange(col_count[t] - nat.size, col_count[t]).reshape(nat.shape)
-
-        def read_nodes(t, k, nat):
-            off, m = self.trees[t].offsets[k]
-            node_reads[t].append(off + np.arange(8)[:, None] * m + nat.reshape(1, -1))
-            node_count[t] += nat.size
-            return np.arange(node_count[t] - nat.size, node_count[t]).reshape(nat.shape)
-
-        value_refs = [(t, read_cols(t, nat)) for t, nat in self._values]
-        jobs = []  # (r, "leaf" | "node", t, local positions (c, 2^r))
-        for t, k, s in self._nodes:
-            tree = self.trees[t]
-            L = tree.log_leaves
-            if k in tree.offsets:
-                jobs.append((0, "node", t, read_nodes(t, k, bitrev_array(s, L - k))[:, None]))
-                continue
-            base = 3 * (k // 3)
-            r = k - base
-            children = (s[:, None] << r) | np.arange(1 << r)[None, :]
-            if base in tree.offsets:
-                jobs.append((r, "node", t, read_nodes(t, base, bitrev_array(children, L - base))))
-            elif k <= 2:
-                jobs.append((r, "leaf", t, read_cols(t, bitrev_array(children, L))))
-            else:  # every multiple-of-3 level is stored: a structural bug
-                raise AssertionError(f"level {k} has no stored base in {sorted(tree.offsets)}")
-
-        col_off = np.concatenate([[0], np.cumsum(col_count)])
-        node_off = np.concatenate([[0], np.cumsum(node_count)])
-        leaf_slots = np.concatenate(
-            [col_off[t] + pos.reshape(-1) for _, kind, t, pos in jobs if kind == "leaf"] or [np.zeros(0, np.int64)])
-        n_leaves = _pow2_at_least(leaf_slots.size) if leaf_slots.size else 0
-        pool_idx, at_leaf = [], 0
-        for r, kind, t, pos in jobs:
-            if kind == "leaf":
-                pool_idx.append(at_leaf + np.arange(pos.size).reshape(pos.shape))
-                at_leaf += pos.size
-            else:
-                pool_idx.append(n_leaves + node_off[t] + pos)
-        pool_width = n_leaves + int(node_off[-1])
-
-        perms, final, q_off = {}, [], pool_width
-        for r in (1, 2):
-            kids = [p for (jr, *_), p in zip(jobs, pool_idx) if jr == r]
-            if not kids:
-                continue
-            kids = np.concatenate(kids)
-            q = _pow2_at_least(len(kids))
-            perm = np.zeros((1 << r) * q, np.int64)
-            for u in range(1 << r):
-                perm[int(bitrev_array(u, r)) * q + np.arange(len(kids))] = kids[:, u]
-            perms[r] = (perm, q_off)
-            q_off += q
-        taken = {1: 0, 2: 0}
-        for (r, *_), p in zip(jobs, pool_idx):
-            if r == 0:
-                final.append(p[:, 0])
-            else:
-                final.append(perms[r][1] + taken[r] + np.arange(len(p)))
-                taken[r] += len(p)
-        final = np.concatenate(final or [np.zeros(0, np.int64)])
-        value_pos = np.concatenate(
-            [col_off[t] + pos for t, pos in value_refs] or [np.zeros(0, np.int64)])
-
-        if not self._n_values and not self._n_nodes:
-            return np.zeros((4, 0), np.uint32), np.zeros((8, 0), np.uint32)
-        dev = self.columns[0].device
-        host_idx = [np.concatenate(c) for c in col_reads if c]
-        host_idx += [np.concatenate(c, axis=1).reshape(-1) for c in node_reads if c]
-        host_idx += [leaf_slots] + [perms[r][0] for r in sorted(perms)] + [final, value_pos]
-        idx = torch.from_numpy(np.concatenate(host_idx).astype(np.int64)).to(dev)
-        pieces = list(torch.split(idx, [len(a) for a in host_idx]))
-        cols = [self.columns[t][:, pieces.pop(0)] for t in range(T) if col_reads[t]]
-        cols = torch.cat(cols, 1) if cols else torch.zeros((4, 0), dtype=torch.int32, device=dev)
-        nodes = [self.trees[t].flat[pieces.pop(0).view(8, -1)] for t in range(T) if node_reads[t]]
-        leaf_idx = pieces.pop(0)
-        pool = []
-        self.rebuild_launches = 0
-        if n_leaves:
-            leaf_idx = torch.cat([leaf_idx, leaf_idx.new_zeros(n_leaves - leaf_slots.size)])
-            pool.append(level_fn(cols[:, leaf_idx], True, False))
-            self.rebuild_launches += 1
-        pool = torch.cat(pool + nodes, 1) if pool or nodes else cols.new_zeros((8, 0))
-        built = [pool]
-        for r in sorted(perms):
-            x = pool[:, pieces.pop(0)]
-            for _ in range(r):
-                x = level_fn(x, False, False)
-                self.rebuild_launches += 1
-            built.append(x)
-        final_idx, value_idx = pieces
-        out = torch.cat(built, 1)[:, final_idx]
-        host = to_numpy_u32(torch.cat([cols[:, value_idx].reshape(-1), out.reshape(-1)]))
-        n_val = 4 * value_pos.size
-        return host[:n_val].reshape(4, -1), host[n_val:].reshape(8, -1)
+        values, nodes = self.jobs()
+        out = to_numpy_u32((open_fn or merkle_ops.merkle_open)(self.columns, self.trees, values, nodes))
+        self.open_calls += 1
+        n_val = 4 * len(values)
+        return out[:n_val].reshape(4, -1), out[n_val:].reshape(8, -1)
 
 
 @dataclass

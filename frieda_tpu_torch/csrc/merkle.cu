@@ -1,4 +1,5 @@
-// Kernels 1 and 2: Merkle tree levels over BLAKE2s zero-state compressions.
+// The Merkle kernels, over BLAKE2s zero-state compressions: tree levels
+// (merkle_level, merkle_collapse) and the decommitment's reads (merkle_open).
 //
 // merkle_level replaces frieda_tpu/ops/merkle_pallas.py: leaf_level
 // (_leaf_kernel), inner_level (_inner_kernel), leaf3_level (_leaf3_kernel,
@@ -45,6 +46,32 @@
 // The non-portable cluster size 16 is opted into once per process. The TPU
 // version keeps up to 8 x 32768 nodes (1 MiB) in VMEM; here merkle_level
 // keeps fusing down to width 4096 first.
+//
+// merkle_open replaces the decommitment's device work: the value and stored
+// node gathers and the rebuild of missing levels of
+// frieda_tpu/core/fri.py:_auth_sibling_nodes, whose one-level steps are
+// leaf_level and inner_level. Every read of one proof is one launch.
+//
+// Bound: none of the card's rates. A proof reads a few thousand nodes and
+// hashes fewer than ten thousand compressions' worth, a few microseconds of
+// the card at its integer rate; what sets the time is the launch and the
+// longest chain of dependent compressions (three: four leaf hashes, two
+// pairs, one pair), ~1 us of one warp's ALU work each (PERF.md).
+//
+// Design, merkle_open: one quad of lanes per read, from a job table built on
+// the host (per layer: the columns' and the pruned tree's pointers,
+// log_leaves, the offset of each stored level or -1; then one (t, k, s) row
+// per read, value reads first with k = -1). A value read's lane u loads
+// column u. A node read at level k gathers node bitrev(s) of level k when it
+// is stored; otherwise lane u takes child u of the 2^r descendants r = k -
+// base levels down: a stored node of level base = 3 * (k / 3), or, with no
+// such level (k <= 2), the leaf hash of its columns. Two rounds of
+// __shfl_xor_sync (lane distance 1, then 2) then hash stored-order pairs
+// H(2s, 2s + 1), the even lane on the left, in the rounds l < r; lanes u >=
+// 2^r repeat child u mod 2^r, so after the rounds every lane holds the node
+// and lane u stores its words 2u and 2u + 1. Every lane of a warp reaches
+// both shuffle rounds: quads past the last read repeat it and store nothing.
+// Indices are bit-reversed on the card; addresses are 64-bit.
 
 #include <cooperative_groups.h>
 
@@ -60,6 +87,9 @@ constexpr uint32_t kClusterMax = 16;      // blocks of a collapse cluster (non-p
 constexpr uint32_t kBlockNodesMax = 512;  // input nodes a collapse block takes
 constexpr long long kCollapseMax = 4096;
 constexpr int kMaxOuts = 13;  // distinct powers of two <= kCollapseMax
+constexpr int kOpenThreads = 128;  // 32 reads a block, a quad of lanes each
+constexpr int kOpenLevels = 32;    // level offsets a layer descriptor holds
+constexpr int kLayerWords = 3 + kOpenLevels;
 
 struct CollapseOuts {
   uint32_t* ptr[kMaxOuts];
@@ -208,6 +238,62 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
   }
 }
 
+// x reversed over its low `bits` bits (0..32); bitrev(x, 0) = 0.
+__device__ __forceinline__ uint32_t bitrev(uint32_t x, int bits) {
+  return bits == 0 ? 0u : __brev(x) >> (32 - bits);
+}
+
+__global__ void __launch_bounds__(kOpenThreads)
+merkle_open_kernel(const long long* __restrict__ table, int n_layers, long long n_values,
+                   long long n_nodes, uint32_t* __restrict__ out) {
+  const long long n_jobs = n_values + n_nodes;
+  const long long j = (static_cast<long long>(blockIdx.x) * kOpenThreads + threadIdx.x) >> 2;
+  const uint32_t u = threadIdx.x & 3;
+  const long long* job =
+      table + static_cast<long long>(n_layers) * kLayerWords + 3 * (j < n_jobs ? j : n_jobs - 1);
+  const int t = static_cast<int>(job[0]);
+  const int k = static_cast<int>(job[1]);
+  const uint32_t s = static_cast<uint32_t>(job[2]);
+  const long long* layer = table + static_cast<long long>(t) * kLayerWords;
+  const uint32_t* cols = reinterpret_cast<const uint32_t*>(layer[0]);
+  const uint32_t* flat = reinterpret_cast<const uint32_t*>(layer[1]);
+  const int L = static_cast<int>(layer[2]);
+  const long long* off = layer + 3;  // off[k]: level k's offset in flat, -1 if not stored
+  uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int r = 0;
+  if (k < 0) {  // a value read: lane u reads column u
+    if (j < n_values) out[u * n_values + j] = cols[(size_t(u) << L) + bitrev(s, L)];
+  } else {
+    const int base = off[k] >= 0 ? k : 3 * (k / 3);
+    r = k - base;
+    const uint32_t child = (s << r) | (u & ((1u << r) - 1));
+    if (off[base] >= 0) {
+      load_node<false>(flat + off[base], size_t(1) << (L - base), bitrev(child, L - base), h);
+    } else {  // base 0 and the leaf level not stored: hash the leaf
+      load_node<true>(cols, size_t(1) << L, bitrev(child, L), h);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {  // every lane of the warp shuffles, whatever its r
+    uint32_t o[8], a[8], b[8];
+    const bool right = (u >> l) & 1;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      o[w] = __shfl_xor_sync(0xffffffffu, h[w], 1 << l);
+      a[w] = right ? o[w] : h[w];
+      b[w] = right ? h[w] : o[w];
+    }
+    if (l < r) frieda::blake2s_hash_pair(a, b, h);
+  }
+  if (k >= 0 && j < n_jobs) {
+    uint32_t* node = out + 4 * n_values + (j - n_values);  // word w at node[w * n_nodes]
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      if ((w >> 1) == static_cast<int>(u)) node[w * n_nodes] = h[w];
+    }
+  }
+}
+
 template <bool LEAF, bool FUSED>
 int launch_level(const void* in, void* out, size_t in_width, cudaStream_t stream) {
   const size_t out_width = FUSED ? in_width / 8 : (LEAF ? in_width : in_width / 2);
@@ -270,5 +356,22 @@ extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const l
                                            static_cast<const uint32_t*>(in), o,
                                            static_cast<uint32_t>(m));
   if (e != cudaSuccess) return static_cast<int>(e);
+  FRIEDA_LAUNCH_RESULT();
+}
+
+// table: int64 on the card, n_layers descriptors of 3 + 32 words (columns
+// pointer, pruned tree pointer, log_leaves, offset of level k or -1), then
+// n_values + n_nodes rows (t, k, s), values first with k = -1; out: int32,
+// the (4, n_values) values, then the (8, n_nodes) nodes. The caller checks
+// every row against its layer's shapes.
+extern "C" int frieda_merkle_open(const void* table, int n_layers, long long n_values,
+                                  long long n_nodes, void* out, void* stream) {
+  if (n_layers < 1 || n_values < 0 || n_nodes < 0 || n_values + n_nodes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (4 * (n_values + n_nodes) + kOpenThreads - 1) / kOpenThreads;
+  merkle_open_kernel<<<dim3(static_cast<unsigned>(blocks)), kOpenThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(table), n_layers, n_values, n_nodes, static_cast<uint32_t*>(out));
   FRIEDA_LAUNCH_RESULT();
 }

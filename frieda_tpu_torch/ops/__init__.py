@@ -7,16 +7,18 @@ from __future__ import annotations
 
 
 def kernel_wrappers() -> dict:
-    """Name -> wrapper function of every kernel the commit path launches."""
+    """Name -> wrapper function of every kernel the commit and prove paths
+    launch."""
     from .fft import fft_pass
     from .ingest import ingest
-    from .merkle import merkle_collapse, merkle_level
+    from .merkle import merkle_collapse, merkle_level, merkle_open
 
     return {
         "ingest": ingest,
         "fft_pass": fft_pass,
         "merkle_level": merkle_level,
         "merkle_collapse": merkle_collapse,
+        "merkle_open": merkle_open,
     }
 
 

@@ -1,5 +1,6 @@
-"""Kernels 1 and 2: Merkle levels (`merkle_level`) and the narrow-tail
-collapse (`merkle_collapse`), both BLAKE2s zero-state raw compressions.
+"""The Merkle kernels, BLAKE2s zero-state raw compressions: levels
+(`merkle_level`), the narrow-tail collapse (`merkle_collapse`) and the
+decommitment's reads (`merkle_open`).
 
 `merkle_level` replaces the four level kernels of
 `frieda_tpu/ops/merkle_pallas.py` (`leaf_level`, `inner_level`,
@@ -11,6 +12,10 @@ thread-block cluster of `collapse_plan(m)` blocks takes a level of width
 memory (block b the subtree of the nodes x = b mod B down to width B, then
 rank 0 the rest), and writes each requested width (the commit asks for the
 root only, the prover's pruned trees for every third level of the tail).
+`merkle_open` does the device work of `frieda_tpu/core/fri.py`'s
+`_auth_sibling_nodes` and value gathers for every read of one proof in one
+launch, a quad of lanes per read (`leaf_level` / `inner_level` are that
+function's one-level steps in the JAX package).
 Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
@@ -18,8 +23,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ..core.blake2s import compress_rows
+from ..core.circle import bitrev_array
 from ..core.merkle import hash_leaves, hash_parents
 from ..utils.convert import narrow, widen
 from . import _build
@@ -109,3 +117,137 @@ def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
 
 
 merkle_collapse.launches = 0
+
+
+OPEN_LEVELS = 32  # level offsets a layer descriptor of the job table holds (log_leaves < 32)
+
+
+def open_plan(trees, values, nodes) -> tuple:
+    """Check the reads of one opening and say where each node read comes from.
+
+    values: (V, 2) int64 rows (layer t, stored leaf index s); nodes: (R, 3)
+    rows (t, level k, stored node index s). Returns (values, nodes, base, r,
+    leaf, offsets): a node of a stored level k is gathered (base k, r 0);
+    otherwise its 2^r descendants at level base = 3 * (k // 3), r = k - base,
+    are gathered if that level is stored, or else (k <= 2, `leaf`) the leaf
+    hashes of their columns. offsets: (T, OPEN_LEVELS), level k's offset in
+    trees[t].flat or -1. Raises ValueError for a read outside its layer,
+    AssertionError for a level k >= 3 without a stored base (every multiple
+    of 3 is stored: a structural bug)."""
+    values = np.asarray(values, np.int64).reshape(-1, 2)
+    nodes = np.asarray(nodes, np.int64).reshape(-1, 3)
+    logs = np.array([tree.log_leaves for tree in trees], np.int64)
+    if not len(logs) or logs.max() >= OPEN_LEVELS:
+        raise ValueError(f"an opening needs 1 or more layers of fewer than 2^{OPEN_LEVELS} leaves")
+    offsets = np.full((len(trees), OPEN_LEVELS), -1, np.int64)
+    for t, tree in enumerate(trees):
+        for k, (off, _) in tree.offsets.items():
+            offsets[t, k] = off
+    for what, t, k, s in (("value", values[:, 0], 0 * values[:, 0], values[:, 1]), ("node", *nodes.T)):
+        L = logs[np.clip(t, 0, len(logs) - 1)]
+        bad = (t < 0) | (t >= len(logs)) | (k < 0) | (k > L) | (s < 0)
+        bad |= s >= np.left_shift(1, np.clip(L - k, 0, None))
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(f"{what} read (t={t[i]}, k={k[i]}, s={s[i]}) lies outside its layer")
+    t, k, _ = nodes.T
+    base = np.where(offsets[t, k] >= 0, k, 3 * (k // 3))
+    leaf = offsets[t, base] < 0
+    if (leaf & (k > 2)).any():
+        raise AssertionError(f"level {k[leaf & (k > 2)][0]} has no stored base")
+    return values, nodes, base, k - base, leaf, offsets
+
+
+def open_table(columns, trees, values, nodes) -> np.ndarray:
+    """`merkle_open`'s job table, int64: for each layer t the data pointers
+    of columns[t] and trees[t].flat, log_leaves and `open_plan`'s level
+    offsets; then one row (t, k, s) per read, the value reads first with
+    k = -1."""
+    values, nodes, *_, offsets = open_plan(trees, values, nodes)
+    heads = np.array([[c.data_ptr(), tree.flat.data_ptr(), tree.log_leaves]
+                      for c, tree in zip(columns, trees)], np.int64)
+    reads = np.concatenate([np.stack([values[:, 0], np.full(len(values), -1, np.int64), values[:, 1]], 1),
+                            nodes])
+    return np.concatenate([np.concatenate([heads, offsets], 1).reshape(-1), reads.reshape(-1)])
+
+
+def merkle_open_plain(columns, trees, values, nodes) -> torch.Tensor:
+    """Plain version, int64 (4V + 8R,): the (4, V) column values of the value
+    reads, then the (8, R) nodes of the node reads, each from where
+    `open_plan` says; the 2^r descendants of a rebuilt node combine in
+    stored-order pairs H(2s, 2s + 1) r times. Counterpart of the value
+    gathers and `_auth_sibling_nodes` of `frieda_tpu/core/fri.py`."""
+    values, nodes, base, r, leaf, _ = open_plan(trees, values, nodes)
+    dev = columns[0].device
+
+    def gather(src, stored, bits):  # src's columns at the natural indices of stored ones
+        return widen(src[:, torch.from_numpy(bitrev_array(stored, bits).reshape(-1)).to(dev)])
+
+    def put(dst, rows, src):
+        dst[:, torch.from_numpy(rows).to(dev)] = src
+
+    vals = torch.zeros((4, len(values)), dtype=torch.int64, device=dev)
+    for t in np.unique(values[:, 0]):
+        rows = np.flatnonzero(values[:, 0] == t)
+        put(vals, rows, gather(columns[t], values[rows, 1], trees[t].log_leaves))
+    out = torch.zeros((8, len(nodes)), dtype=torch.int64, device=dev)
+    for from_leaves, depth in set(zip(leaf.tolist(), r.tolist())):  # one batch per (kind, r)
+        group = np.flatnonzero((leaf == from_leaves) & (r == depth))
+        kids, order = [], []
+        for t, b in sorted(set(zip(nodes[group, 0].tolist(), base[group].tolist()))):
+            rows = group[(nodes[group, 0] == t) & (base[group] == b)]
+            children = (nodes[rows, 2, None] << depth) | np.arange(1 << depth)
+            src = columns[t] if from_leaves else trees[t].level(b)
+            kids.append(gather(src, children, trees[t].log_leaves - b))
+            order.append(rows)
+        h = torch.cat(kids, 1)
+        if from_leaves:
+            h = hash_leaves(h)
+        for _ in range(depth):
+            pairs = h.reshape(8, -1, 2)
+            h = compress_rows(torch.cat([pairs[:, :, 0], pairs[:, :, 1]]))
+        put(out, np.concatenate(order), h)
+    return torch.cat([vals.reshape(-1), out.reshape(-1)])
+
+
+def _check_layers(columns, trees) -> None:
+    if not columns or len(columns) != len(trees):
+        raise ValueError(f"{len(columns)} column sets for {len(trees)} trees")
+    for t, (cols, tree) in enumerate(zip(columns, trees)):
+        L, n = tree.log_leaves, tree.flat.numel()
+        _build.check_u32(cols, f"columns[{t}]", (4, 1 << L))
+        _build.check_u32(tree.flat, f"trees[{t}].flat", (n,))
+        _build.check_same_device(columns[0], cols, tree.flat)
+        if any(not 0 <= k <= L or m != 1 << (L - k) or off < 0 or off + 8 * m > n
+               for k, (off, m) in tree.offsets.items()):
+            raise ValueError(f"trees[{t}]: a stored level does not fit its tree")
+
+
+def merkle_open(columns, trees, values, nodes, table=None) -> torch.Tensor:
+    """int32 form of `merkle_open_plain` over int32 layers (`columns[t]`,
+    (4, 2^L) each) and their pruned trees: one launch on CUDA tensors, the
+    plain version on CPU tensors. Every read is checked against its layer
+    first (`open_plan`). The job table (`open_table`) is uploaded here
+    without a synchronization, unless the caller passes its copy on the
+    card as `table` (a CUDA graph cannot capture the upload)."""
+    _check_layers(columns, trees)
+    if not columns[0].is_cuda:
+        return narrow(merkle_open_plain(columns, trees, values, nodes))
+    host = open_table(columns, trees, values, nodes)
+    n_values, n_nodes = np.size(values) // 2, np.size(nodes) // 3
+    dev = columns[0].device
+    out = torch.empty(4 * n_values + 8 * n_nodes, dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    if table is None:
+        table = torch.from_numpy(host).to(dev, non_blocking=True)
+    elif table.dtype != torch.int64 or tuple(table.shape) != host.shape or table.device != dev:
+        raise ValueError(f"table: expected int64 {host.shape} on {dev}, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}")
+    _build.check_launch(_build.library().frieda_merkle_open(
+        table.data_ptr(), len(columns), n_values, n_nodes, out.data_ptr(), _build.stream_of(out)))
+    merkle_open.launches += 1
+    return out
+
+
+merkle_open.launches = 0

@@ -1,7 +1,8 @@
 """Port's prover modules, one by one, vs the JAX package on CPU: QM31 field
 ops, twiddle inverses, one-block BLAKE2s, the host channel, the grind, the
 pruned tree store and its every-third-level invariant, the decommitment's
-node reads (auth siblings), the multi-width collapse, the last-layer
+reads (`merkle_open`: values and auth siblings, on the port's and the JAX
+package's stores, and its checks), the multi-width collapse, the last-layer
 interpolation and the witness planning. Inputs are seeded numpy arrays;
 tolerance: exact equality (integer arithmetic)."""
 
@@ -192,23 +193,45 @@ def test_pruned_store_matches_jax_and_keeps_every_third_level(log_n, collapse_ma
     assert np.array_equal(to_numpy_u32(tree.root), jstore[log_n])
 
 
-@pytest.mark.parametrize("log_n,jax_block", [(2, None), (5, None), (7, 4)])
-def test_opened_nodes_match_jax_auth_siblings(log_n, jax_block, monkeypatch):
-    """Every level's auth-path siblings of a set of queries, read from the
-    port's pruned tree through `Opening` (gathers plus batched rebuilds), vs
-    `fri._auth_sibling_nodes` over the JAX package's pruned store (with and
-    without its stored leaf level)."""
+def _tree_from_store(store: dict, log_n: int) -> tm.PrunedTree:
+    """A port PrunedTree holding exactly the levels of a JAX pruned store."""
+    offsets, off, flat = {}, 0, []
+    for k in sorted(store):
+        offsets[k] = (off, store[k].shape[1])
+        off += store[k].size
+        flat.append(store[k].reshape(-1))
+    return tm.PrunedTree(log_n, from_numpy_u32(np.concatenate(flat), "cpu"), offsets)
+
+
+# (log_n, store): the port's own pruned tree ("port", leaf level stored only
+# below 8 leaves), or the JAX package's store read into a port tree, with its
+# leaf level ("jax_leaf": BLOCK as it is) or without ("jax_no_leaf": BLOCK 1,
+# so every N % 8 == 0 groups three levels from the leaves).
+_OPEN_STORES = [(log_n, store) for log_n in (1, 2, 3, 5, 7, 9)
+                for store in ("port", "jax_leaf", "jax_no_leaf") if log_n >= 3 or store != "jax_no_leaf"]
+
+
+@pytest.mark.parametrize("log_n,store", _OPEN_STORES)
+def test_opened_nodes_match_jax_auth_siblings(log_n, store, monkeypatch):
+    """Every level's auth-path siblings of a set of queries and their values,
+    read through `Opening` (one `merkle_open`: the wrapper on CPU tensors)
+    and through `merkle_open_plain`, vs `fri._auth_sibling_nodes` over the
+    JAX package's pruned store."""
     cols = _cols(log_n, 1)
     rng = np.random.default_rng(log_n)
     pos = rng.integers(0, 1 << log_n, 13, dtype=np.uint32)
-    jstored = {k: jnp.asarray(v) for k, v in _jax_store(cols, monkeypatch, jax_block).items()}
-    assert (0 in jstored) == (jax_block is None)
+    jstore = _jax_store(cols, monkeypatch, 1 if store == "jax_no_leaf" else None)
+    assert (0 in jstore) == (store != "jax_no_leaf")
     tcols = from_numpy_u32(cols, "cpu")
-    opening = tm.Opening([tcols], [tm.build_pruned(tcols)])
+    tree = tm.build_pruned(tcols) if store == "port" else _tree_from_store(jstore, log_n)
+    opening = tm.Opening([tcols], [tree])
     slices = [opening.nodes(0, k, (pos.astype(np.int64) >> k) ^ 1) for k in range(log_n)]
     value_sl = opening.values(0, pos.astype(np.int64))
     values, nodes = opening.run()
-    assert 1 <= opening.rebuild_launches <= 4
+    assert opening.open_calls == 1
+    plain = to_numpy_u32(merkle_ops.merkle_open_plain([tcols], [tree], *opening.jobs()))
+    assert np.array_equal(plain, np.concatenate([values.reshape(-1), nodes.reshape(-1)]))
+    jstored = {k: jnp.asarray(v) for k, v in jstore.items()}
     for k, sl in enumerate(slices):
         want = np.asarray(jfri._auth_sibling_nodes(jstored, jnp.asarray(cols), log_n, jnp.asarray(pos), k))
         assert np.array_equal(nodes[:, sl], want), k
@@ -216,22 +239,86 @@ def test_opened_nodes_match_jax_auth_siblings(log_n, jax_block, monkeypatch):
     assert np.array_equal(values[:, value_sl], cols[:, nat])
 
 
+def _two_layers():
+    layers = [from_numpy_u32(_cols(6, 2), "cpu"), from_numpy_u32(_cols(4, 3), "cpu")]
+    return layers, [tm.build_pruned(c) for c in layers]
+
+
 def test_opening_reads_across_layers_in_request_order():
     """Two layers with their own trees; requests interleave layers and
     rebuild depths, and answers come back in request order."""
-    layers = [from_numpy_u32(_cols(6, 2), "cpu"), from_numpy_u32(_cols(4, 3), "cpu")]
-    trees = [tm.build_pruned(c) for c in layers]
+    layers, trees = _two_layers()
     opening = tm.Opening(layers, trees)
     reqs = [(1, 2, [3, 0]), (0, 0, [5]), (0, 4, [1, 2, 3]), (1, 3, [1]), (0, 6, [0]), (1, 1, [7])]
     slices = [opening.nodes(t, k, np.array(s)) for t, k, s in reqs]
     vsl = opening.values(1, np.array([15, 0]))
     values, nodes = opening.run()
+    assert opening.open_calls == 1
     full = [tm.levels(widen(c)) for c in layers]
     for (t, k, s), sl in zip(reqs, slices):
         L = trees[t].log_leaves
         want = to_numpy_u32(full[t][k])[:, tcircle.bitrev_array(np.array(s), L - k)]
         assert np.array_equal(nodes[:, sl], want), (t, k)
     assert np.array_equal(values[:, vsl], to_numpy_u32(layers[1])[:, tcircle.bitrev_array(np.array([15, 0]), 4)])
+
+
+@pytest.mark.parametrize("reads", ["values", "nodes", "none"])
+def test_opening_values_only_nodes_only_and_no_reads(reads):
+    layers, trees = _two_layers()
+    opening = tm.Opening(layers, trees)
+    if reads == "values":
+        opening.values(0, np.array([63, 0, 7]))
+        opening.values(1, np.array([2]))
+    if reads == "nodes":
+        opening.nodes(1, 4, np.array([0]))
+        opening.nodes(0, 1, np.array([31, 2]))
+    values, nodes = opening.run()
+    assert opening.open_calls == 1
+    assert values.shape == (4, 4 if reads == "values" else 0)
+    assert nodes.shape == (8, 3 if reads == "nodes" else 0)
+    if reads == "values":
+        want = [to_numpy_u32(layers[0])[:, tcircle.bitrev_array(np.array([63, 0, 7]), 6)],
+                to_numpy_u32(layers[1])[:, [4]]]
+        assert np.array_equal(values, np.concatenate(want, 1))
+    if reads == "nodes":
+        full = [tm.levels(widen(c)) for c in layers]
+        assert np.array_equal(nodes[:, 0], to_numpy_u32(full[1][4])[:, 0])
+        assert np.array_equal(nodes[:, 1:], to_numpy_u32(full[0][1])[:, tcircle.bitrev_array(np.array([31, 2]), 5)])
+
+
+# Reads outside their layer (layers of 2^6 and 2^4 leaves): (values, nodes).
+_BAD_READS = {
+    "layer_negative": ([], [(-1, 0, 0)]),
+    "layer_past_end": ([], [(2, 0, 0)]),
+    "level_negative": ([], [(0, -1, 0)]),
+    "level_past_root": ([], [(1, 5, 0)]),
+    "node_past_width": ([], [(0, 2, 16)]),
+    "node_negative": ([], [(1, 1, -1)]),
+    "root_index_1": ([], [(0, 6, 1)]),
+    "value_past_width": ([(1, 16)], []),
+    "value_layer_past_end": ([(2, 0)], []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_READS))
+def test_merkle_open_rejects_reads_outside_their_layer(case):
+    layers, trees = _two_layers()
+    values, nodes = _BAD_READS[case]
+    values = np.array(values, np.int64).reshape(-1, 2)
+    nodes = np.array(nodes, np.int64).reshape(-1, 3)
+    for fn in (merkle_ops.merkle_open, merkle_ops.merkle_open_plain, merkle_ops.open_table):
+        with pytest.raises(ValueError, match="outside its layer"):
+            fn(layers, trees, values, nodes)
+
+
+def test_merkle_open_raises_on_a_missing_base_level():
+    """Every multiple-of-3 level is stored; a tree without one is a bug."""
+    layers, trees = _two_layers()
+    tree = trees[0]
+    broken = tm.PrunedTree(tree.log_leaves, tree.flat, {k: v for k, v in tree.offsets.items() if k != 3})
+    with pytest.raises(AssertionError, match="no stored base"):
+        merkle_ops.merkle_open(layers[:1], [broken], np.zeros((0, 2)), np.array([[0, 4, 1]]))
+    assert merkle_ops.merkle_open(layers[:1], [broken], np.zeros((0, 2)), np.array([[0, 2, 1]])).shape == (8,)
 
 
 @pytest.mark.parametrize("log_m", [0, 1, 3, 6, 9, 12])

@@ -1,6 +1,7 @@
 """Port's Merkle root (plain full build, and the GPU level/collapse split
 run through the plain versions on CPU) vs the JAX package and the numpy
-spec compression. Tolerance: exact equality."""
+spec compression, and Python mirrors of the collapse's cluster split and of
+`merkle_open`'s quads vs the plain versions. Tolerance: exact equality."""
 
 import pytest
 
@@ -14,8 +15,9 @@ import torch  # noqa: E402
 from frieda_tpu.core import merkle as jm  # noqa: E402
 from frieda_tpu.spec import blake2s as sb  # noqa: E402
 from frieda_tpu_torch.core import merkle as tm  # noqa: E402
+from frieda_tpu_torch.core.blake2s import compress_rows  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
-from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
+from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 
 P = (1 << 31) - 1
 
@@ -152,6 +154,97 @@ def test_collapse_plan():
     for bad in (2 * merkle_ops.COLLAPSE_MAX, 48):  # wider than the plan covers; not a power of two
         with pytest.raises(ValueError):
             merkle_ops.merkle_collapse(from_numpy_u32(np.zeros((8, bad), np.uint32), "cpu"))
+
+
+def _brev(x: int, bits: int) -> int:
+    """`bitrev` of csrc/merkle.cu: __brev(x) >> (32 - bits), and 0 for bits 0."""
+    return int(f"{x:032b}"[::-1], 2) >> (32 - bits) if bits else 0
+
+
+def _open_quads(columns, trees, table, n_values, n_nodes):
+    """Mirror of `merkle_open_kernel`, lane by lane over the whole grid (128
+    threads a block), from the job table alone: a layer's tensors are found
+    by the pointers in its descriptor. Quad q takes row min(q, n - 1); a
+    value quad's lane u reads column u; a node quad's lane u loads child
+    u mod 2^r (a stored node, or a leaf hash when level `base` is not
+    stored); two rounds of exchange with lane u ^ 1, then u ^ 2, hash the
+    even lane's node on the left while the round is below r; lane u stores
+    words 2u and 2u + 1."""
+    by_ptr = {c.data_ptr(): widen(c).reshape(-1) for c in columns}
+    by_ptr.update({tree.flat.data_ptr(): widen(tree.flat) for tree in trees})
+    words = 3 + merkle_ops.OPEN_LEVELS
+    heads = table[: len(columns) * words].reshape(-1, words)
+    rows = table[len(columns) * words:].reshape(-1, 3)
+    n = n_values + n_nodes
+    lanes = np.arange(-(-4 * n // 128) * 128)
+    out = torch.full((4 * n_values + 8 * n_nodes,), -1, dtype=torch.int64)
+    h = torch.zeros((8, lanes.size), dtype=torch.int64)
+    r = np.zeros(lanes.size, np.int64)
+    leaf_lanes, leaf_cols = [], []
+    for lane in lanes:
+        q, u = lane >> 2, lane & 3
+        t, k, s = (int(x) for x in rows[min(q, n - 1)])
+        cols, flat, L = by_ptr[int(heads[t, 0])], by_ptr[int(heads[t, 1])], int(heads[t, 2])
+        off = [int(x) for x in heads[t, 3:]]
+        if k < 0:
+            if q < n_values:
+                out[u * n_values + q] = cols[(u << L) + _brev(s, L)]
+            continue
+        base = k if off[k] >= 0 else 3 * (k // 3)
+        r[lane] = k - base
+        child = (s << int(r[lane])) | (u & ((1 << int(r[lane])) - 1))
+        if off[base] >= 0:
+            h[:, lane] = flat[off[base] + (torch.arange(8) << (L - base)) + _brev(child, L - base)]
+        else:
+            leaf_lanes.append(lane)
+            leaf_cols.append(cols[(torch.arange(4) << L) + _brev(child, L)])
+    if leaf_lanes:
+        h[:, leaf_lanes] = tm.hash_leaves(torch.stack(leaf_cols, 1))
+    for rnd in range(2):
+        other = h[:, lanes ^ (1 << rnd)]
+        right = torch.from_numpy((lanes >> rnd) & 1 == 1)
+        parent = compress_rows(torch.cat([torch.where(right, other, h), torch.where(right, h, other)]))
+        h = torch.where(torch.from_numpy(rnd < r), parent, h)
+    for q in range(n_values, n):
+        quad = h[:, 4 * q: 4 * q + 4]
+        assert torch.equal(quad, quad[:, :1].expand(8, 4)), q  # every lane holds the node
+        for w in range(8):
+            out[4 * n_values + w * n_nodes + q - n_values] = h[w, 4 * q + w // 2]
+    return out
+
+
+def _tree_with_leaf_level(columns: torch.Tensor, tree: tm.PrunedTree) -> tm.PrunedTree:
+    """`tree` with the leaf hashes stored as well (as the JAX store keeps them)."""
+    full = tm.levels(widen(columns))
+    ks = sorted({0} | set(tree.offsets))
+    offsets, off = {}, 0
+    for k in ks:
+        offsets[k] = (off, full[k].shape[1])
+        off += full[k].numel()
+    return tm.PrunedTree(tree.log_leaves, narrow(torch.cat([full[k].reshape(-1) for k in ks])), offsets)
+
+
+@pytest.mark.parametrize("case", ["port_trees", "leaf_levels", "nodes_only"])
+def test_open_quad_mirror_matches_plain(case):
+    """Layers of 2^1 ... 2^8 leaves, a value read and every level's node
+    reads of each, in a shuffled order (warps mix value reads, gathers and
+    rebuilds of every depth; the read count is not a multiple of a block's)."""
+    rng = np.random.default_rng(len(case))
+    columns, trees = [], []
+    for L in (1, 2, 3, 5, 8):
+        cols = from_numpy_u32(rng.integers(0, P, (4, 1 << L), dtype=np.uint32), "cpu")
+        tree = tm.build_pruned(cols)
+        columns.append(cols)
+        trees.append(_tree_with_leaf_level(cols, tree) if case == "leaf_levels" else tree)
+    values = [] if case == "nodes_only" else [
+        (t, int(s)) for t, tree in enumerate(trees) for s in rng.integers(0, 1 << tree.log_leaves, 3)]
+    nodes = [(t, k, int(s)) for t, tree in enumerate(trees) for k in range(tree.log_leaves + 1)
+             for s in rng.integers(0, 1 << (tree.log_leaves - k), 2)]
+    nodes = np.array(nodes, np.int64)[rng.permutation(len(nodes))]
+    values = np.array(values, np.int64).reshape(-1, 2)
+    table = merkle_ops.open_table(columns, trees, values, nodes)
+    got = _open_quads(columns, trees, table, len(values), len(nodes))
+    assert torch.equal(got, merkle_ops.merkle_open_plain(columns, trees, values, nodes))
 
 
 def test_root_bytes_little_endian():

@@ -2,7 +2,7 @@
 """Time the port's kernels on one CUDA card at the shapes the main path
 gives them, each checked bit-equal to its plain version first.
 
-    python3 tools/torch_kernel_times.py [--root DIR] [--parts lde,ingest,merkle] [--reps N]
+    python3 tools/torch_kernel_times.py [--root DIR] [--parts lde,ingest,merkle,open] [--reps N]
     python3 tools/torch_kernel_times.py --compare DIR [--parts ...]
     python3 tools/torch_kernel_times.py --ablate
     python3 tools/torch_kernel_times.py --plans
@@ -15,9 +15,17 @@ Parts, one line each shape:
 - `merkle`: `merkle_collapse` at each width m at which a tree of the
   2^24-felt proof reaches it, with the prover's tail widths, and their sum
   over the proof's 22 trees, the commit's 2048 -> 1; `merkle_level` leaf
-  2^12 and inner 2^13 (the proof's rebuilds), fused leaf 2^24 and inner
-  2^23. `ingest` and `merkle` give device time (`torch_harness.device_ms`:
-  CUDA events around a replayed CUDA graph of 20 calls, per call).
+  2^12 and inner 2^13 (the one-level modes), fused leaf 2^24 and inner
+  2^23;
+- `open`: the decommitment at the openings of a 2^20-felt / 64-query and a
+  2^24-felt / 20-query proof (the `Opening` that `fri.prove_words` runs):
+  `merkle_open`'s device and call time, or, in a checkout without it, the
+  device work of the one-level route it replaced (its gathers and
+  `merkle_level` launches, captured with the upload served from a tensor
+  uploaded before and the fetch left out); and `Opening.run`'s wall time
+  (`torch_harness.host_ms`), upload and fetch included.
+`ingest`, `merkle` and `open` give device time (`torch_harness.device_ms`:
+CUDA events around a replayed CUDA graph of 20 calls, per call).
 The first line gives the card's `nvidia-smi` name and power limit. Exits
 nonzero without CUDA.
 
@@ -39,13 +47,14 @@ as it is and of the copies in turns, each checked.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import pathlib
 import sys
 
 import numpy as np
 import torch
 
-from torch_harness import (REPO, build_all, card, cuda_ms, device_ms, in_turns,
+from torch_harness import (REPO, build_all, card, cuda_ms, device_ms, host_ms, in_turns,
                            package_copies, proof_collapse_widths)
 
 LDE_SHAPES = ((22, 18), (24, 20), (26, 22))  # 2^20-felt prove, 2^22 commit, 2^24 commit and prove
@@ -141,10 +150,87 @@ def time_merkle(rand_u32) -> None:
               f"device {ms:.4f} ms", flush=True)
 
 
+def _proof_opening(fri, words, log_total: int, cfg):
+    """The `Opening` whose `run` one `fri.prove_words` call makes."""
+    seen = []
+
+    class Recorded(fri.Opening):
+        def run(self, *args):
+            seen.append(self)
+            return super().run(*args)
+
+    real, fri.Opening = fri.Opening, Recorded
+    try:
+        fri.prove_words(words, log_total, 7, cfg)
+    finally:
+        fri.Opening = real
+    return seen[0]
+
+
+@contextlib.contextmanager
+def _device_work_only():
+    """`Opening.run` of the one-level route with its one upload served from
+    the tensor its first call uploaded and its fetch left out, so that a CUDA
+    graph captures its device work alone."""
+    from frieda_tpu_torch.utils import convert
+
+    real_from_numpy, real_fetch = torch.from_numpy, convert.to_numpy_u32
+    uploaded = []
+
+    class Upload:
+        def __init__(self, arr):
+            self.arr = arr
+
+        def to(self, device):
+            if not uploaded:
+                uploaded.append(real_from_numpy(self.arr).to(device))
+            return uploaded[0]
+
+    torch.from_numpy = Upload
+    convert.to_numpy_u32 = lambda t: np.zeros(t.numel(), np.uint32)
+    try:
+        yield
+    finally:
+        torch.from_numpy, convert.to_numpy_u32 = real_from_numpy, real_fetch
+
+
+def time_open(dev) -> None:
+    from chip_smoke import felt_bytes, synthetic_data
+    from frieda_tpu_torch.config import FriConfig, PcsConfig
+    from frieda_tpu_torch.core import fri
+    from frieda_tpu_torch.ops import merkle as merkle_ops
+    from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow
+    from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
+
+    for log_felts, nq in ((20, 64), (24, 20)):
+        cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(4, 0, nq))
+        data = synthetic_data(felt_bytes(log_felts))
+        log_total = log_total_for(len(data))
+        opening = _proof_opening(fri, from_numpy_u32(pad_to_words(data, log_total), dev), log_total, cfg)
+        wall = host_ms(opening.run)
+        if hasattr(merkle_ops, "merkle_open"):
+            args = (opening.columns, opening.trees, *opening.jobs())
+            if not torch.equal(merkle_ops.merkle_open(*args), narrow(merkle_ops.merkle_open_plain(*args))):
+                raise SystemExit(f"torch_kernel_times: merkle_open at 2^{log_felts} felts differs from plain")
+            table = torch.from_numpy(merkle_ops.open_table(*args)).to(dev)
+            ms = device_ms(lambda: merkle_ops.merkle_open(*args, table))  # noqa: B023
+            call = cuda_ms(lambda: merkle_ops.merkle_open(*args))  # noqa: B023
+            what = f"merkle_open bit-equal; device {ms:.4f} ms, call {call:.4f} ms"
+        else:
+            with _device_work_only():
+                ms = device_ms(opening.run)
+            what = (f"one-level route (gathers and {opening.rebuild_launches} merkle_level launches): "
+                    f"device {ms:.4f} ms")
+        print(f"[times] opening of the 2^{log_felts}-felt / {nq}-query proof: {what}; Opening.run "
+              f"{wall:.4f} ms", flush=True)
+        del opening
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(REPO))
-    ap.add_argument("--parts", default="lde,ingest,merkle")
+    ap.add_argument("--parts", default="lde,ingest,merkle,open")
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--no-check", action="store_true")
     ap.add_argument("--compare")
@@ -184,6 +270,8 @@ def main() -> int:
         time_ingest(rand_u32)
     if "merkle" in parts:
         time_merkle(rand_u32)
+    if "open" in parts:
+        time_open(dev)
     return 0
 
 
