@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FRIDA (`frieda_tpu_torch`) on one CUDA
-card, end to end, and check it: the commit and the FRI prover.
+card, end to end, and check it: the commit, the FRI prover, the batch
+prover and the verifier.
 
     python3 chip_smoke.py
 
@@ -37,16 +38,32 @@ Phases, each printed as it runs:
   6. `api.commit_and_prove(..., device="cuda")` against the JAX package's
      proofs: the four cases of tests/data/frozen_proofs.json and two anchors
      (blake2s of the wire bytes), each commitment equal to `api.commit`;
+     `api.verify` (host code) accepts each proof, and rejects a copy with
+     one FRI witness felt flipped and the proof under another seed;
   7. the staged prove (`api.commit_and_prove_staged`, words on the card) at
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
      path's (the same prover on the plain versions); median
      prove time of three runs, each run's stage split (the decommitment as
      plan, open and assemble), kernel launches per proof (`merkle_open` once,
-     no `merkle_level` in the decommitment) and peak device memory;
+     no `merkle_level` in the decommitment) and peak device memory; the
+     bytes one finished commit phase (`fri.Committed`) keeps on the card
+     (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
+     prove_many window that gives; `api.verify` accepts the proof and
+     rejects a tampered copy, with verify's host ms (median of 5);
   8. every kernel's launch count over the commit phases (4-5) and over the
      prove phases (6-7): each must be > 0 in both, except `merkle_open`,
-     which only a proof launches.
+     which only a proof launches;
+  9. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
+     kernel launched (> 0) by its first run, whose peak device memory is
+     printed; then a loop of `api.commit_and_prove` and `prove_many` in
+     turns (loop, prove_many, prove_many, loop), every commitment and wire
+     byte equal to the first run's, with each wall and proofs/s; the
+     window, and the card's idle share over one more `prove_many`
+     (torch.profiler); `api.verify_many` on those 8, 2 tampered copies and 1
+     under a wrong seed, with the phase 6 proofs (mixed shapes) equal to a
+     loop of `api.verify`, and its ms/proof beside the loop's on the 11 of
+     one shape (host clock, median of 5).
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON.
@@ -56,7 +73,8 @@ Without CUDA the script exits nonzero before printing any result.
 
 runs only phases 1-2 and one staged prove of 2^26 felts (20 queries,
 pow_bits 20, log_blowup 4) and prints its time, stage split and peak device
-memory: whether the largest blob the JAX bench names fits one card.
+memory: whether the largest blob the JAX bench names fits one card; then
+`api.verify` accepts the proof (host ms) and rejects a tampered copy.
 
     python3 chip_smoke.py --commit-split
 
@@ -82,7 +100,8 @@ import time
 import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
-from torch_harness import card, cuda_ms, device_ms, host_ms, proof_collapse_widths  # noqa: E402
+from torch_harness import (card, cuda_ms, device_busy_us, device_ms, host_ms,  # noqa: E402
+                           proof_collapse_widths)
 
 # (blob bytes, root of commit(synthetic_data(bytes), 4)): computed with the
 # JAX package, frieda_tpu.api.commit on CPU; tests/test_torch_commit.py keeps
@@ -134,6 +153,18 @@ def synthetic_data(n_bytes: int, seed: int = 0) -> bytes:
 def felt_bytes(log_felts: int) -> int:
     """Blob size that fills 2^log_felts felts exactly (30 bits each)."""
     return (30 << log_felts) // 8
+
+
+def tampered(proof):
+    """A copy of a proof with one FRI witness felt changed (in the first layer
+    that has a witness)."""
+    from frieda_tpu_torch.core.proof import Proof
+
+    bad = Proof.from_bytes(proof.to_bytes())
+    layer = next(t for t in [bad.proof.first_layer, *bad.proof.inner_layers] if t.fri_witness)
+    a, b, c, d = layer.fri_witness[0]
+    layer.fri_witness[0] = ((a + 1) % P, b, c, d)
+    return bad
 
 
 def check(cond: bool, msg: str) -> None:
@@ -213,13 +244,15 @@ def commit_split() -> int:
                 api.commit_root_pipeline(words, log_total, LOG_BLOWUP)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                      for e in prof.key_averages())
+        busy_us, records = device_busy_us(prof)
+        averaged_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                          for e in prof.key_averages())
         say(f"[split] commit 2^{log_felts} felts (domain 2^{log_size + LOG_BLOWUP}), ms: "
             f"pad_to_words {pad_ms:.4f}, upload {upload_ms:.4f}, ingest {ingest_ms:.4f}, "
             f"LDE {lde_ms:.4f}, Merkle {merkle_ms:.4f}, device {device_ms:.4f}, root fetch "
             f"{fetch_ms:.4f}; idle share {1 - busy_us / wall_us:.3f} (device busy {busy_us:.0f} us "
-            f"of {wall_us:.0f} us over 5 commits)")
+            f"in {records} device records, of {wall_us:.0f} us over 5 commits; the sum of "
+            f"key_averages' self device time: {averaged_us:.0f} us)")
         del words, root
         torch.cuda.empty_cache()
     return 0
@@ -260,6 +293,12 @@ def prove_fit(log_felts: int) -> int:
         f"{wall * 1e3:.3f} ms (synchronized stages, ms: {split}); peak device memory {peak} bytes = "
         f"{peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB ({peak / (1 << (log_total - 2 + LOG_BLOWUP)):.1f} "
         f"bytes per domain element)")
+    t0 = time.perf_counter()
+    ok = api.verify(proof, 7)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    check(ok, f"2^{log_felts}-felt proof: verify is False")
+    check(not api.verify(tampered(proof), 7), f"2^{log_felts}-felt proof: a tampered copy verifies")
+    say(f"[fit] verify 2^{log_felts}-felt proof: True in {verify_ms:.3f} ms (host); tampered copy False")
     return 0
 
 
@@ -282,6 +321,9 @@ def main() -> int:
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words, words_for
 
     t_start = time.perf_counter()
+
+    def lap(phase: int) -> None:
+        say(f"[{phase}] phase {phase} ended {time.perf_counter() - t_start:.1f} s into the run")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
 
@@ -511,6 +553,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     fri._fold_tables.clear()  # phase 7's peak memory counts no tables of these proofs
     torch.cuda.synchronize()
+    lap(3)
 
     # -- 4. end-to-end commits against the JAX package's roots ---------------
     ops.reset_launch_counts()
@@ -561,6 +604,7 @@ def main() -> int:
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
     for name, count in commit_counts.items():  # merkle_open reads a proof's openings only
         check(count > 0 or name == "merkle_open", f"kernel {name} was never launched by the commit path")
+    lap(5)
 
     # -- 6. proofs against the JAX package's ---------------------------------
     ops.reset_launch_counts()
@@ -568,6 +612,7 @@ def main() -> int:
               c["commitment"], c["wire_blake"]) for c in json.loads(FROZEN.read_text())]
     cases += [(name, n_bytes, 0, seed, cfg, com, blake)
               for name, n_bytes, seed, cfg, com, blake in PROVE_ANCHORS]
+    phase6 = []  # (proof, seed): phase 9's mixed shapes
     for name, n_bytes, offset, seed, cfg, com, blake in cases:
         data = synthetic_data(n_bytes, offset)
         pcs = PcsConfig.from_dict(cfg)
@@ -579,8 +624,14 @@ def main() -> int:
         check(commitment.hex() == com, f"proof {name}: commitment {commitment.hex()} != {com}")
         check(commitment == api.commit(data, pcs.fri_config.log_blowup_factor, device=dev),
               f"proof {name}: commitment differs from api.commit")
+        wrong = 1 if seed is None else seed + 1
+        check(api.verify(proof, seed), f"proof {name}: verify is False")
+        check(not api.verify(tampered(proof), seed), f"proof {name}: a tampered copy verifies")
+        check(not api.verify(proof, wrong), f"proof {name}: verifies under seed {wrong}")
+        phase6.append((proof, seed))
         say(f"[6] prove {name} ({n_bytes} bytes, seed {seed}): wire bytes match the JAX package's "
-            f"({wire_note(proof)}), commitment == api.commit ({wall:.3f} s)")
+            f"({wire_note(proof)}), commitment == api.commit ({wall:.3f} s); verify True, tampered "
+            f"copy False, seed {wrong} False")
 
     # -- 7. the staged prove at full width ------------------------------------
     for log_felts, nq in ((20, 64), (24, 20)):
@@ -617,6 +668,23 @@ def main() -> int:
             f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
         for i, split in enumerate(splits):
             say(f"[7]   run {i + 1} stages (ms): {split}")
+        torch.cuda.synchronize()
+        before_bytes = torch.cuda.memory_allocated(dev)
+        committed = fri.commit_phase(words, log_total, 7, cfg)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev) - before_bytes
+        del committed
+        domain = 1 << (log_total - 2 + LOG_BLOWUP)
+        safe = fri.safe_in_flight(log_total - 2, cfg.fri_config, dev)
+        say(f"[7] one Committed of 2^{log_felts} felts keeps {resident} bytes on the card = "
+            f"{resident / domain:.3f} bytes per domain element (words uploaded, tables cached); "
+            f"prove_many window: safe {safe}, default {min(8, safe)} (card total "
+            f"{fri.device_memory_bytes(dev)} bytes)")
+        check(api.verify(warm, 7), f"2^{log_felts}-felt proof: verify is False")
+        check(not api.verify(tampered(warm), 7), f"2^{log_felts}-felt proof: a tampered copy verifies")
+        verify_ms = host_ms(lambda: api.verify(warm, 7), 5)  # noqa: B023
+        say(f"[7] verify 2^{log_felts}-felt / {nq}-query proof: True, tampered copy False; "
+            f"{verify_ms:.3f} ms median of 5 (host)")
         if log_felts == 24:
             del warm, proof
             torch.cuda.empty_cache()
@@ -635,12 +703,82 @@ def main() -> int:
     say(f"[8] kernel launches in the prove phases 6-7: {prove_counts}")
     for name, count in prove_counts.items():
         check(count > 0, f"kernel {name} was never launched by the prove path")
-    say(f"[8] whole run {time.perf_counter() - t_start:.1f} s")
+    lap(8)
+
+    # -- 9. prove_many and verify_many ------------------------------------------
+    cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
+    datas = [synthetic_data(felt_bytes(20), k) for k in range(8)]
+    seeds = list(range(1, 9))
+    log_size = log_total_for(len(datas[0])) - 2
+    safe = fri.safe_in_flight(log_size, cfg.fri_config, dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    batch = api.prove_many(datas, seeds, cfg, device=dev)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0  # its window's memory is new to the allocator
+    many_counts = ops.launch_counts()
+    many_peak = torch.cuda.max_memory_allocated(dev)
+    for name, count in many_counts.items():
+        check(count > 0, f"kernel {name} was never launched by prove_many")
+    walls = {"loop": [], "prove_many": []}
+    for kind in ("loop", "prove_many", "prove_many", "loop"):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "loop":
+            out = [api.commit_and_prove(d, s, cfg, device=dev) for d, s in zip(datas, seeds)]
+        else:
+            out = api.prove_many(datas, seeds, cfg, device=dev)
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        for k, ((com, proof), (b_com, b_proof)) in enumerate(zip(out, batch)):
+            check(com == b_com and proof.to_bytes() == b_proof.to_bytes(),
+                  f"{kind} proof {k} differs from the first prove_many's")
+    del out
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        api.prove_many(datas, seeds, cfg, device=dev)
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    busy_us, records = device_busy_us(prof)
+    check(records > 0 and busy_us < prof_us, f"profile of prove_many: {records} device records, "
+          f"busy {busy_us:.0f} us of {prof_us:.0f} us")
+    lap(9)
+    rate = {k: 8 / statistics.mean(v) for k, v in walls.items()}
+    say(f"[9] prove_many 8 x 2^20 felts, 64 queries, pow 20 (domain 2^{log_size + LOG_BLOWUP}): every "
+        f"commitment and wire byte == a loop of commit_and_prove; window {min(8, safe)} (safe {safe}); "
+        f"walls in turns, ms: loop {walls['loop'][0] * 1e3:.3f}, prove_many "
+        f"{walls['prove_many'][0] * 1e3:.3f}, {walls['prove_many'][1] * 1e3:.3f}, loop "
+        f"{walls['loop'][1] * 1e3:.3f}: prove_many {rate['prove_many']:.3f} proofs/s, loop "
+        f"{rate['loop']:.3f} proofs/s (first prove_many, allocator cold: {cold_wall * 1e3:.3f} ms); peak "
+        f"device memory {many_peak} bytes = {many_peak / 2**30:.3f} GiB; idle share "
+        f"{1 - busy_us / prof_us:.3f} (device busy {busy_us:.0f} us in {records} records, of "
+        f"{prof_us:.0f} us of one profiled prove_many); kernel launches {many_counts}")
+    proofs = [p for _, p in batch] + [tampered(batch[0][1]), tampered(batch[1][1]), batch[2][1]]
+    vseeds = seeds + [seeds[0], seeds[1], seeds[2] + 100]
+    verdicts = [api.verify(p, s) for p, s in zip(proofs, vseeds)]
+    check(verdicts == [True] * 8 + [False] * 3, f"verify of prove_many's proofs: {verdicts}")
+    check(api.verify_many(proofs, vseeds) == verdicts, "verify_many differs from a loop of verify")
+    many_ms = host_ms(lambda: api.verify_many(proofs, vseeds), 5) / len(proofs)
+    loop_ms = host_ms(lambda: [api.verify(p, s) for p, s in zip(proofs, vseeds)], 5) / len(proofs)
+    mixed = proofs + [p for p, _ in phase6]
+    mixed_seeds = vseeds + [s for _, s in phase6]
+    want = [api.verify(p, s) for p, s in zip(mixed, mixed_seeds)]
+    check(api.verify_many(mixed, mixed_seeds) == want, "verify_many differs from a loop of verify (mixed)")
+    say(f"[9] verify_many == a loop of verify over {len(mixed)} proofs of "
+        f"{len({(len(p.proof.inner_layers), p.log_size_bound) for p in mixed})} shapes {want}; "
+        f"on the 11 of one shape (8 valid, 2 tampered, 1 wrong seed; host): verify_many {many_ms:.3f} "
+        f"ms/proof, looped verify {loop_ms:.3f} ms/proof (median of 5)")
+    del batch, proofs, mixed
+    say(f"[9] whole run {time.perf_counter() - t_start:.1f} s")
 
     say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": commit_counts[name] + prove_counts[name], "max_abs_err": k["max_abs_err"],
+         "launches": commit_counts[name] + prove_counts[name] + many_counts[name],
+         "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "ms_is": "device time: CUDA events around a replayed CUDA graph of the calls, per call",
          "call_ms": k["call_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None}

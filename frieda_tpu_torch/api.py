@@ -1,11 +1,14 @@
-"""Public API: commit, generate_proof, commit_and_prove.
+"""Public API: commit, generate_proof, commit_and_prove, prove_many, verify,
+verify_many.
 
 Counterpart of `frieda_tpu/api.py`, with the same quirks: empty input
 commits to the zero polynomial of log size 2, and the padded felt count is
-at least 4 (`log_total_for`). Every entry point runs on the card unless the
-caller asks for the CPU: a CUDA device runs every kernel of the path as a
-hand-written kernel and never falls back to the CPU, and without CUDA it
-raises; the CPU runs each kernel's plain PyTorch version.
+at least 4 (`log_total_for`). Every entry point that commits or proves runs
+on the card unless the caller asks for the CPU: a CUDA device runs every
+kernel of the path as a hand-written kernel and never falls back to the
+CPU, and without CUDA it raises; the CPU runs each kernel's plain PyTorch
+version. `verify` and `verify_many` take no device: the verifier is host
+code, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,3 +73,32 @@ def commit_and_prove_staged(words: torch.Tensor, log_total: int, seed,
     runs."""
     _device(words.device, "prove")
     return fri.prove_words(words, log_total, seed, pcs_config)
+
+
+def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG, max_in_flight=None,
+               device="cuda"):
+    """[(commitment, Proof)] of each blob under its seed, in input order, the
+    same bytes as a loop of `commit_and_prove`. Up to `max_in_flight`
+    finished commit phases wait on the device for their decommitment; None
+    picks min(8, the window that fits the device's memory), and a larger
+    request is clamped to that window with a warning (`fri.prove_many`)."""
+    return fri.prove_many(datas, seeds, pcs_config, max_in_flight, _device(device, "prove_many"))
+
+
+def verify(proof, seed) -> bool:
+    """Verify a proof under the sampling seed (reference: src/proof.rs:79-101).
+    Like the reference it does not take the commitment: compare
+    `proof.first_layer_commitment` yourself for binding.
+
+    Host code (numpy and the C++ runtime of `frieda_tpu_torch/native/`, built
+    on first use), written for a light client without a card, as the JAX
+    package's verifier is: there is no device version, and nothing falls
+    back. Returns False for an invalid proof; raises IndexError when
+    `evaluations` is shorter than the query set (the reference panics)."""
+    return fri.verify_proof(proof, seed)
+
+
+def verify_many(proofs, seeds) -> list:
+    """[verify(p, s) ...] for a batch, with the proofs of one shape checked
+    together (`fri.verify_many`). Host code, like `verify`."""
+    return fri.verify_many(proofs, seeds)

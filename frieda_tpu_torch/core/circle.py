@@ -1,8 +1,9 @@
 """Host-side circle-domain twiddle precompute (vectorized numpy).
 
-Jax-free copy of the twiddle half of `frieda_tpu/core/circle.py`: the circle
-geometry is index math on the host and only the resulting tables go to the
-device.
+Jax-free copy of `frieda_tpu/core/circle.py`: the circle geometry is index
+math on the host and only the resulting tables go to the device. The
+verifier's lookups (`line_x_batch`, `line_x_inv_batch`,
+`ys_inv_at_stored_pairs`) read the same cached tables on the host.
 
 Layout: NATURAL domain order (half coset, then conjugates). `Twiddles(n)`
 covers the canonic CircleDomain of size 2^n:
@@ -61,13 +62,19 @@ def batch_inv(a: np.ndarray) -> np.ndarray:
     return np.where(a == 0, np.uint64(0), out.reshape(a.shape))
 
 
+_REV8 = np.array([sum(((i >> b) & 1) << (7 - b) for b in range(8)) for i in range(256)], np.int64)
+
+
 def bitrev_array(js: np.ndarray, bits: int) -> np.ndarray:
-    """Vectorized bit reversal of int64 indices over `bits` (0..32) bits."""
+    """Vectorized bit reversal of int64 indices in [0, 2^bits) over `bits`
+    (0..32) bits: four byte-table lookups (the verifier calls it once per
+    FRI layer on a few queries, the prover on whole domains)."""
+    if not 0 <= bits <= 32:
+        raise ValueError(f"bits must be in 0..32, got {bits}")
     js = np.asarray(js, np.int64)
-    r = np.zeros_like(js)
-    for i in range(bits):
-        r |= ((js >> i) & 1) << (bits - 1 - i)
-    return r
+    r32 = ((_REV8[js & 0xFF] << 24) | (_REV8[(js >> 8) & 0xFF] << 16)
+           | (_REV8[(js >> 16) & 0xFF] << 8) | _REV8[(js >> 24) & 0xFF])
+    return r32 >> (32 - bits)
 
 
 def _pmul(x1, y1, x2, y2):
@@ -145,3 +152,72 @@ class Twiddles:
 @functools.lru_cache(maxsize=4)
 def get_twiddles(log_size: int) -> Twiddles:
     return Twiddles(log_size)
+
+
+# --- the verifier's per-query lookups (host) ---------------------------------
+
+def bit_reverse_index(i: int, log_n: int) -> int:
+    r = 0
+    for _ in range(log_n):
+        r = (r << 1) | (i & 1)
+        i >>= 1
+    return r
+
+
+def natural_point(log_size: int, natural: int):
+    """Circle point of the canonic domain of log size n at *natural* index."""
+    m = log_size - 1
+    conj = natural >= (1 << m)
+    t = natural & ((1 << m) - 1)
+    ix, iy = _point_pow(*GENERATOR, 1 << (LOG_ORDER - 2 - m))
+    sx, sy = _point_pow(*GENERATOR, 1 << (LOG_ORDER - m))
+    px, py = _point_pow(sx, sy, t)
+    x = (ix * px - iy * py) % P
+    y = (ix * py + iy * px) % P
+    if conj:
+        y = (P - y) % P
+    return x, y
+
+
+def domain_point_at_stored_index(log_size: int, stored: int):
+    """Circle point at *stored* (bit-reversed) index: stored s <-> natural
+    bitrev_n(s) (SURVEY.md A.5)."""
+    return natural_point(log_size, bit_reverse_index(stored, log_size))
+
+
+def _line_lookup(log_size: int, layer: int, js, table: np.ndarray) -> np.ndarray:
+    """Signed lookup shared by line_x_batch / line_x_inv_batch, as uint64.
+
+    X_layer[j] = pi^layer(x(natural u)) with u = bitrev_{n-1-layer}(j), and
+    pi^layer(xs[u]) = ±xs_layers[layer][u mod half] (the Twiddles
+    construction; second halves negate by the ±x pair adjacency asserted
+    there). The same index and sign select from the inverse table, so the
+    verifier runs no field inversion. The uint32 table is read in place and
+    only the entries gathered are widened (the JAX package caches uint64
+    copies of whole layers: 128 MiB each for the first layer of a 2^26
+    domain)."""
+    u = bitrev_array(np.asarray(js, np.int64), log_size - 1 - layer)
+    half = table.shape[0]  # == 2^(log_size - 2 - layer)
+    hi = u >= half
+    val = table[np.where(hi, u - half, u)].astype(np.uint64)
+    return np.where(hi, (P - val) % P, val)
+
+
+def line_x_batch(log_size: int, layer: int, js) -> np.ndarray:
+    """X_layer[js] for an array of STORED line-domain indices: X_0[j] = x(stored
+    domain point 2j), X_l[j] = pi^l(X_0[j << l]). Lookups in the cached
+    twiddle tables, which the prover of the same size already built."""
+    return _line_lookup(log_size, layer, js, get_twiddles(log_size).xs_layers[layer])
+
+
+def line_x_inv_batch(log_size: int, layer: int, js) -> np.ndarray:
+    """1 / X_layer[js], from the cached inverse tables (no Fermat pow)."""
+    return _line_lookup(log_size, layer, js, get_twiddles(log_size).xs_layers_inv[layer])
+
+
+def ys_inv_at_stored_pairs(log_size: int, ks) -> np.ndarray:
+    """1/y(stored domain point 2k) for an array of pair indices k, as uint64:
+    the natural index of stored 2k is bitrev_{n-1}(k), always in the half
+    coset (no conjugate sign)."""
+    u = bitrev_array(np.asarray(ks, np.int64), log_size - 1)
+    return get_twiddles(log_size).ys_inv[u].astype(np.uint64)

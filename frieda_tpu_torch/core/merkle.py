@@ -21,6 +21,13 @@ counterpart of `device_levels_pruned`), and `Opening` reads the values and
 nodes a proof reveals from the layers and their trees, rebuilding the two
 missing levels of each group from the level below, in one `merkle_open`
 launch. `MerkleDecommitment` is the proof's hash witness.
+
+The verifier's half is host code over numpy rows, as in the JAX package
+(`frieda_tpu/core/merkle.py:297-410`): `compress_rows_host` hashes leaves and
+`verify_openings_rows` recomputes a root from opened leaves and a hash
+witness, both in the native runtime (`frieda_tpu_torch/native/`), or with
+`plain=True` in the plain version (`blake2s.compress_rows` on CPU tensors and
+a numpy walk per level) that the tests hold the runtime against.
 """
 
 from __future__ import annotations
@@ -219,3 +226,87 @@ class MerkleDecommitment:
     @classmethod
     def from_dict(cls, d):
         return cls(hash_witness=[bytes.fromhex(h) for h in d["hash_witness"]])
+
+
+# ---------------------------------------------------------------------------
+# The verifier's half (host)
+# ---------------------------------------------------------------------------
+
+def compress_rows_host(msgs: np.ndarray, plain: bool = False) -> np.ndarray:
+    """(m, 16) uint32 messages -> (m, 8) uint32 zero-state compressions."""
+    msgs = np.ascontiguousarray(msgs, np.uint32)
+    if not plain:
+        from .. import native
+
+        return native.raw_compress_batch(msgs)
+    out = compress_rows(torch.from_numpy(msgs.T.astype(np.int64)))
+    return np.ascontiguousarray(out.numpy().T.astype(np.uint32))
+
+
+def verify_openings_rows(root: bytes, log_n_leaves: int, idxs, rows: np.ndarray,
+                         hash_witness: list, plain: bool = False) -> bool:
+    """Recompute the root from known leaf hashes and the hash witness, which
+    must be consumed exactly. Returns False on a mismatch or a malformed
+    witness; never raises for a bad proof.
+
+    idxs: sorted unique leaf indices; rows: their (m, 8) uint32 hash words.
+    The native runtime walks the whole tree in one call; the plain walk
+    groups pairs in numpy and hashes each level in one call."""
+    try:  # one C-level join validates and packs
+        joined = b"".join(hash_witness)
+    except TypeError:
+        return False
+    if len(joined) != 32 * len(hash_witness):
+        return False
+    wit_rows = np.frombuffer(joined, np.uint32).reshape(-1, 8) if joined else np.zeros((0, 8), np.uint32)
+    idxs = np.asarray(idxs, np.int64)
+    if not plain:
+        from .. import native
+
+        ok, got_root, consumed = native.verify_openings(log_n_leaves, idxs, rows, wit_rows)
+        return ok and consumed == wit_rows.shape[0] and got_root == root
+    wi = 0
+    for _ in range(log_n_leaves):
+        if idxs.size == 0:
+            break
+        # sorted unique indices: element i starts a pair iff it is even and
+        # the next element is its sibling (an odd element can only pair
+        # backward, which the previous position already captured)
+        is_start = np.zeros(idxs.size, bool)
+        is_start[:-1] = (idxs[:-1] % 2 == 0) & (idxs[1:] == idxs[:-1] + 1)
+        is_second = np.zeros(idxs.size, bool)
+        is_second[1:] = is_start[:-1]
+        lone = ~is_start & ~is_second
+        n_lone = int(lone.sum())
+        if wi + n_lone > wit_rows.shape[0]:
+            return False
+        keep = is_start | lone  # one output node per kept position, in order
+        kidx = idxs[keep]
+        krows = rows[keep]
+        lone_k = lone[keep]
+        lefts = krows.copy()
+        rights = np.empty_like(krows)
+        # paired: right = the following row; lone even: right = witness;
+        # lone odd: left = witness, right = own row
+        paired_k = ~lone_k
+        rights[paired_k] = rows[np.flatnonzero(keep)[paired_k] + 1]
+        wslice = wit_rows[wi : wi + n_lone]
+        wi += n_lone
+        lone_even = lone_k & (kidx % 2 == 0)
+        lone_odd = lone_k & (kidx % 2 == 1)
+        rights[lone_even] = wslice[(kidx[lone_k] % 2 == 0).nonzero()[0]]
+        lefts[lone_odd] = wslice[(kidx[lone_k] % 2 == 1).nonzero()[0]]
+        rights[lone_odd] = krows[lone_odd]
+        rows = compress_rows_host(np.concatenate([lefts, rights], axis=1), plain=True)
+        idxs = kidx >> 1
+    if wi != wit_rows.shape[0]:  # leftover witness entries: malformed
+        return False
+    return idxs.size == 1 and int(idxs[0]) == 0 and rows[0].tobytes() == root
+
+
+def verify_openings(root: bytes, log_n_leaves: int, leaf_hashes: dict, dec: MerkleDecommitment,
+                    plain: bool = False) -> bool:
+    """`verify_openings_rows` over a {leaf index: 32-byte hash} dict."""
+    items = sorted(leaf_hashes.items())
+    rows = np.stack([np.frombuffer(h, np.uint32) for _, h in items]) if items else np.zeros((0, 8), np.uint32)
+    return verify_openings_rows(root, log_n_leaves, [i for i, _ in items], rows, dec.hash_witness, plain)

@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with `ctypes`. The build runs
 at first use, from the checkout's sources and nothing else, into
 `build/kernels/<hash>/` at the repository root; the hash covers the sources
 and the flags, so an edited source rebuilds and an unchanged one loads the
-library already there. Nothing here runs at import time.
+library already there. Nothing here runs at import time. `compile_once`
+also builds the host runtime (`frieda_tpu_torch/native/`).
 """
 
 from __future__ import annotations
@@ -44,12 +45,31 @@ _SIGNATURES = {
 _lib = None
 
 
-def source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
+def compile_once(out_root: pathlib.Path, lib_name: str, compiler: str, flags, sources) -> pathlib.Path:
+    """Compile `sources` (paths; headers are hashed, not passed) with
+    `compiler flags -o lib` into `out_root/<sha of the sources and
+    flags>/lib_name`, unless that library is already there; returns its
+    path. The compiler's output is kept beside it as build.log. A failed
+    compile raises."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = out_root / h.hexdigest()[:16]
+    so = out_dir / lib_name
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [compiler, *flags, "-o", tmp] + [str(s) for s in sources if s.suffix in (".cu", ".cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{pathlib.Path(compiler).name} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so
 
 
 def _nvcc() -> str:
@@ -66,24 +86,7 @@ def build() -> pathlib.Path:
     """Compile the kernels unless this source hash is already built; returns
     the library path. The compiler's output (-Xptxas -v: registers, shared
     memory, spills per kernel) is kept beside it as build.log."""
-    out_dir = BUILD_ROOT / source_digest()
-    so = out_dir / LIB_NAME
-    if so.exists():
-        return so
-    nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [
-        str(CSRC / s) for s in SOURCES if s.endswith(".cu")
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so
+    return compile_once(BUILD_ROOT, LIB_NAME, _nvcc(), NVCC_FLAGS, [CSRC / s for s in SOURCES])
 
 
 def library() -> ctypes.CDLL:

@@ -25,6 +25,8 @@ import frieda_tpu_torch.ops.merkle, frieda_tpu_torch.ops._build
 import frieda_tpu_torch.utils.convert, frieda_tpu_torch.core.circle
 import frieda_tpu_torch.core.channel, frieda_tpu_torch.core.grind
 import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
+import frieda_tpu_torch.core.npfield, frieda_tpu_torch.core.merkle, frieda_tpu_torch.native
+from frieda_tpu_torch.api import prove_many, verify, verify_many
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "frieda_tpu"))
 print(",".join(loaded))
 """
@@ -58,6 +60,15 @@ def test_chip_smoke_fails_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_cuda_prove_many_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.prove_many([b"x"], [1])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.prove_many([b"x"], [1], device="cuda")
 
 
 def test_unknown_device_rejected():

@@ -7,6 +7,7 @@ tool can time another checkout's package with the same timers.
 - `device_ms`: CUDA events around a replayed CUDA graph of the calls (device
   time: the launches alone);
 - `host_ms`: the host clock, synchronized at both ends;
+- `device_busy_us`: the device's busy time in a torch.profiler trace;
 - `package_copies` / `build_all` / `in_turns`: copy the package with its
   sources edited, build every copy's kernels at once, run a command against
   each checkout in turns (A B ... B A), one process each.
@@ -90,6 +91,18 @@ def host_ms(fn, reps: int = 9) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_busy_us(prof) -> tuple:
+    """(us, records): the summed durations of the device's own records
+    (kernels, copies, fills) in a finished `torch.profiler.profile`, in one
+    pass over the trace (`key_averages()` takes tens of seconds over the
+    ~10^5 records of a batch of proofs)."""
+    import torch
+
+    device_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return sum(device_ns) / 1e3, len(device_ns)
 
 
 def proof_collapse_widths(collapse_max: int = 4096) -> list:
