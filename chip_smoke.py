@@ -30,17 +30,41 @@ Phases, each printed as it runs:
      at the openings of a 2^20-felt / 64-query and a 2^24-felt / 20-query
      proof (their real layers, trees and queries, from `fri.commit_phase`
      and `fri.plan_openings`), with the chain floor of one launch and three
-     dependent compressions;
+     dependent compressions; then the blob axis of `commit_many`, each batch
+     bit-equal to the one-blob plain version per blob: `ingest` at 64 blobs
+     of log_size 14 (tiles) and 3 of log_size 8 (per-element), `fft_pass`
+     at C = 256 columns, n = 18, the fused leaf and inner `merkle_level` at
+     (64, 4, 2^18) and (64, 8, 2^15), the one-level leaf and inner at
+     (3, 4, 2^4) and (3, 8, 2^4), `merkle_collapse` at (64, 8, 4096) -> 1 and
+     (3, 8, 2) -> 1;
   4. `api.commit(data, 4, device="cuda")` on synthetic blobs against anchor
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
-     on the card; median commit time and felts/s at 2^22 and 2^24 felts;
-  6. `api.commit_and_prove(..., device="cuda")` against the JAX package's
+     on the card; median commit time (call, and a CUDA graph's replay) and
+     felts/s at 2^22 and 2^24 felts;
+  6. `api.commit_many`: 64 blobs of 2^16 felts equal a loop of `api.commit`
+     (root 0 the 2^16 anchor), with the launches of one `api.commit`; 16
+     blobs of 2^20 felts equal a loop; `COMMIT_MANY_ANCHORS` (the JAX
+     package's roots of small batches); [] for no blob, ValueError for
+     unequal padded sizes. At 64 x 2^16 and 16 x 2^20: the device ms of
+     `commit_root_pipeline_batch` (graph replay) beside phase 5's one-blob
+     commit of as many felts, a loop of `commit_root_pipeline` timed by call
+     and as one CUDA graph, the whole calls of `commit_many` and of a loop
+     of `api.commit` in turns (median of 3), felts/s, and the idle share of
+     5 batched calls and of 5 loops (torch.profiler);
+  7. `api.commit_with_tree`: at 2^16 felts the kernel route's `CommitTree`
+     equals the plain route's (device="cpu"): root, evals, every level and
+     `gather_nodes` at 64 indices a level; at 2^22 felts the root equals the
+     anchor and `api.commit`'s, each level's nodes at 64 indices equal the
+     host hash of their children, the launches are one one-level leaf and
+     one one-level inner per level (no fused level, no collapse), and the
+     device ms of `device_levels` sits beside the fused `root_level`'s;
+  8. `api.commit_and_prove(..., device="cuda")` against the JAX package's
      proofs: the four cases of tests/data/frozen_proofs.json and two anchors
      (blake2s of the wire bytes), each commitment equal to `api.commit`;
      `api.verify` (host code) accepts each proof, and rejects a copy with
      one FRI witness felt flipped and the proof under another seed;
-  7. the staged prove (`api.commit_and_prove_staged`, words on the card) at
+  9. the staged prove (`api.commit_and_prove_staged`, words on the card) at
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
      path's (the same prover on the plain versions); median
@@ -51,17 +75,19 @@ Phases, each printed as it runs:
      (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
      prove_many window that gives; `api.verify` accepts the proof and
      rejects a tampered copy, with verify's host ms (median of 5);
-  8. every kernel's launch count over the commit phases (4-5) and over the
-     prove phases (6-7): each must be > 0 in both, except `merkle_open`,
-     which only a proof launches;
-  9. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
+ 10. every kernel's launch count over each path: the commit phases (4-5,
+     checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
+     `merkle_level` forms) and the prove phases (8-9): each must be > 0,
+     except `merkle_open` outside a proof and `merkle_collapse` in
+     `commit_with_tree`;
+ 11. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
      kernel launched (> 0) by its first run, whose peak device memory is
      printed; then a loop of `api.commit_and_prove` and `prove_many` in
      turns (loop, prove_many, prove_many, loop), every commitment and wire
      byte equal to the first run's, with each wall and proofs/s; the
      window, and the card's idle share over one more `prove_many`
      (torch.profiler); `api.verify_many` on those 8, 2 tampered copies and 1
-     under a wrong seed, with the phase 6 proofs (mixed shapes) equal to a
+     under a wrong seed, with the phase 8 proofs (mixed shapes) equal to a
      loop of `api.verify`, and its ms/proof beside the loop's on the 11 of
      one shape (host clock, median of 5).
 
@@ -113,6 +139,18 @@ ANCHORS = (
     (262_146, "02d73bf8e7d85048c1644f3058249355f5936881aa304e4500ceff84d56ced50"),      # reference fixture size
     (3_932_160, "e38617ac97faf85ac6babc5e23254b85f14bbab4b4c09b905656c14842ce80d1"),    # 2^20 felts
     (15_728_640, "2c68ea8df3200e5354beafef3e6b648b819f38f298544834b3a9d2ca34f5200c"),   # 2^22 felts
+)
+# (blob sizes, log_blowup, roots of commit_many([synthetic_data(size, seed=k)
+# for the k-th size], log_blowup)): computed with the JAX package,
+# frieda_tpu.api.commit_many on CPU; tests/test_torch_commit_many.py keeps
+# them equal to it.
+COMMIT_MANY_ANCHORS = (
+    ((0, 1, 2), 4, ("4d2aedd405053903f84ec43cdb56ae3f83590bdb8248667c65299ae2a1cdd44f",
+                    "2a179b2f1652114540b085542f8ac844946b76c4fd72baf11df87540825ae054",
+                    "d7f8f442a2ac2bc582958b53106def61d8ee3a0b5c94baac9ebabf4b66cb7311")),   # log_total 2
+    ((3_000, 3_500, 3_840), 4, ("32c0cca3e034f05824fd505b2489676766cd3e270fabaa0f471b9ed174ba503f",
+                                "8389c8dd58b51c834e5afe48e7ebaea2ec868e168785d81b871abb4595b8496d",
+                                "fe9e47e9bd2103da5124a7cfccef3fa2b7425b3b816e99fb164ed55b5734b9d2")),  # log_total 10
 )
 # Proofs of synthetic_data(data_len) beyond the frozen cases, as
 # (name, data_len, seed, pcs_config dict, commitment, blake2s of the wire
@@ -317,7 +355,8 @@ def main() -> int:
     from frieda_tpu_torch.ops import fft as fft_ops
     from frieda_tpu_torch.ops import ingest as ingest_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
-    from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, widen
+    from frieda_tpu_torch.core.circle import bitrev_array
+    from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words, words_for
 
     t_start = time.perf_counter()
@@ -364,8 +403,7 @@ def main() -> int:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
             say(f"[2]   {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
-    # merkle_level's one-level inner kernel: one compression per thread
-    comp_ops = len(sass_int_ops(so, "merkle_level_kernel", "ILb0ELb0E"))
+    comp_ops = len(sass_int_ops(so, "frieda_blake2s_probe"))
     say(f"[2] one BLAKE2s compression: {comp_ops} integer instructions in the SASS")
     bfly = sass_int_ops(so, "frieda_fft_butterfly_probe")
     bfly_ops = len(bfly)
@@ -443,10 +481,13 @@ def main() -> int:
         del coeffs, c64, got, tw, src
         torch.cuda.empty_cache()
 
+    def level_ops(leaf: bool, fused: bool, width: int) -> int:
+        out_w = width // (8 if fused else (1 if leaf else 2))
+        return ((width if leaf else 0) + (7 * out_w if fused else (0 if leaf else out_w))) * comp_ops
+
     def level_bound(leaf: bool, fused: bool, width: int) -> tuple:
         out_w = width // (8 if fused else (1 if leaf else 2))
-        hashes = (width if leaf else 0) + (7 * out_w if fused else (0 if leaf else out_w))
-        return bound((16 if leaf else 32) * width + 32 * out_w, hashes * comp_ops)
+        return bound((16 if leaf else 32) * width + 32 * out_w, level_ops(leaf, fused, width))
 
     def level_case(leaf: bool, fused: bool, width: int, what: str) -> dict:
         x = rand_u32((4, width), P) if leaf else rand_u32((8, width))
@@ -551,7 +592,50 @@ def main() -> int:
                 bound_ms=b_ms, bound_by=b_by)
         del committed, args, got, want, table
         torch.cuda.empty_cache()
-    fri._fold_tables.clear()  # phase 7's peak memory counts no tables of these proofs
+    # the blob axis (commit_many: 64 x 2^16 felts, log_blowup 4, and small
+    # batches), each against its one-blob plain version per blob, stacked
+    def batch_case(what: str, fn, plain_one, x, n_bytes: float, n_ops: float) -> None:
+        got = fn(x)
+        want = torch.stack([narrow(plain_one(widen(b))) for b in x])
+        check(torch.equal(got, want), f"{what} differs from its plain version per blob")
+        ms = device_ms(lambda: fn(x), reps=5)
+        call = cuda_ms(lambda: fn(x))
+        b_ms, b_by = bound(n_bytes, n_ops)
+        say(f"[3] {what}: bit-equal per blob; device {ms:.4f} ms, call {call:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; share {b_ms / ms:.3f})")
+
+    for n_blobs, log_size in ((64, 14), (3, 8)):  # tile form, per-element form
+        words = rand_u32((n_blobs, words_for(log_size + 2)))
+        form = f"{ingest_ops.ingest_tile(log_size)} tiles a block" if log_size >= 10 else "per-element form"
+        batch_case(f"ingest ({n_blobs}, {words.shape[1]}) log_size={log_size} ({form})",
+                   lambda w: ingest_ops.ingest(w, log_size),  # noqa: B023
+                   lambda w: ingest_ops.ingest_plain(w, log_size),  # noqa: B023
+                   words, 4 * words.numel() + 16 * n_blobs * (1 << log_size), 0)
+    tw = fft.stage_twiddles(18, dev)
+    coeffs = rand_u32((64, 4, 1 << 14), P)
+    _, groups = fft_ops.pass_plan(18, 14)
+    batch_case(f"fft_pass C=256 n=18 log_l=14 ((64, 4, 2^14) as (256, 2^14), groups {groups})",
+               lambda c: fft.evaluate_auto(c, tw), lambda c: fft.evaluate(c, tw), coeffs,
+               4 * coeffs.numel() + 4 * tw.numel() + 4 * 256 * (1 << 18),
+               256 * 14 * (1 << 17) * bfly_ops)
+    del coeffs, tw
+    for n_blobs, leaf, fused, width in ((64, True, True, 1 << 18), (64, False, True, 1 << 15),
+                                        (3, True, False, 1 << 4), (3, False, False, 1 << 4)):
+        x = rand_u32((n_blobs, 4, width), P) if leaf else rand_u32((n_blobs, 8, width))
+        one_bytes = ((16 if leaf else 32) * width + 32 * (width // (8 if fused else (1 if leaf else 2))))
+        batch_case(f"merkle_level leaf={leaf} fused={fused} {tuple(x.shape)}",
+                   lambda v: merkle_ops.merkle_level(v, leaf, fused),  # noqa: B023
+                   lambda v: merkle_ops.merkle_level_plain(v, leaf, fused),  # noqa: B023
+                   x, n_blobs * one_bytes, n_blobs * level_ops(leaf, fused, width))
+    for n_blobs, m in ((64, 4096), (3, 2)):
+        level = rand_u32((n_blobs, 8, m))
+        batch_case(f"merkle_collapse ({n_blobs}, 8, {m}) -> 1, {n_blobs} clusters of "
+                   f"{merkle_ops.collapse_plan(m)}",
+                   lambda v: merkle_ops.merkle_collapse(v)[0],
+                   lambda v: merkle_ops.merkle_collapse_plain(v)[0],
+                   level, n_blobs * 32 * (m + 1), n_blobs * (m - 1) * comp_ops)
+    del x, level, words
+    fri._fold_tables.clear()  # phase 9's peak memory counts no tables of these proofs
     torch.cuda.synchronize()
     lap(3)
 
@@ -573,6 +657,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(lambda: api.commit_root_pipeline(words, log_total, LOG_BLOWUP))
         peak = torch.cuda.max_memory_allocated(dev)
+        graph_ms = device_ms(lambda: api.commit_root_pipeline(words, log_total, LOG_BLOWUP), reps=3)
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -580,9 +665,10 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
         wall = statistics.median(walls)
         felts = 1 << log_felts
-        results[log_felts] = dict(ms=ms, wall_s=wall, peak=peak, root=root.hex())
+        results[log_felts] = dict(ms=ms, graph_ms=graph_ms, wall_s=wall, peak=peak, root=root.hex())
         say(f"[5] commit 2^{log_felts} felts ({len(data)} bytes, domain 2^{log_total - 2 + LOG_BLOWUP}): "
-            f"device {ms:.3f} ms median = {felts / (ms / 1e3) / 1e6:.2f} M felts/s; "
+            f"device {ms:.3f} ms median = {felts / (ms / 1e3) / 1e6:.2f} M felts/s (graph replay "
+            f"{graph_ms:.4f} ms); "
             f"whole call {wall * 1e3:.1f} ms = {felts / wall / 1e6:.2f} M felts/s; "
             f"peak device memory {peak / 2**30:.3f} GiB; root {root.hex()}")
         del words
@@ -606,13 +692,156 @@ def main() -> int:
         check(count > 0 or name == "merkle_open", f"kernel {name} was never launched by the commit path")
     lap(5)
 
-    # -- 6. proofs against the JAX package's ---------------------------------
+    # -- 6. commit_many --------------------------------------------------------
+    blobs16 = [synthetic_data(felt_bytes(16), k) for k in range(64)]
+    ops.reset_launch_counts()
+    roots16 = api.commit_many(blobs16, LOG_BLOWUP, device=dev)
+    batch_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    api.commit(blobs16[0], LOG_BLOWUP, device=dev)
+    check(ops.launch_counts() == batch_counts,
+          f"commit_many of 64 blobs launched {batch_counts}; one commit {ops.launch_counts()}")
+    check(roots16 == [api.commit(d, LOG_BLOWUP, device=dev) for d in blobs16],
+          "commit_many of 64 x 2^16 felts differs from a loop of commit")
+    check(roots16[0].hex() == dict(ANCHORS)[245_760], f"commit_many root 0 {roots16[0].hex()} != anchor")
+    say(f"[6] commit_many 64 x 2^16 felts: every root == a loop of commit, root 0 == the 2^16 anchor; "
+        f"launches per commit_many {batch_counts} == one commit's")
+    blobs20 = [synthetic_data(felt_bytes(20), k) for k in range(16)]
+    check(api.commit_many(blobs20, LOG_BLOWUP, device=dev) == [api.commit(d, LOG_BLOWUP, device=dev)
+                                                              for d in blobs20],
+          "commit_many of 16 x 2^20 felts differs from a loop of commit")
+    say("[6] commit_many 16 x 2^20 felts: every root == a loop of commit")
+    for sizes, log_blowup, expect in COMMIT_MANY_ANCHORS:
+        got = [r.hex() for r in api.commit_many([synthetic_data(n, k) for k, n in enumerate(sizes)],
+                                                log_blowup, device=dev)]
+        check(got == list(expect), f"commit_many {sizes}: {got} != anchors {expect}")
+    check(api.commit_many([], LOG_BLOWUP, device=dev) == [], "commit_many of no blob is not []")
+    try:
+        api.commit_many([synthetic_data(100), synthetic_data(4_000)], LOG_BLOWUP, device=dev)
+        check(False, "commit_many of unequal padded sizes did not raise")
+    except ValueError as e:
+        check("equal padded sizes" in str(e), f"commit_many of unequal sizes: {e}")
+    say(f"[6] commit_many anchors {[sizes for sizes, _, _ in COMMIT_MANY_ANCHORS]} match the JAX "
+        f"package's; [] for no blob; ValueError for unequal padded sizes")
+    for blobs, log_felts, single in ((blobs16, 16, 22), (blobs20, 20, 24)):
+        n_blobs = len(blobs)
+        words = from_numpy_u32(np.stack([pad_to_words(d, log_felts) for d in blobs]), dev)
+        rows = list(words)
+
+        def batch(w=words, lt=log_felts):
+            return api.commit_root_pipeline_batch(w, lt, LOG_BLOWUP)
+
+        def loop(rs=rows, lt=log_felts):
+            return [api.commit_root_pipeline(w, lt, LOG_BLOWUP) for w in rs]
+
+        batch_dev = device_ms(batch, reps=3)
+        batch_call = cuda_ms(batch)
+        loop_call = cuda_ms(loop, reps=3)
+        loop_graph = device_ms(loop, reps=1)
+        walls = {"commit_many": [], "loop": []}
+        for kind in ("commit_many", "loop", "loop", "commit_many", "commit_many", "loop"):  # in turns
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "loop":
+                for d in blobs:
+                    api.commit(d, LOG_BLOWUP, device=dev)
+            else:
+                api.commit_many(blobs, LOG_BLOWUP, device=dev)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+        idle = {}
+        for kind, fn in (("commit_many", batch), ("loop", loop)):
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy_us, records = device_busy_us(prof)
+            check(records > 0 and busy_us < wall_us, f"profile of {kind}: {records} records, busy "
+                  f"{busy_us:.0f} us of {wall_us:.0f} us")
+            idle[kind] = (1 - busy_us / wall_us, busy_us, records, wall_us)
+        felts = n_blobs << log_felts
+        wall_many, wall_loop = statistics.median(walls["commit_many"]), statistics.median(walls["loop"])
+        say(f"[6] commit_many {n_blobs} x 2^{log_felts} felts (domain 2^{log_felts - 2 + LOG_BLOWUP} each; "
+            f"one 2^{single}-felt commit, phase 5: graph replay {results[single]['graph_ms']:.4f} ms, call "
+            f"{results[single]['ms']:.4f} ms): commit_root_pipeline_batch device {batch_dev:.4f} ms "
+            f"(graph replay) = {felts / batch_dev / 1e6:.3f} G felts/s, call {batch_call:.4f} ms; a loop "
+            f"of {n_blobs} commit_root_pipeline: call {loop_call:.4f} ms, one CUDA graph {loop_graph:.4f} ms; "
+            f"whole calls in turns (ms): commit_many {[round(w, 3) for w in walls['commit_many']]}, loop "
+            f"of api.commit {[round(w, 3) for w in walls['loop']]}: medians {wall_many:.3f} / "
+            f"{wall_loop:.3f} = {felts / wall_many / 1e3:.3f} / {felts / wall_loop / 1e3:.3f} M felts/s")
+        for kind, (share, busy_us, records, wall_us) in idle.items():
+            say(f"[6]   idle share over 5 x {kind} on device-resident words: {share:.3f} (device busy "
+                f"{busy_us:.0f} us in {records} records of {wall_us:.0f} us)")
+        del words, rows
+        torch.cuda.empty_cache()
+    del blobs16, blobs20
+    lap(6)
+
+    # -- 7. commit_with_tree --------------------------------------------------
+    data = synthetic_data(felt_bytes(16))
+    root, evals, tree, n = api.commit_with_tree(data, LOG_BLOWUP, device=dev)
+    c_root, c_evals, c_tree, c_n = api.commit_with_tree(data, LOG_BLOWUP, device="cpu")
+    check(root == c_root and n == c_n and torch.equal(evals.cpu(), c_evals), "commit_with_tree 2^16: "
+          "kernel route root, n or evals != plain route's")
+    check(tree.n_device_levels == c_tree.n_device_levels and len(tree.hlevels) == len(c_tree.hlevels)
+          and all(torch.equal(a.cpu(), b) for a, b in zip(tree.dlevels, c_tree.dlevels))
+          and all(np.array_equal(a, b) for a, b in zip(tree.hlevels, c_tree.hlevels)),
+          "commit_with_tree 2^16: a tree level differs between the kernel and plain routes")
+    for level in range(n + 1):
+        stored = rng.integers(0, 1 << (n - level), 64)
+        check(tree.gather_nodes(level, stored) == c_tree.gather_nodes(level, stored),
+              f"commit_with_tree 2^16: gather_nodes at level {level} differs between routes")
+    say(f"[7] commit_with_tree 2^16 felts (n = {n}): kernel route == plain route (device='cpu'): root, "
+        f"evals, {tree.n_device_levels} device levels, {len(tree.hlevels)} host levels, gather_nodes at "
+        f"64 indices of each of the {n + 1} levels")
+    del evals, tree, c_evals, c_tree
+    data = synthetic_data(felt_bytes(22))
+    ops.reset_launch_counts()
+    root, evals, tree, n = api.commit_with_tree(data, LOG_BLOWUP, device=dev)
+    tree_counts = ops.launch_counts()
+    levels = tree.n_device_levels
+    # One merkle_level launch a stored level, each level half as wide as the
+    # one below: the first launch is the one-level leaf form, the rest the
+    # one-level inner form (a fused launch would divide the width by 8).
+    widths = [lvl.shape[-1] for lvl in tree.dlevels]
+    check(widths == [1 << (n - k) for k in range(levels)] and levels > 1
+          and tree_counts["merkle_collapse"] == 0 and tree_counts["merkle_level"] == levels,
+          f"commit_with_tree 2^22: launches {tree_counts} for device levels of widths {widths}")
+    check(root.hex() == dict(ANCHORS)[felt_bytes(22)] == api.commit(data, LOG_BLOWUP, device=dev).hex(),
+          f"commit_with_tree 2^22: root {root.hex()} != the anchor and api.commit's")
+    for level in range(n + 1):  # each node == the hash of its two children, on the host
+        stored = rng.integers(0, 1 << (n - level), 64)
+        got = np.frombuffer(b"".join(tree.gather_nodes(level, stored)), np.uint32).reshape(-1, 8)
+        if level == 0:
+            cols = to_numpy_u32(evals[:, torch.from_numpy(bitrev_array(stored, n)).to(dev)]).T
+            msgs = np.concatenate([cols, np.zeros((len(stored), 12), np.uint32)], 1)
+        else:
+            kids = [np.frombuffer(b"".join(tree.gather_nodes(level - 1, 2 * stored + side)),
+                                  np.uint32).reshape(-1, 8) for side in (0, 1)]
+            msgs = np.concatenate(kids, 1)
+        check(np.array_equal(got, merkle.compress_rows_host(msgs)),
+              f"commit_with_tree 2^22: a node of level {level} is not the hash of its children")
+    tree_ms = device_ms(lambda: merkle.device_levels(evals), reps=3)
+    root_ms = device_ms(lambda: merkle.root_level(evals), reps=3)
+    say(f"[7] commit_with_tree 2^22 felts (n = {n}): root == the 2^22 anchor == api.commit's; {levels} "
+        f"device levels, {len(tree.hlevels)} host levels; every level's node at 64 indices == the host "
+        f"hash of its children; launches {tree_counts} (one-level merkle_level: 1 leaf, {levels - 1} "
+        f"inner); device "
+        f"levels {tree_ms:.4f} ms (graph replay) against the fused root_level's {root_ms:.4f} ms")
+    del evals, tree
+    torch.cuda.empty_cache()
+    lap(7)
+
+    # -- 8. proofs against the JAX package's ---------------------------------
     ops.reset_launch_counts()
     cases = [(c["name"], c["data_len"], c["data_seed_offset"], c["seed"], c["config"],
               c["commitment"], c["wire_blake"]) for c in json.loads(FROZEN.read_text())]
     cases += [(name, n_bytes, 0, seed, cfg, com, blake)
               for name, n_bytes, seed, cfg, com, blake in PROVE_ANCHORS]
-    phase6 = []  # (proof, seed): phase 9's mixed shapes
+    phase8 = []  # (proof, seed): phase 11's mixed shapes
     for name, n_bytes, offset, seed, cfg, com, blake in cases:
         data = synthetic_data(n_bytes, offset)
         pcs = PcsConfig.from_dict(cfg)
@@ -628,12 +857,12 @@ def main() -> int:
         check(api.verify(proof, seed), f"proof {name}: verify is False")
         check(not api.verify(tampered(proof), seed), f"proof {name}: a tampered copy verifies")
         check(not api.verify(proof, wrong), f"proof {name}: verifies under seed {wrong}")
-        phase6.append((proof, seed))
-        say(f"[6] prove {name} ({n_bytes} bytes, seed {seed}): wire bytes match the JAX package's "
+        phase8.append((proof, seed))
+        say(f"[8] prove {name} ({n_bytes} bytes, seed {seed}): wire bytes match the JAX package's "
             f"({wire_note(proof)}), commitment == api.commit ({wall:.3f} s); verify True, tampered "
             f"copy False, seed {wrong} False")
 
-    # -- 7. the staged prove at full width ------------------------------------
+    # -- 9. the staged prove at full width ------------------------------------
     for log_felts, nq in ((20, 64), (24, 20)):
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
@@ -661,13 +890,13 @@ def main() -> int:
             opened = stats["stage_launches"]["decommit_open"]
             check(stats["open_launches"] == 1 and opened["merkle_open"] == 1 and opened["merkle_level"] == 0,
                   f"2^{log_felts}-felt proof: the decommitment launched {opened}")
-        say(f"[7] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (stages synchronized): median "
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (stages synchronized): median "
             f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
             f"kernel launches per proof {per_proof} (in the decommitment: merkle_open "
             f"{opened['merkle_open']}, merkle_level rebuilds {opened['merkle_level']}); "
             f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
         for i, split in enumerate(splits):
-            say(f"[7]   run {i + 1} stages (ms): {split}")
+            say(f"[9]   run {i + 1} stages (ms): {split}")
         torch.cuda.synchronize()
         before_bytes = torch.cuda.memory_allocated(dev)
         committed = fri.commit_phase(words, log_total, 7, cfg)
@@ -676,14 +905,14 @@ def main() -> int:
         del committed
         domain = 1 << (log_total - 2 + LOG_BLOWUP)
         safe = fri.safe_in_flight(log_total - 2, cfg.fri_config, dev)
-        say(f"[7] one Committed of 2^{log_felts} felts keeps {resident} bytes on the card = "
+        say(f"[9] one Committed of 2^{log_felts} felts keeps {resident} bytes on the card = "
             f"{resident / domain:.3f} bytes per domain element (words uploaded, tables cached); "
             f"prove_many window: safe {safe}, default {min(8, safe)} (card total "
             f"{fri.device_memory_bytes(dev)} bytes)")
         check(api.verify(warm, 7), f"2^{log_felts}-felt proof: verify is False")
         check(not api.verify(tampered(warm), 7), f"2^{log_felts}-felt proof: a tampered copy verifies")
         verify_ms = host_ms(lambda: api.verify(warm, 7), 5)  # noqa: B023
-        say(f"[7] verify 2^{log_felts}-felt / {nq}-query proof: True, tampered copy False; "
+        say(f"[9] verify 2^{log_felts}-felt / {nq}-query proof: True, tampered copy False; "
             f"{verify_ms:.3f} ms median of 5 (host)")
         if log_felts == 24:
             del warm, proof
@@ -692,20 +921,25 @@ def main() -> int:
             _, plain_proof = fri.prove_words(words, log_total, 7, cfg, route=plain_route())
             plain_wire = plain_proof.to_bytes()
             check(plain_wire == wire, "2^24-felt proof: kernel path bytes != plain path bytes")
-            say(f"[7] 2^24-felt proof: kernel path wire bytes == plain path wire bytes "
+            say(f"[9] 2^24-felt proof: kernel path wire bytes == plain path wire bytes "
                 f"(blake2s {hashlib.blake2s(wire).hexdigest()}; plain path "
                 f"{time.perf_counter() - t0:.2f} s)")
         del words
         torch.cuda.empty_cache()
 
-    # -- 8. launch counts of the prove phases ----------------------------------
+    # -- 10. launch counts of the commit_many, commit_with_tree and prove phases
     prove_counts = ops.launch_counts()
-    say(f"[8] kernel launches in the prove phases 6-7: {prove_counts}")
-    for name, count in prove_counts.items():
-        check(count > 0, f"kernel {name} was never launched by the prove path")
-    lap(8)
+    say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}")
+    for path, counts, unused in (("commit_many (6)", batch_counts, {"merkle_open"}),
+                                 ("commit_with_tree (7)", tree_counts, {"merkle_collapse", "merkle_open"}),
+                                 ("prove (8-9)", prove_counts, set())):
+        for name, count in counts.items():
+            check(count > 0 or name in unused, f"kernel {name} was never launched by the {path} path")
+    say(f"[10] every kernel of each path launched: commit_many {batch_counts}, commit_with_tree "
+        f"{tree_counts} (one-level merkle_level: 1 leaf, {levels - 1} inner, checked in phase 7)")
+    lap(10)
 
-    # -- 9. prove_many and verify_many ------------------------------------------
+    # -- 11. prove_many and verify_many ------------------------------------------
     cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
     datas = [synthetic_data(felt_bytes(20), k) for k in range(8)]
     seeds = list(range(1, 9))
@@ -745,9 +979,9 @@ def main() -> int:
     busy_us, records = device_busy_us(prof)
     check(records > 0 and busy_us < prof_us, f"profile of prove_many: {records} device records, "
           f"busy {busy_us:.0f} us of {prof_us:.0f} us")
-    lap(9)
+    lap(11)
     rate = {k: 8 / statistics.mean(v) for k, v in walls.items()}
-    say(f"[9] prove_many 8 x 2^20 felts, 64 queries, pow 20 (domain 2^{log_size + LOG_BLOWUP}): every "
+    say(f"[11] prove_many 8 x 2^20 felts, 64 queries, pow 20 (domain 2^{log_size + LOG_BLOWUP}): every "
         f"commitment and wire byte == a loop of commit_and_prove; window {min(8, safe)} (safe {safe}); "
         f"walls in turns, ms: loop {walls['loop'][0] * 1e3:.3f}, prove_many "
         f"{walls['prove_many'][0] * 1e3:.3f}, {walls['prove_many'][1] * 1e3:.3f}, loop "
@@ -763,21 +997,22 @@ def main() -> int:
     check(api.verify_many(proofs, vseeds) == verdicts, "verify_many differs from a loop of verify")
     many_ms = host_ms(lambda: api.verify_many(proofs, vseeds), 5) / len(proofs)
     loop_ms = host_ms(lambda: [api.verify(p, s) for p, s in zip(proofs, vseeds)], 5) / len(proofs)
-    mixed = proofs + [p for p, _ in phase6]
-    mixed_seeds = vseeds + [s for _, s in phase6]
+    mixed = proofs + [p for p, _ in phase8]
+    mixed_seeds = vseeds + [s for _, s in phase8]
     want = [api.verify(p, s) for p, s in zip(mixed, mixed_seeds)]
     check(api.verify_many(mixed, mixed_seeds) == want, "verify_many differs from a loop of verify (mixed)")
-    say(f"[9] verify_many == a loop of verify over {len(mixed)} proofs of "
+    say(f"[11] verify_many == a loop of verify over {len(mixed)} proofs of "
         f"{len({(len(p.proof.inner_layers), p.log_size_bound) for p in mixed})} shapes {want}; "
         f"on the 11 of one shape (8 valid, 2 tampered, 1 wrong seed; host): verify_many {many_ms:.3f} "
         f"ms/proof, looped verify {loop_ms:.3f} ms/proof (median of 5)")
     del batch, proofs, mixed
-    say(f"[9] whole run {time.perf_counter() - t_start:.1f} s")
+    say(f"[11] whole run {time.perf_counter() - t_start:.1f} s")
 
     say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": commit_counts[name] + prove_counts[name] + many_counts[name],
+         "launches": sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts,
+                                            many_counts)),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "ms_is": "device time: CUDA events around a replayed CUDA graph of the calls, per call",
          "call_ms": k["call_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

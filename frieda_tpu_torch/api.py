@@ -1,5 +1,5 @@
-"""Public API: commit, generate_proof, commit_and_prove, prove_many, verify,
-verify_many.
+"""Public API: commit, commit_many, commit_with_tree, generate_proof,
+commit_and_prove, prove_many, verify, verify_many.
 
 Counterpart of `frieda_tpu/api.py`, with the same quirks: empty input
 commits to the zero polynomial of log size 2, and the padded felt count is
@@ -17,8 +17,7 @@ import torch
 
 from .config import DEFAULT_CONFIG, PcsConfig  # noqa: F401  (re-export)
 from .core import fft, fri, merkle
-from .utils.convert import from_numpy_u32
-from .utils.packing import ingest_rev, log_total_for, pad_to_words
+from .utils.packing import ingest_rev, log_total_for, stack_words
 
 Commitment = bytes  # 32-byte Merkle root
 
@@ -32,23 +31,77 @@ def _device(device, what: str) -> torch.device:
     return device
 
 
+def _upload(datas, log_total: int, device: torch.device) -> torch.Tensor:
+    """(B, nw) words of the blobs on `device`: one host buffer (page-locked
+    for the card, `stack_words`) and one upload."""
+    return stack_words(datas, log_total, pin=device.type == "cuda").to(device, non_blocking=True)
+
+
 def commit_root_pipeline(words: torch.Tensor, log_total: int,
                          log_blowup_factor: int) -> torch.Tensor:
     """`pad_to_words` words (int32, on the device) -> (8, 1) int32 root node
-    on the same device: ingest, low-degree extension, Merkle tree. Enqueues
-    device work only; nothing waits for the device."""
+    on the same device: ingest, low-degree extension, Merkle tree. A batch of
+    such rows, (B, nw), gives (B, 8, 1) in the same launches. Enqueues device
+    work only; nothing waits for the device."""
+    return merkle.root_level(_evaluations(words, log_total, log_blowup_factor))
+
+
+def _evaluations(words: torch.Tensor, log_total: int, log_blowup_factor: int) -> torch.Tensor:
+    """Words -> (4, 2^n) int32 evaluations (a batch: (B, 4, 2^n)), natural
+    domain order: the ingest and the low-degree extension."""
     log_size = log_total - 2
     twiddles = fft.stage_twiddles(log_size + log_blowup_factor, words.device)
-    evals = fft.evaluate_auto(ingest_rev(words, log_size), twiddles)
-    return merkle.root_level(evals)
+    return fft.evaluate_auto(ingest_rev(words, log_size), twiddles)
+
+
+def commit_root_pipeline_batch(words: torch.Tensor, log_total: int,
+                               log_blowup_factor: int) -> torch.Tensor:
+    """(B, nw) `pad_to_words` rows of equal log_total (int32, on the device)
+    -> (B, 8, 1) int32 root nodes: every blob's commit in the launches of
+    one (counterpart of `_commit_root_pipeline_batch`, the JAX package's
+    vmap)."""
+    if words.dim() != 2:
+        raise ValueError(f"expected (B, nw) words, got {tuple(words.shape)}")
+    return commit_root_pipeline(words, log_total, log_blowup_factor)
 
 
 def commit(data: bytes, log_blowup_factor: int, device="cuda") -> Commitment:
     """Commit to a data blob (reference: src/commit.rs) on `device`."""
     device = _device(device, "commit")
     log_total = log_total_for(len(data))
-    words = from_numpy_u32(pad_to_words(data, log_total), device)
+    words = _upload([data], log_total, device)[0]
     return merkle.root_bytes(commit_root_pipeline(words, log_total, log_blowup_factor))
+
+
+def commit_many(datas, log_blowup_factor: int, device="cuda") -> list:
+    """Commit a batch of blobs of equal padded size (`log_total_for`) in one
+    upload (from page-locked memory for the card), one set of launches (those
+    of one `commit`) and one fetch;
+    returns each blob's 32-byte root, equal to `commit(data, ...)`. No blob
+    gives []; unequal padded sizes raise ValueError. The whole batch goes to
+    the device at once, as in the JAX package."""
+    device = _device(device, "commit_many")
+    datas = list(datas)
+    if not datas:
+        return []
+    log_total = log_total_for(len(datas[0]))
+    if any(log_total_for(len(d)) != log_total for d in datas):
+        raise ValueError("commit_many requires equal padded sizes")
+    words = _upload(datas, log_total, device)
+    return merkle.root_bytes_many(commit_root_pipeline_batch(words, log_total, log_blowup_factor))
+
+
+def commit_with_tree(data: bytes, log_blowup_factor: int, device="cuda"):
+    """(root bytes, evals, CommitTree, n): the commit with its whole tree, as
+    `frieda_tpu.api.commit_with_tree` gives it. evals: (4, 2^n) int32 on
+    `device`, natural domain order; the tree's levels down to width
+    2^HOST_CUTOFF_LOG stay on the device (`merkle.device_levels`)."""
+    device = _device(device, "commit_with_tree")
+    log_total = log_total_for(len(data))
+    evals = _evaluations(_upload([data], log_total, device)[0], log_total, log_blowup_factor)
+    n = log_total - 2 + log_blowup_factor
+    tree = merkle.CommitTree(merkle.device_levels(evals), n)
+    return tree.root, evals, tree, n
 
 
 def commit_and_prove(data: bytes, seed, pcs_config: PcsConfig = DEFAULT_CONFIG,

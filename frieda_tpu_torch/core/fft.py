@@ -103,10 +103,14 @@ def evaluate_auto(coeffs_rev: torch.Tensor, twiddles: torch.Tensor) -> torch.Ten
     `ops.fft.pass_plan`: the first group reads the undilated coefficients,
     the rest update the output in place. On a CUDA tensor every group is one
     `fft_pass` kernel launch; on a CPU tensor each group runs its plain
-    version."""
+    version. A batch (B, 4, 2^log_l) -> (B, 4, 2^n) runs as the 4B columns
+    of one (4B, 2^log_l) array (`commit_many`): the same launches."""
     from ..ops import fft as fft_ops
 
     n = twiddles_log_size(twiddles)
+    if coeffs_rev.dim() == 3:
+        flat = evaluate_auto(coeffs_rev.reshape(-1, coeffs_rev.shape[-1]), twiddles)
+        return flat.view(*coeffs_rev.shape[:2], flat.shape[-1])
     p_min, groups = fft_ops.pass_plan(n, _log_len(coeffs_rev, n))
     out = torch.empty((coeffs_rev.shape[0], 1 << n), dtype=torch.int32, device=coeffs_rev.device)
     src, shift = coeffs_rev, p_min

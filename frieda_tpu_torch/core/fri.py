@@ -383,13 +383,13 @@ def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
 # ---------------------------------------------------------------------------
 
 # Peak bytes per domain element of one proof on the card, the tables cached
-# for its size included: 10.069 GiB at a 2^26 domain (chip_smoke.py phase 7,
+# for its size included: 10.069 GiB at a 2^26 domain (chip_smoke.py phase 9,
 # NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5).
 ACTIVE_BYTES_PER_ELEMENT = 162
 # Bytes per domain element that one finished commit phase (`Committed`: the
 # evaluations 16, the folded layers ~16, the pruned trees ~9) keeps on the
 # device until its decommitment: 41.49 at a 2^22 domain and 41.15 at 2^26,
-# `torch.cuda.memory_allocated` around `commit_phase` (chip_smoke.py phase 7,
+# `torch.cuda.memory_allocated` around `commit_phase` (chip_smoke.py phase 9,
 # NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6), rounded up.
 RESIDENT_BYTES_PER_ELEMENT = 42
 

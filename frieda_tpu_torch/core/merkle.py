@@ -16,6 +16,11 @@ combines its two contiguous halves.
 one block. The JAX package finishes the last 2^6 nodes on the host to spare
 TPU round trips; here the tree ends on the device, with the same root.
 
+The full tree, for `commit_with_tree`: `device_levels` keeps every level on
+the device (one-level `merkle_level` launches) down to width 2^HOST_CUTOFF_LOG,
+`host_levels_from` ends it on the host, and `CommitTree` reads nodes by
+stored index (counterparts of `frieda_tpu/core/merkle.py:45-79, 221-274`).
+
 The prover's half: `build_pruned` keeps every third level of a tree (the
 counterpart of `device_levels_pruned`), and `Opening` reads the values and
 nodes a proof reveals from the layers and their trees, rebuilding the two
@@ -66,23 +71,117 @@ def levels(columns: torch.Tensor) -> list[torch.Tensor]:
 
 
 def root_level(columns: torch.Tensor) -> torch.Tensor:
-    """(4, N) int32 columns (N a power of two) -> (8, 1) int32 root node.
+    """(4, N) int32 columns (N a power of two) -> (8, 1) int32 root node, or
+    a batch (B, 4, N) -> (B, 8, 1), one tree a blob, in the same launches.
     On a CUDA tensor every step is a kernel launch; on a CPU tensor each
     step runs its plain version."""
     from ..ops import merkle as merkle_ops
 
-    n = columns.shape[1]
+    n = columns.shape[-1]
     level = merkle_ops.merkle_level(columns, leaf=True, fused=n % 8 == 0)
-    while level.shape[1] > merkle_ops.COLLAPSE_MAX:
-        level = merkle_ops.merkle_level(level, leaf=False, fused=level.shape[1] % 8 == 0)
+    while level.shape[-1] > merkle_ops.COLLAPSE_MAX:
+        level = merkle_ops.merkle_level(level, leaf=False, fused=level.shape[-1] % 8 == 0)
     return merkle_ops.merkle_collapse(level)[0]
+
+
+def _root_words(words: np.ndarray) -> bytes:
+    return np.asarray(words, np.uint32).astype("<u4").tobytes()
 
 
 def root_bytes(top: torch.Tensor) -> bytes:
     """(8, 1) root node (int32 bits or int64 values) -> 32 root bytes."""
     from ..utils.convert import to_numpy_u32
 
-    return to_numpy_u32(top)[:, 0].astype("<u4").tobytes()
+    return _root_words(to_numpy_u32(top)[:, 0])
+
+
+def root_bytes_many(tops: torch.Tensor) -> list:
+    """(B, 8, 1) root nodes -> [32 root bytes of each blob], in one fetch."""
+    from ..utils.convert import to_numpy_u32
+
+    return [_root_words(top[:, 0]) for top in to_numpy_u32(tops)]
+
+
+# ---------------------------------------------------------------------------
+# The full tree (`commit_with_tree`)
+# ---------------------------------------------------------------------------
+
+HOST_CUTOFF_LOG = 6  # device levels stop at the first of width <= 2^6; the host ends the tree
+
+
+def device_levels(columns: torch.Tensor, cutoff_log: int = HOST_CUTOFF_LOG) -> list:
+    """Every level of the tree over (4, N) int32 natural-order columns on
+    their device, leaves first, (8, m) int32 each, stopping at the first
+    level of width <= 2^cutoff_log (the leaf level alone when N is that
+    narrow). Counterpart of `frieda_tpu/core/merkle.py:device_levels`: one
+    launch of the one-level leaf `merkle_level`, then one one-level inner
+    launch per level, every level kept. Its plain version is `levels`, cut
+    at the same level."""
+    from ..ops import merkle as merkle_ops
+
+    cut = max(1 << cutoff_log, 1)
+    level = merkle_ops.merkle_level(columns, leaf=True, fused=False)
+    out = [level]
+    while level.shape[1] > cut:
+        level = merkle_ops.merkle_level(level, leaf=False, fused=False)
+        out.append(level)
+    return out
+
+
+def host_levels_from(top: np.ndarray) -> list:
+    """The levels above a fetched level ((8, m) uint32, natural order), down
+    to the root, hashed on the host (`compress_rows_host`)."""
+    out, level = [], np.asarray(top, np.uint32)
+    while level.shape[1] > 1:
+        half = level.shape[1] // 2
+        msgs = np.concatenate([level[:, :half], level[:, half:]]).T
+        level = np.ascontiguousarray(compress_rows_host(msgs).T)
+        out.append(level)
+    return out
+
+
+class CommitTree:
+    """A whole Merkle tree: the device levels (`device_levels`, kept on their
+    device), the host levels above the last of them, and the 32-byte root.
+    Counterpart of `frieda_tpu/core/merkle.py:CommitTree`."""
+
+    def __init__(self, dlevels: list, log_n_leaves: int):
+        from ..utils.convert import to_numpy_u32
+
+        self.dlevels = dlevels
+        self.log_n_leaves = log_n_leaves
+        top = to_numpy_u32(dlevels[-1])
+        self.hlevels = host_levels_from(top)
+        self.root = _root_words((self.hlevels[-1] if self.hlevels else top)[:, 0])
+
+    @property
+    def n_device_levels(self) -> int:
+        return len(self.dlevels)
+
+    def gather_nodes(self, level: int, stored_indices) -> list:
+        """The 32-byte nodes at `level` (0 = leaves) by stored (reference
+        order) index: bit-reversed to the natural layout, then one index
+        tensor and one fetch for a device level, a numpy gather for a host
+        level."""
+        from ..utils.convert import to_numpy_u32
+        from .circle import bitrev_array
+
+        stored = np.asarray(stored_indices, np.int64).reshape(-1)
+        if not stored.size:
+            return []
+        nat = bitrev_array(stored, self.log_n_leaves - level)
+        if level < len(self.dlevels):
+            src = self.dlevels[level]
+            g = to_numpy_u32(src[:, torch.from_numpy(nat).to(src.device)])
+        else:
+            g = self.hlevels[level - len(self.dlevels)][:, nat]
+        return [_root_words(g[:, j]) for j in range(g.shape[1])]
+
+
+def build_tree(columns: torch.Tensor) -> CommitTree:
+    """`CommitTree` over (4, N) int32 columns (`device_levels` at the host
+    cutoff)."""
+    return CommitTree(device_levels(columns), columns.shape[1].bit_length() - 1)
 
 
 def tail_widths(m: int) -> tuple:

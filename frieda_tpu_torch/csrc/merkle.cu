@@ -7,8 +7,9 @@
 // collapse_level / collapse_multi (_collapse_kernel_factory): every requested
 // output width of the narrow tail in one launch.
 //
-// Bound: integer ALU work. A compression is ~1,100 32-bit operations for
-// 32-64 bytes in and 32 bytes out, so the leaf and inner levels are limited
+// Bound: integer ALU work. A compression is ~1,000 integer instructions
+// (chip_smoke.py counts them in frieda_blake2s_probe) for 32-64 bytes in and
+// 32 bytes out, so the leaf and inner levels are limited
 // by the SMs' integer throughput, not by device memory. The collapse has too
 // little work for that: it is bound by its chain of log2(m) dependent
 // compressions, one per level.
@@ -46,6 +47,16 @@
 // The non-portable cluster size 16 is opted into once per process. The TPU
 // version keeps up to 8 x 32768 nodes (1 MiB) in VMEM; here merkle_level
 // keeps fusing down to width 4096 first.
+//
+// Blob axis (commit_many, the counterpart of the batch grid dimension that
+// jax.vmap prepends to each pallas_call): merkle_level and merkle_collapse
+// take B blobs stacked, (B, 4 or 8, width). A stacked (B, 8, M) is not one
+// level of width B * M: the pairing j / j + M/2 and the fused offsets j + t*e
+// stay inside a blob, whose base is b * rows * width words (64-bit).
+// merkle_level takes blob b in grid row blockIdx.y (looping past gridDim.y's
+// 65535); merkle_collapse launches one cluster a blob, side by side in x, and
+// a block takes its blob from its cluster's index and its rank from the
+// cluster rank. A 2-D call is one blob: the same launch as before.
 //
 // merkle_open replaces the decommitment's device work: the value and stored
 // node gathers and the rebuild of missing levels of
@@ -125,27 +136,31 @@ __device__ __forceinline__ void pair_node(const uint32_t* __restrict__ in, size_
 template <bool LEAF, bool FUSED>
 __global__ void __launch_bounds__(kLevelThreads)
 merkle_level_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, size_t in_width,
-                    size_t out_width) {
+                    size_t out_width, uint32_t blobs) {
   const size_t j = size_t(blockIdx.x) * kLevelThreads + threadIdx.x;
   if (j >= out_width) return;
-  uint32_t h[8];
-  if (FUSED) {
-    const size_t e = out_width;  // in_width / 8
-    uint32_t l1a[8], l1b[8], l2a[8], l2b[8];
-    pair_node<LEAF>(in, in_width, j, j + 4 * e, l1a);      // l1_0
-    pair_node<LEAF>(in, in_width, j + 2 * e, j + 6 * e, l1b);  // l1_2
-    frieda::blake2s_hash_pair(l1a, l1b, l2a);                // l2_0
-    pair_node<LEAF>(in, in_width, j + e, j + 5 * e, l1a);      // l1_1
-    pair_node<LEAF>(in, in_width, j + 3 * e, j + 7 * e, l1b);  // l1_3
-    frieda::blake2s_hash_pair(l1a, l1b, l2b);                // l2_1
-    frieda::blake2s_hash_pair(l2a, l2b, h);
-  } else if (LEAF) {
-    load_node<true>(in, in_width, j, h);
-  } else {
-    pair_node<false>(in, in_width, j, j + out_width, h);
-  }
+  for (uint32_t b = blockIdx.y; b < blobs; b += gridDim.y) {
+    const uint32_t* __restrict__ src = in + size_t(b) * (LEAF ? 4 : 8) * in_width;
+    uint32_t h[8];
+    if (FUSED) {
+      const size_t e = out_width;  // in_width / 8
+      uint32_t l1a[8], l1b[8], l2a[8], l2b[8];
+      pair_node<LEAF>(src, in_width, j, j + 4 * e, l1a);      // l1_0
+      pair_node<LEAF>(src, in_width, j + 2 * e, j + 6 * e, l1b);  // l1_2
+      frieda::blake2s_hash_pair(l1a, l1b, l2a);                 // l2_0
+      pair_node<LEAF>(src, in_width, j + e, j + 5 * e, l1a);      // l1_1
+      pair_node<LEAF>(src, in_width, j + 3 * e, j + 7 * e, l1b);  // l1_3
+      frieda::blake2s_hash_pair(l1a, l1b, l2b);                 // l2_1
+      frieda::blake2s_hash_pair(l2a, l2b, h);
+    } else if (LEAF) {
+      load_node<true>(src, in_width, j, h);
+    } else {
+      pair_node<false>(src, in_width, j, j + out_width, h);
+    }
+    uint32_t* __restrict__ dst = out + size_t(b) * 8 * out_width;
 #pragma unroll
-  for (int w = 0; w < 8; ++w) out[w * out_width + j] = h[w];
+    for (int w = 0; w < 8; ++w) dst[w * out_width + j] = h[w];
+  }
 }
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
@@ -177,6 +192,8 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
   __shared__ uint32_t top[8 * kClusterMax];         // rank 0's: the width-B level, word w of node b at top[w * B + b]
   cg::cluster_group cluster = cg::this_cluster();
   const uint32_t B = cluster.num_blocks(), b = cluster.block_rank();
+  const size_t blob = blockIdx.x / B;  // one cluster a blob
+  in += blob * 8 * m;
   const uint32_t t = threadIdx.x, T = blockDim.x;
   const uint32_t n0 = m / B;              // input nodes of this block: x = b + B * i
   const uint32_t S = n0 > 1 ? n0 / 2 : 1;  // row stride of lvl
@@ -184,7 +201,7 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
   if (finish) cluster_arrive_relaxed();  // paired with the wait before the remote stores
   int next = 0;  // the next requested width; the same in every thread of the cluster
   if (outs.width[0] == m) {
-    uint32_t* __restrict__ o = outs.ptr[0];
+    uint32_t* __restrict__ o = outs.ptr[0] + blob * 8 * m;
     for (uint32_t i = t; i < 8 * n0; i += T) {
       const uint32_t at = (i / n0) * m + b + B * (i % n0);
       o[at] = in[at];
@@ -210,7 +227,7 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
   for (uint32_t n = S;; n /= 2) {  // this block's n nodes of the level of width n * B
     const uint32_t width = n * B;
     if (width == outs.width[next]) {
-      uint32_t* __restrict__ o = outs.ptr[next];
+      uint32_t* __restrict__ o = outs.ptr[next] + blob * 8 * width;
       for (uint32_t i = t; i < 8 * n; i += T) {
         o[(i / n) * width + b + B * (i % n)] = lvl[(i / n) * S + i % n];  // out is (8, width)
       }
@@ -228,7 +245,7 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
   if (b != 0) return;
   for (uint32_t width = B;; width /= 2) {  // width B itself is never requested here
     if (width == outs.width[next]) {
-      uint32_t* __restrict__ o = outs.ptr[next];
+      uint32_t* __restrict__ o = outs.ptr[next] + blob * 8 * width;
       for (uint32_t i = t; i < 8 * width; i += T) o[i] = top[(i / width) * B + i % width];
       if (++next == outs.count) return;
       __syncthreads();
@@ -294,37 +311,62 @@ merkle_open_kernel(const long long* __restrict__ table, int n_layers, long long 
   }
 }
 
+constexpr unsigned kGridRowsMax = 65535;  // gridDim.y's limit
+
 template <bool LEAF, bool FUSED>
-int launch_level(const void* in, void* out, size_t in_width, cudaStream_t stream) {
+int launch_level(const void* in, void* out, size_t in_width, uint32_t blobs, cudaStream_t stream) {
   const size_t out_width = FUSED ? in_width / 8 : (LEAF ? in_width : in_width / 2);
-  const dim3 grid(static_cast<unsigned>((out_width + kLevelThreads - 1) / kLevelThreads));
+  const dim3 grid(static_cast<unsigned>((out_width + kLevelThreads - 1) / kLevelThreads),
+                  blobs < kGridRowsMax ? blobs : kGridRowsMax);
   merkle_level_kernel<LEAF, FUSED><<<grid, kLevelThreads, 0, stream>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), in_width, out_width);
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), in_width, out_width, blobs);
   FRIEDA_LAUNCH_RESULT();
 }
 
 }  // namespace
 
-// in: (4, width) u32 columns (leaf) or (8, width) u32 level; out: (8, width)
-// for a leaf level, (8, width / 2) for an inner level, (8, width / 8) fused.
-// The caller checks that width is a power of two the mode divides.
-extern "C" int frieda_merkle_level(const void* in, void* out, long long width, int leaf, int fused,
-                                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t w = static_cast<size_t>(width);
-  if (leaf) return fused ? launch_level<true, true>(in, out, w, s) : launch_level<true, false>(in, out, w, s);
-  return fused ? launch_level<false, true>(in, out, w, s) : launch_level<false, false>(in, out, w, s);
+// One compression alone (a pair of nodes in, their parent out), for counting
+// its instructions in the SASS (chip_smoke.py phase 2); never launched.
+extern "C" __global__ void frieda_blake2s_probe(const uint32_t* in, uint32_t* out) {
+  uint32_t a[8], b[8], h[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    a[w] = in[w];
+    b[w] = in[8 + w];
+  }
+  frieda::blake2s_hash_pair(a, b, h);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) out[w] = h[w];
 }
 
-// in: (8, m) u32 level, m a power of two <= 4096; outs[j]: (8, widths[j])
-// u32, widths descending powers of two that divide m, 1 <= n_out <= 13;
-// cluster: blocks of the cluster, a power of two <= 16 with m / cluster
-// <= 512.
+// in: (blobs, 4, width) u32 columns (leaf) or (blobs, 8, width) u32 levels;
+// out: (blobs, 8, width) for a leaf level, (blobs, 8, width / 2) for an inner
+// level, (blobs, 8, width / 8) fused. The caller checks that width is a power
+// of two the mode divides.
+extern "C" int frieda_merkle_level(const void* in, void* out, long long width, int leaf, int fused,
+                                   int blobs, void* stream) {
+  if (blobs < 1 || width < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t w = static_cast<size_t>(width);
+  const uint32_t nb = static_cast<uint32_t>(blobs);
+  if (leaf) {
+    return fused ? launch_level<true, true>(in, out, w, nb, s) : launch_level<true, false>(in, out, w, nb, s);
+  }
+  return fused ? launch_level<false, true>(in, out, w, nb, s) : launch_level<false, false>(in, out, w, nb, s);
+}
+
+// in: (blobs, 8, m) u32 levels, m a power of two <= 4096; outs[j]: (blobs,
+// 8, widths[j]) u32, widths descending powers of two that divide m, 1 <=
+// n_out <= 13; cluster: blocks of a blob's cluster, a power of two <= 16
+// with m / cluster <= 512. The grid is one cluster a blob, side by side in x
+// (no 65535 cap on the blobs); the card runs as many clusters at once as fit
+// and the rest in waves.
 extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const long long* widths,
-                                      int n_out, long long m, int cluster, void* stream) {
+                                      int n_out, long long m, int cluster, int blobs, void* stream) {
   if (m < 1 || m > kCollapseMax || (m & (m - 1)) || n_out < 1 || n_out > kMaxOuts ||
       cluster < 1 || cluster > static_cast<int>(kClusterMax) || (cluster & (cluster - 1)) ||
-      cluster > m || m / cluster > kBlockNodesMax) {
+      cluster > m || m / cluster > kBlockNodesMax || blobs < 1 ||
+      static_cast<long long>(blobs) * cluster > 0x7FFFFFFFll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CollapseOuts o{};
@@ -342,7 +384,7 @@ extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const l
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const uint32_t nodes = static_cast<uint32_t>(m / cluster);
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster) * static_cast<unsigned>(blobs));
   cfg.blockDim = dim3(nodes > 64 ? nodes / 2 : 32);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr{};

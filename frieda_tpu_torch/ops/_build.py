@@ -1,7 +1,8 @@
 """Build, load and bind the port's CUDA kernels.
 
 All kernels live in `frieda_tpu_torch/csrc/` and compile with `nvcc` into one
-shared library with a plain C interface, loaded with `ctypes`. The build runs
+shared library with a plain C interface, loaded with `ctypes`: one `nvcc`
+per source, all started together, then one link. The build runs
 at first use, from the checkout's sources and nothing else, into
 `build/kernels/<hash>/` at the repository root; the hash covers the sources
 and the flags, so an edited source rebuilds and an unchanged one loads the
@@ -34,11 +35,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "frieda_ingest": (_VP, _VP, _I, _I, _VP),
+    "frieda_ingest": (_VP, _VP, _I, _I, _LL, _I, _VP),
     "frieda_fft_pass": (_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP),
     "frieda_fft_pass_launch_shape": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
-    "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _VP),
-    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _VP),
+    "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _I, _VP),
+    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _I, _VP),
     "frieda_merkle_open": (_VP, _I, _LL, _LL, _VP, _VP),
 }
 
@@ -46,11 +47,12 @@ _lib = None
 
 
 def compile_once(out_root: pathlib.Path, lib_name: str, compiler: str, flags, sources) -> pathlib.Path:
-    """Compile `sources` (paths; headers are hashed, not passed) with
-    `compiler flags -o lib` into `out_root/<sha of the sources and
-    flags>/lib_name`, unless that library is already there; returns its
-    path. The compiler's output is kept beside it as build.log. A failed
-    compile raises."""
+    """Compile `sources` (paths; headers are hashed, not passed) into
+    `out_root/<sha of the sources and flags>/lib_name`, unless that library
+    is already there; returns its path. Every source compiles to an object
+    at once, one compiler process each (`flags` without -shared, and -c),
+    then one `compiler flags -o lib` links them. The compilers' output is
+    kept beside it as build.log. A failed compile or link raises."""
     h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -62,12 +64,29 @@ def compile_once(out_root: pathlib.Path, lib_name: str, compiler: str, flags, so
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [compiler, *flags, "-o", tmp] + [str(s) for s in sources if s.suffix in (".cu", ".cpp")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    with tempfile.TemporaryDirectory(dir=out_dir) as obj_dir:
+        units = [s for s in sources if s.suffix in (".cu", ".cpp")]
+        objs = [str(pathlib.Path(obj_dir) / f"{s.name}.o") for s in units]
+        compile_flags = [f for f in flags if f != "-shared"] + ["-c"]
+        cmds = [[compiler, *compile_flags, str(s), "-o", o] for s, o in zip(units, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        log, failed = [], None
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode and failed is None:
+                failed = (proc.returncode, out)
+        if failed is None:
+            link = [compiler, *flags, "-o", tmp, *objs]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout)
+            if proc.returncode:
+                failed = (proc.returncode, proc.stdout)
+    (out_dir / "build.log").write_text("".join(log))
+    if failed is not None:
         os.unlink(tmp)
-        raise RuntimeError(f"{pathlib.Path(compiler).name} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{pathlib.Path(compiler).name} failed ({failed[0]}):\n{failed[1][-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

@@ -11,6 +11,11 @@ Output [c, r] is felt f = c*L + rev_{log_size}(r) (L = 2^log_size), and
 felt f is bits [30f, 30f + 30) of the little-endian word stream:
 (words[30f >> 5] >> s | words[(30f >> 5) + 1] << (32 - s)) & (2^30 - 1),
 s = 30f & 31, the high word used only when s > 2.
+
+A batch (`commit_many`) is `pad_to_words` rows stacked, (B, nw) -> (B, 4,
+2^log_size), in one launch: the kernel takes each blob's row base from the
+row stride (a row is 30 * 2^(log_size - 3) + 1 words, so a batch is not one
+blob of 4B columns).
 """
 
 from __future__ import annotations
@@ -50,23 +55,27 @@ def ingest_plain(words: torch.Tensor, log_size: int) -> torch.Tensor:
 
 def ingest(words: torch.Tensor, log_size: int) -> torch.Tensor:
     """words: (nw,) int32 from `pad_to_words` (log_total = log_size + 2),
-    nw >= ceil(30 * 2^log_total / 32) + 1. Returns (4, 2^log_size) int32.
-    Launches the kernel on a CUDA tensor, with `ingest_tile(log_size)` tiles
-    a block, runs the plain version on a CPU tensor."""
+    nw >= ceil(30 * 2^log_total / 32) + 1, or (B, nw) such rows stacked.
+    Returns (4, 2^log_size) int32, or (B, 4, 2^log_size). Launches the
+    kernel on a CUDA tensor, with `ingest_tile(log_size)` tiles a block, runs
+    the plain version on a CPU tensor (per blob, stacked)."""
     if log_size < 0:
         raise ValueError(f"log_size must be >= 0, got {log_size}")
     need = words_for(log_size + 2)
-    if words.dim() != 1 or words.shape[0] < need:
-        raise ValueError(f"words: expected >= {need} words, got {tuple(words.shape)}")
+    if words.dim() not in (1, 2) or words.shape[-1] < need or not words.shape[0]:
+        raise ValueError(f"words: expected (>= {need},) or (B >= 1, >= {need}) words, got {tuple(words.shape)}")
     _build.check_u32(words, "words", tuple(words.shape))
+    rows = words.view(-1, words.shape[-1])
     if words.is_cuda:
-        out = torch.empty((4, 1 << log_size), dtype=torch.int32, device=words.device)
+        out = torch.empty((rows.shape[0], 4, 1 << log_size), dtype=torch.int32, device=words.device)
         lib = _build.library()
         _build.check_launch(lib.frieda_ingest(
-            words.data_ptr(), out.data_ptr(), log_size, ingest_tile(log_size), _build.stream_of(words)))
+            words.data_ptr(), out.data_ptr(), log_size, ingest_tile(log_size), rows.shape[1],
+            rows.shape[0], _build.stream_of(words)))
         ingest.launches += 1
-        return out
-    return narrow(ingest_plain(widen(words), log_size))
+    else:
+        out = torch.stack([narrow(ingest_plain(widen(row), log_size)) for row in rows])
+    return out if words.dim() == 2 else out[0]
 
 
 ingest.launches = 0

@@ -55,21 +55,29 @@ def merkle_level_plain(x: torch.Tensor, leaf: bool, fused: bool) -> torch.Tensor
 
 
 def merkle_level(x: torch.Tensor, leaf: bool, fused: bool) -> torch.Tensor:
-    """int32 form of `merkle_level_plain`. Launches the kernel on a CUDA
-    tensor, runs the plain version on a CPU tensor."""
-    rows, width = x.shape
-    _build.check_u32(x, "x", (4 if leaf else 8, width))
+    """int32 form of `merkle_level_plain`, over one blob ((4 or 8, width))
+    or a batch ((B, 4 or 8, width) -> (B, 8, width / fold)), each blob its
+    own tree. Launches the kernel on a CUDA tensor, runs the plain version on
+    a CPU tensor (per blob, stacked)."""
+    rows = 4 if leaf else 8
+    if x.dim() not in (2, 3) or x.shape[-2] != rows or not x.shape[0]:
+        raise ValueError(f"x: expected ({rows}, width) or (B >= 1, {rows}, width), got {tuple(x.shape)}")
+    _build.check_u32(x, "x", tuple(x.shape))
+    blobs = x.view(-1, rows, x.shape[-1])
+    width = x.shape[-1]
     fold = 8 if fused else (1 if leaf else 2)
     if width < fold or width % fold or width & (width - 1):
         raise ValueError(f"width {width} is not a power of two divisible by {fold}")
     if x.is_cuda:
-        out = torch.empty((8, width // fold), dtype=torch.int32, device=x.device)
+        out = torch.empty((blobs.shape[0], 8, width // fold), dtype=torch.int32, device=x.device)
         lib = _build.library()
         _build.check_launch(lib.frieda_merkle_level(
-            x.data_ptr(), out.data_ptr(), width, int(leaf), int(fused), _build.stream_of(x)))
+            x.data_ptr(), out.data_ptr(), width, int(leaf), int(fused), blobs.shape[0],
+            _build.stream_of(x)))
         merkle_level.launches += 1
-        return out
-    return narrow(merkle_level_plain(widen(x), leaf, fused))
+    else:
+        out = torch.stack([narrow(merkle_level_plain(widen(b), leaf, fused)) for b in blobs])
+    return out if x.dim() == 3 else out[0]
 
 
 merkle_level.launches = 0
@@ -96,24 +104,31 @@ def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,)) -> list:
 
 def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
     """(8, m) int32 level, m a power of two <= COLLAPSE_MAX -> [(8, w) int32
-    for w in out_widths] (descending powers of two dividing m), in one
-    cluster launch of `collapse_plan(m)` blocks on a CUDA tensor; the plain
-    version on a CPU tensor."""
-    m = level.shape[1]
-    _build.check_u32(level, "level", (8, m))
+    for w in out_widths] (descending powers of two dividing m); or a batch
+    (B, 8, m) -> [(B, 8, w) ...], each blob its own tree. One launch on a
+    CUDA tensor: a cluster of `collapse_plan(m)` blocks per blob. The plain
+    version on a CPU tensor (per blob, stacked)."""
+    if level.dim() not in (2, 3) or level.shape[-2] != 8 or not level.shape[0]:
+        raise ValueError(f"level: expected (8, m) or (B >= 1, 8, m), got {tuple(level.shape)}")
+    m = level.shape[-1]
+    _build.check_u32(level, "level", tuple(level.shape))
     if not 1 <= m <= COLLAPSE_MAX or m & (m - 1):
         raise ValueError(f"collapse width must be a power of two <= {COLLAPSE_MAX}, got {m}")
     widths = _check_widths(m, out_widths)
+    blobs = level.view(-1, 8, m)
     if level.is_cuda:
-        outs = [torch.empty((8, w), dtype=torch.int32, device=level.device) for w in widths]
+        outs = [torch.empty((blobs.shape[0], 8, w), dtype=torch.int32, device=level.device) for w in widths]
         ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
         ws = (ctypes.c_longlong * len(widths))(*widths)
         lib = _build.library()
         _build.check_launch(lib.frieda_merkle_collapse(
-            level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), _build.stream_of(level)))
+            level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), blobs.shape[0],
+            _build.stream_of(level)))
         merkle_collapse.launches += 1
-        return outs
-    return [narrow(o) for o in merkle_collapse_plain(widen(level), widths)]
+    else:
+        per_blob = [merkle_collapse_plain(widen(b), widths) for b in blobs]
+        outs = [torch.stack([narrow(o[k]) for o in per_blob]) for k in range(len(widths))]
+    return outs if level.dim() == 3 else [o[0] for o in outs]
 
 
 merkle_collapse.launches = 0

@@ -26,14 +26,26 @@ def log_total_for(data_len: int) -> int:
     return max(ceil_log2(max(n_felts, 1)), 2)
 
 
-def pad_to_words(data: bytes, log_total: int) -> np.ndarray:
-    """Little-endian uint32 word view of `data`, zero-padded so that every
-    felt's (lo, hi) word pair is in range for `ingest_rev`:
-    ceil(30*2^log_total / 32) + 1 words. One host memcpy, no bit work."""
+def stack_words(datas, log_total: int, pin: bool = False) -> torch.Tensor:
+    """(B, words_for(log_total)) int32 tensor: row k is the little-endian
+    uint32 words of `datas[k]`, zero-padded so that every felt's (lo, hi)
+    word pair is in range for `ingest_rev`. Each blob's bytes are written
+    straight into one buffer (one host memcpy, no bit work); `pin` puts that
+    buffer in page-locked host memory (PyTorch's caching host allocator keeps
+    it for the next call), so the upload is one DMA."""
     nw = words_for(log_total)
-    buf = np.zeros(nw * 4, np.uint8)
-    buf[: len(data)] = np.frombuffer(data, np.uint8)
-    return buf.view("<u4")
+    host = torch.empty((len(datas), nw), dtype=torch.int32, pin_memory=pin)
+    rows = host.numpy().view(np.uint8)
+    for row, data in zip(rows, datas):
+        row[: len(data)] = np.frombuffer(data, np.uint8)
+        row[len(data):] = 0
+    return host
+
+
+def pad_to_words(data: bytes, log_total: int) -> np.ndarray:
+    """The one-blob `stack_words`, as a numpy uint32 array of
+    ceil(30*2^log_total / 32) + 1 words."""
+    return stack_words([data], log_total).numpy()[0].view("<u4")
 
 
 def words_for(log_total: int) -> int:

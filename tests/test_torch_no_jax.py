@@ -26,7 +26,8 @@ import frieda_tpu_torch.utils.convert, frieda_tpu_torch.core.circle
 import frieda_tpu_torch.core.channel, frieda_tpu_torch.core.grind
 import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
 import frieda_tpu_torch.core.npfield, frieda_tpu_torch.core.merkle, frieda_tpu_torch.native
-from frieda_tpu_torch.api import prove_many, verify, verify_many
+from frieda_tpu_torch.api import commit_many, commit_with_tree, prove_many, verify, verify_many
+from frieda_tpu_torch.core.merkle import CommitTree, build_tree, device_levels, host_levels_from
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "frieda_tpu"))
 print(",".join(loaded))
 """
@@ -69,6 +70,15 @@ def test_cuda_prove_many_without_cuda_raises():
         api.prove_many([b"x"], [1])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.prove_many([b"x"], [1], device="cuda")
+
+
+def test_cuda_commit_many_and_commit_with_tree_without_cuda_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (lambda: api.commit_many([b"x", b"y"], 4), lambda: api.commit_many([], 4),
+                 lambda: api.commit_with_tree(b"x", 4, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_unknown_device_rejected():

@@ -12,6 +12,7 @@ import pytest
 pytest.importorskip("torch")
 
 import copy  # noqa: E402
+import ctypes  # noqa: E402
 import json  # noqa: E402
 import pathlib  # noqa: E402
 
@@ -419,6 +420,25 @@ def test_native_builds_under_build_native():
     assert lib.name == "libfrieda_native.so"
     assert lib.parent.parent == ROOT / "build" / "native"
     assert (lib.parent / "build.log").exists()
+
+
+def test_compile_once_compiles_each_source_then_links(tmp_path):
+    """Several sources: one object each (compiled together), one link; a
+    source that does not compile raises and leaves no library."""
+    from frieda_tpu_torch.ops._build import compile_once
+
+    srcs = []
+    for k in range(3):
+        srcs.append(tmp_path / f"u{k}.cpp")
+        srcs[-1].write_text(f'extern "C" int unit{k}() {{ return {k + 40}; }}\n')
+    lib = ctypes.CDLL(str(compile_once(tmp_path / "out", "libunits.so", "g++", native.GXX_FLAGS, srcs)))
+    assert [getattr(lib, f"unit{k}")() for k in range(3)] == [40, 41, 42]
+    log = (tmp_path / "out").glob("*/build.log")
+    assert sum(" -c " in line for line in next(log).read_text().splitlines()) == 3
+    srcs[1].write_text("this is not C++;\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        compile_once(tmp_path / "bad", "libunits.so", "g++", native.GXX_FLAGS, srcs)
+    assert not list((tmp_path / "bad").glob("*/*.so"))
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):

@@ -2,7 +2,7 @@
 """Time the port's kernels on one CUDA card at the shapes the main path
 gives them, each checked bit-equal to its plain version first.
 
-    python3 tools/torch_kernel_times.py [--root DIR] [--parts lde,ingest,merkle,open] [--reps N]
+    python3 tools/torch_kernel_times.py [--root DIR] [--parts lde,ingest,merkle,open,commit] [--reps N]
     python3 tools/torch_kernel_times.py --compare DIR [--parts ...]
     python3 tools/torch_kernel_times.py --ablate
     python3 tools/torch_kernel_times.py --plans
@@ -23,8 +23,15 @@ Parts, one line each shape:
   device work of the one-level route it replaced (its gathers and
   `merkle_level` launches, captured with the upload served from a tensor
   uploaded before and the fetch left out); and `Opening.run`'s wall time
-  (`torch_harness.host_ms`), upload and fetch included.
-`ingest`, `merkle` and `open` give device time (`torch_harness.device_ms`:
+  (`torch_harness.host_ms`), upload and fetch included;
+- `commit`: `api.commit_root_pipeline` on device-resident words of the
+  synthetic 2^22- and 2^24-felt blobs (log_blowup 4), its root checked
+  against `api.commit`'s;
+- `build`: a fresh build of the kernel library into an empty directory,
+  as `ops._build.compile_once` runs it (one nvcc a source, all started
+  together, then a link) and as one nvcc over every source, in turns
+  (seconds, 2 each; not in the default parts).
+`ingest`, `merkle`, `open` and `commit` give device time (`torch_harness.device_ms`:
 CUDA events around a replayed CUDA graph of 20 calls, per call).
 The first line gives the card's `nvidia-smi` name and power limit. Exits
 nonzero without CUDA.
@@ -49,7 +56,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import pathlib
+import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -118,6 +128,45 @@ def time_ingest(rand_u32) -> None:
         form = (f" ({ingest_ops.ingest_tile(log_size)} tiles a block)"
                 if hasattr(ingest_ops, "ingest_tile") else "")
         print(f"[times] ingest log_size={log_size}{form}: bit-equal; device {ms:.4f} ms", flush=True)
+
+
+def time_build() -> None:
+    from frieda_tpu_torch.ops import _build
+
+    nvcc, units = _build._nvcc(), [_build.CSRC / s for s in _build.SOURCES]
+
+    def per_source(out):
+        _build.compile_once(out, _build.LIB_NAME, nvcc, _build.NVCC_FLAGS, units)
+
+    def one_nvcc(out):
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(out / _build.LIB_NAME)]
+        subprocess.run(cmd + [str(u) for u in units if u.suffix == ".cu"], check=True, capture_output=True)
+
+    (REPO / "build").mkdir(exist_ok=True)
+    for name, fn in [("compile_once (one nvcc a source, then a link)", per_source),
+                     ("one nvcc over every source", one_nvcc)] * 2:
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as out:
+            t0 = time.perf_counter()
+            fn(pathlib.Path(out))
+            print(f"[times] fresh kernel build, {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def time_commit(dev) -> None:
+    from frieda_tpu_torch import api
+    from frieda_tpu_torch.core import merkle
+    from frieda_tpu_torch.utils.convert import from_numpy_u32
+    from frieda_tpu_torch.utils.packing import pad_to_words
+
+    for log_felts in (22, 24):
+        data = ((np.arange((30 << log_felts) // 8, dtype=np.uint32)) % 256).astype(np.uint8).tobytes()
+        words = from_numpy_u32(pad_to_words(data, log_felts), dev)
+        root = merkle.root_bytes(api.commit_root_pipeline(words, log_felts, 4))
+        if root != api.commit(data, 4, device=dev):
+            raise SystemExit(f"torch_kernel_times: 2^{log_felts}-felt commit root differs from api.commit")
+        ms = device_ms(lambda: api.commit_root_pipeline(words, log_felts, 4), reps=3)  # noqa: B023
+        print(f"[times] commit_root_pipeline 2^{log_felts} felts: device {ms:.4f} ms", flush=True)
+        del words
+        torch.cuda.empty_cache()
 
 
 def time_merkle(rand_u32) -> None:
@@ -272,6 +321,10 @@ def main() -> int:
         time_merkle(rand_u32)
     if "open" in parts:
         time_open(dev)
+    if "commit" in parts:
+        time_commit(dev)
+    if "build" in parts:
+        time_build()
     return 0
 
 
