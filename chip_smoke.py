@@ -8,10 +8,10 @@ prover and the verifier.
 Phases, each printed as it runs:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. the kernel build from `frieda_tpu_torch/csrc/` (nvcc, into build/kernels/),
-     and the integer instructions of one BLAKE2s compression and of one M31
-     butterfly, counted in the built SASS (cuobjdump), for the kernels'
-     bounds;
-  3. each of the five kernels against its plain PyTorch version on the card,
+     and the integer instructions of one BLAKE2s compression, of one M31
+     butterfly and of one QM31 fold element, counted in the built SASS
+     (cuobjdump), for the kernels' bounds;
+  3. each of the eight kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with the
      least time the card could take for the same work (bound) and two times:
      "device" ms, the time of the call's launches alone on the card (CUDA
@@ -30,7 +30,15 @@ Phases, each printed as it runs:
      at the openings of a 2^20-felt / 64-query and a 2^24-felt / 20-query
      proof (their real layers, trees and queries, from `fri.commit_phase`
      and `fri.plan_openings`), with the chain floor of one launch and three
-     dependent compressions; then the blob axis of `commit_many`, each batch
+     dependent compressions; `fri_fold`, circle and line, at (4, 2^26), at
+     the proof's first line fold (4, 2^25) and at (4, 2^7), under one block,
+     and timed at each of the 2^24-felt proof's 22 folds (with their sum);
+     `transcript`, every step (seed, root and alpha, last-layer felts, nonce
+     and queries) on 64 seeded states against the host channel and the plain
+     version, each step form timed beside the launch floor and its chain of
+     compressions; `grind` at pow_bits 8, 16 and 20 against the plain sweep
+     (and at 8 and 16 a host scan, `grind_host`'s loop): the minimum nonce;
+     then the blob axis of `commit_many`, each batch
      bit-equal to the one-blob plain version per blob: `ingest` at 64 blobs
      of log_size 14 (tiles) and 3 of log_size 8 (per-element), `fft_pass`
      at C = 256 columns, n = 18, the fused leaf and inner `merkle_level` at
@@ -67,10 +75,17 @@ Phases, each printed as it runs:
   9. the staged prove (`api.commit_and_prove_staged`, words on the card) at
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
-     path's (the same prover on the plain versions); median
-     prove time of three runs, each run's stage split (the decommitment as
+     path's (the same prover on the plain versions); the median of five
+     whole proves without the stage clock, the median prove time of three
+     runs with it, each run's stage split (the decommitment as
      plan, open and assemble), kernel launches per proof (`merkle_open` once,
-     no `merkle_level` in the decommitment) and peak device memory; the
+     no `merkle_level` in the decommitment; `fri_fold` once a layer,
+     `transcript` once a layer and three more, `grind` once) and peak device
+     memory; a warm `fri.commit_phase` run under
+     `torch.cuda.set_sync_debug_mode("error")` (it synchronizes nowhere), its
+     host enqueue ms beside its device ms (CUDA events), and exactly one
+     synchronizing fetch (`Committed.fetch`, counted in "warn" mode) before
+     the decommitment, whose proof bytes equal the warm proof's; the
      bytes one finished commit phase (`fri.Committed`) keeps on the card
      (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
      prove_many window that gives; `api.verify` accepts the proof and
@@ -78,8 +93,8 @@ Phases, each printed as it runs:
  10. every kernel's launch count over each path: the commit phases (4-5,
      checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
      `merkle_level` forms) and the prove phases (8-9): each must be > 0,
-     except `merkle_open` outside a proof and `merkle_collapse` in
-     `commit_with_tree`;
+     except `merkle_open`, `fri_fold`, `transcript` and `grind` outside a
+     proof and `merkle_collapse` in `commit_with_tree`;
  11. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
      kernel launched (> 0) by its first run, whose peak device memory is
      printed; then a loop of `api.commit_and_prove` and `prove_many` in
@@ -122,6 +137,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -218,11 +234,16 @@ def plain_route():
     """The prover's device steps as the kernels' plain PyTorch versions (int64
     inside, int32 at the edges): the same pipeline, no kernel launched."""
     from frieda_tpu_torch.core import fft, fri
+    from frieda_tpu_torch.ops import channel as channel_ops
+    from frieda_tpu_torch.ops import fri as fri_ops
     from frieda_tpu_torch.ops import ingest as ingest_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.utils.convert import narrow, widen
 
     return fri.Route(
+        fold=lambda v, alpha, inv: narrow(fri_ops.fri_fold_plain(widen(v), widen(alpha), widen(inv))),
+        transcript=channel_ops.transcript_plain,
+        grind=channel_ops.grind_plain,
         ingest=lambda w, log_size: narrow(ingest_ops.ingest_plain(widen(w), log_size)),
         evaluate=lambda c, tw: narrow(fft.evaluate(widen(c), tw)),
         level=lambda x, leaf, fused: narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused)),
@@ -351,8 +372,12 @@ def main() -> int:
     from frieda_tpu_torch import api, ops
     from frieda_tpu_torch.config import FriConfig, PcsConfig
     from frieda_tpu_torch.core import fft, fri, merkle
+    from frieda_tpu_torch.core import grind
+    from frieda_tpu_torch.core.channel import Blake2sChannel
     from frieda_tpu_torch.ops import _build
+    from frieda_tpu_torch.ops import channel as channel_ops
     from frieda_tpu_torch.ops import fft as fft_ops
+    from frieda_tpu_torch.ops import fri as fri_ops
     from frieda_tpu_torch.ops import ingest as ingest_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.core.circle import bitrev_array
@@ -409,6 +434,8 @@ def main() -> int:
     bfly_ops = len(bfly)
     say(f"[2] one M31 butterfly on one column (twiddle doubled once per round): {bfly_ops} "
         f"integer instructions in the SASS: {' '.join(bfly)}")
+    fold_ops = len(sass_int_ops(so, "frieda_fri_fold_probe"))
+    say(f"[2] one QM31 fold element (alpha and the inverse doubled): {fold_ops} integer instructions in the SASS")
     if fit is not None:
         return prove_fit(int(fit))
     if split:
@@ -592,6 +619,163 @@ def main() -> int:
                 bound_ms=b_ms, bound_by=b_by)
         del committed, args, got, want, table
         torch.cuda.empty_cache()
+    # fri_fold: circle and line at (4, 2^26), the proof's first line fold
+    # (4, 2^25) and a width under one block; then timed at each of the
+    # 2^24-felt proof's 22 folds
+    def fold_case(what: str, values, alpha, inv, timed: bool = False) -> dict:
+        v64, a64, i64 = widen(values), widen(alpha), widen(inv)
+        got = fri_ops.fri_fold(values, alpha, inv)
+        want = narrow(fri_ops.fri_fold_plain(v64, a64, i64))
+        check(torch.equal(got, want), f"fri_fold {what} differs from plain")
+        half = values.shape[1] // 2
+        b_ms, b_by = bound(4 * (4 * 2 * half + half + 4 + 4 * half), half * fold_ops)
+        out = dict(max_abs_err=max_abs_err(got, want), bound_ms=b_ms, bound_by=b_by)
+        del got, want
+        if timed:
+            out["ms"] = device_ms(lambda: fri_ops.fri_fold(values, alpha, inv), reps=4)
+            out["call_ms"] = cuda_ms(lambda: fri_ops.fri_fold(values, alpha, inv))
+            out["plain_ms"] = cuda_ms(lambda: fri_ops.fri_fold_plain(v64, a64, i64), reps=3)
+            say(f"[3] fri_fold {what}: bit-equal; device {out['ms']:.4f} ms, call {out['call_ms']:.4f} ms, "
+                f"plain {out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; share {b_ms / out['ms']:.3f})")
+        else:
+            say(f"[3] fri_fold {what}: bit-equal")
+        return out
+
+    ys26, xs26 = fri.fold_tables(26, dev)
+    values = rand_u32((4, 1 << 26), P)
+    alpha = rand_u32((4,), P)
+    kernels["fri_fold"] = dict(
+        source="frieda_tpu_torch/csrc/fri.cu",
+        replaces="frieda_tpu/core/fri.py:211 fold_c (and :219 fold_l; XLA, no Pallas kernel)",
+        **fold_case("circle (4, 2^26) (ys_inv, the 2^24-felt proof's first fold)", values, alpha, ys26,
+                    timed=True))
+    fold_case("line (4, 2^26) (a random canonical inverse table of 2^25)", values, alpha,
+              rand_u32((1 << 25,), P))
+    del values
+    fold_case("line (4, 2^25) (xs_layers_inv[0], the proof's first line fold)", rand_u32((4, 1 << 25), P),
+              alpha, xs26[0])
+    ys7, _ = fri.fold_tables(7, dev)
+    fold_case("circle (4, 2^7) (one block, 64 of 256 threads)", rand_u32((4, 1 << 7), P), alpha, ys7)
+    fold_case("line (4, 2^6) (one block, 32 threads)", rand_u32((4, 1 << 6), P), alpha, xs26[19])
+    fold_dev = 0.0
+    for l in range(22):  # circle 2^26 -> 2^25, then line folds down to 2^5 -> 2^4
+        x = rand_u32((4, 1 << (26 - l)), P)
+        inv = ys26 if l == 0 else xs26[l - 1]
+        fold_dev += device_ms(lambda: fri_ops.fri_fold(x, alpha, inv), reps=4 if l < 3 else 20)  # noqa: B023
+    del x
+    fold_bytes = sum(4 * (4 * (1 << (26 - l)) + (1 << (25 - l)) + 4 + 4 * (1 << (25 - l))) for l in range(22))
+    say(f"[3] fri_fold over the 2^24-felt proof's 22 folds (4 x 2^26 ... 4 x 2^5): device {fold_dev:.4f} ms "
+        f"in all; bound {fold_bytes / HBM_BYTES_S * 1e3:.4f} ms ({fold_bytes} bytes); launch floor "
+        f"22 x {gap_ms:.4f} = {22 * gap_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+    # transcript: every step on 64 seeded states against the host channel and
+    # the plain version
+    def words_bytes(t) -> bytes:
+        return to_numpy_u32(t).astype("<u4").tobytes()
+
+    t_err = 0
+    for trial in range(64):
+        host = Blake2sChannel()
+        st, st_plain = channel_ops.new_state(dev), channel_ops.new_state(dev)
+        seed = int(rng.integers(0, 1 << 62)) << 2 | trial % 4
+        root = rand_u32((8,))
+        felts = rand_u32((1 + trial % 8, 4), P)
+        nonce = rand_u32((2,))
+        nq, log_d = (1, 8, 20, 64)[trial % 4], 10 + trial % 23
+        steps = (dict(mix_u64=seed), dict(mix_digest=root, draw_felt=True), dict(mix_felts=felts),
+                 dict(mix_u64=nonce, queries=(nq, log_d)))
+        host.mix_u64(seed)
+        host.mix_digest(words_bytes(root))
+        want_alpha = host.draw_felt()
+        host.mix_felts([tuple(int(v) for v in row) for row in to_numpy_u32(felts)])
+        lo, hi = (int(v) for v in to_numpy_u32(nonce))
+        host.mix_u64(lo | hi << 32)
+        want_q, probe = [], host.clone()
+        while len(want_q) < nq:
+            raw = probe.draw_random_bytes()
+            want_q += [int.from_bytes(raw[4 * i : 4 * i + 4], "little") & ((1 << log_d) - 1) for i in range(8)]
+        for step in steps:
+            got = channel_ops.transcript(st, **step)
+            want = channel_ops.transcript_plain(st_plain, **step)
+            check(torch.equal(st, st_plain) and all((g is None) == (w is None) and (g is None or torch.equal(g, w))
+                                                    for g, w in zip(got, want)),
+                  f"transcript {sorted(step)} on state {trial} differs from plain")
+            if step.get("draw_felt"):
+                check(tuple(int(v) for v in to_numpy_u32(got[0])) == want_alpha,
+                      f"transcript state {trial}: alpha differs from the host channel's")
+                t_err = max(t_err, max_abs_err(got[0], want[0]))
+        check(words_bytes(st[:8]) == host.digest and int(st[8].item()) == -(-nq // 8)
+              and [int(v) for v in to_numpy_u32(got[1])] == want_q[:nq],
+              f"transcript state {trial}: digest, n_sent or query words differ from the host channel's")
+    say("[3] transcript: seed, root + alpha, last-layer felts (k = 1 ... 8), nonce + queries (1, 8, 20, "
+        "64 of 2^10 ... 2^32) on 64 seeded states: bit-equal to the plain version and the host channel")
+    st = channel_ops.new_state(dev)
+    channel_ops.transcript(st, mix_u64=7)
+    forms = (("seed", dict(mix_u64=7), 1), ("layer: root + alpha", dict(mix_digest=root, draw_felt=True), 2),
+             ("last-layer felts, k = 1", dict(mix_felts=felts[:1]), 1),
+             ("nonce + 20 queries", dict(mix_u64=nonce, queries=(20, 26)), 2),
+             ("nonce + 64 queries", dict(mix_u64=nonce, queries=(64, 24)), 2))
+    step_ms = {}
+    for what, step, chain in forms:
+        ms = step_ms[what] = device_ms(lambda: channel_ops.transcript(st, **step))  # noqa: B023
+        call = cuda_ms(lambda: channel_ops.transcript(st, **step))  # noqa: B023
+        plain_ms = cuda_ms(lambda: channel_ops.transcript_plain(st, **step), reps=3)  # noqa: B023
+        b_ms, b_by = bound(2 * 36 + 64, chain * comp_ops)
+        say(f"[3] transcript {what}: device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{b_ms:.6f} ms ({b_by}); chain floor {gap_ms:.4f} + {chain} x {level_ms:.4f} = "
+            f"{gap_ms + chain * level_ms:.4f} ms")
+        if what.startswith("layer"):
+            kernels["transcript"] = dict(
+                source="frieda_tpu_torch/csrc/channel.cu",
+                replaces="frieda_tpu/core/device_channel.py:33-191 (dc_mix_*, dc_draw_felt, "
+                         "dc_sample_query_words; XLA, no Pallas kernel)",
+                max_abs_err=t_err, ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    per_proof = step_ms["seed"] + 22 * step_ms["layer: root + alpha"] + step_ms["last-layer felts, k = 1"] \
+        + step_ms["nonce + 20 queries"]
+    say(f"[3] transcript over the 2^24-felt / 20-query proof's 25 launches: device {per_proof:.4f} ms; "
+        f"launch floor 25 x {gap_ms:.4f} = {25 * gap_ms:.4f} ms")
+
+    # grind: the minimum nonce at pow_bits 8, 16 and 20
+    for pow_bits in (8, 16, 20):
+        host = Blake2sChannel()
+        host.mix_u64(SEED + pow_bits)
+        st = channel_ops.new_state(dev)
+        channel_ops.transcript(st, mix_u64=SEED + pow_bits)
+        got = channel_ops.grind(st, pow_bits)
+        want = channel_ops.grind_plain(st, pow_bits)
+        nonce = int(got.view(torch.int64).item())
+        check(torch.equal(got, want), f"grind pow_bits={pow_bits}: nonce {nonce} != plain "
+              f"{int(want.view(torch.int64).item())}")
+        check(nonce == grind.grind(host, pow_bits, dev), f"grind pow_bits={pow_bits} != the host channel's sweep")
+        if pow_bits <= 16:  # grind_host's loop on the host channel
+            n = 0
+            while True:
+                c = host.clone()
+                c.mix_u64(n)
+                if c.trailing_zeros() >= pow_bits:
+                    break
+                n += 1
+            check(nonce == n, f"grind pow_bits={pow_bits}: {nonce} != the host scan's {n}")
+        b_ms, b_by = bound(36 + 8, (nonce + 1) * comp_ops)
+        ms = device_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
+        call = cuda_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
+        plain_ms = cuda_ms(lambda: channel_ops.grind_plain(st, pow_bits), reps=3)  # noqa: B023
+        blocks = ctypes.c_int()
+        _build.library().frieda_grind_blocks(ctypes.byref(blocks))
+        say(f"[3] grind pow_bits={pow_bits}: nonce {nonce} == plain sweep"
+            f"{' == host scan' if pow_bits <= 16 else ''}; device {ms:.4f} ms, call {call:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nonce + 1} compressions; share {b_ms / ms:.3f}); "
+            f"{blocks.value} blocks of 256 threads")
+        if pow_bits == 20:
+            kernels["grind"] = dict(
+                source="frieda_tpu_torch/csrc/channel.cu",
+                replaces="frieda_tpu/core/device_channel.py:145 dc_grind (XLA, no Pallas kernel)",
+                max_abs_err=max_abs_err(got, want), ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+    fri._fold_tables.clear()
+    torch.cuda.empty_cache()
+
     # the blob axis (commit_many: 64 x 2^16 felts, log_blowup 4, and small
     # batches), each against its one-blob plain version per blob, stacked
     def batch_case(what: str, fn, plain_one, x, n_bytes: float, n_ops: float) -> None:
@@ -688,8 +872,9 @@ def main() -> int:
     say(f"[5] 2^24-felt commit: kernel path root == plain path root {plain_root}")
     commit_counts = ops.launch_counts()
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
-    for name, count in commit_counts.items():  # merkle_open reads a proof's openings only
-        check(count > 0 or name == "merkle_open", f"kernel {name} was never launched by the commit path")
+    prove_only = {"merkle_open", "fri_fold", "transcript", "grind"}  # a proof's openings and commit phase
+    for name, count in commit_counts.items():
+        check(count > 0 or name in prove_only, f"kernel {name} was never launched by the commit path")
     lap(5)
 
     # -- 6. commit_many --------------------------------------------------------
@@ -877,6 +1062,38 @@ def main() -> int:
         per_proof = {k: v - before[k] for k, v in ops.launch_counts().items()}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
+        layers = log_total - 2  # the proof's layers at llb 0: n - last_log
+        check(per_proof["fri_fold"] == layers and per_proof["transcript"] == layers + 3
+              and per_proof["grind"] == 1, f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
+        # the warm commit phase waits for nothing; then one fetch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            committed = fri.commit_phase(words, log_total, 7, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                committed.fetch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        check(syncs == 1, f"2^{log_felts}-felt commit phase: {syncs} synchronizing operations in its fetch")
+        check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire,
+              f"2^{log_felts}-felt proof after the sync-free commit phase differs")
+        say(f"[9] 2^{log_felts}-felt commit phase under sync debug mode 'error': no synchronization; host "
+            f"enqueue {enqueue_ms:.3f} ms, device {start.elapsed_time(end):.3f} ms (CUDA events from before "
+            f"the first launch); then {syncs} synchronizing fetch of {committed.packed.numel()} words before "
+            f"the decommitment; proof bytes unchanged")
+        del committed
         walls, splits = [], []
         for _ in range(3):
             stats = {}
@@ -897,6 +1114,14 @@ def main() -> int:
             f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
         for i, split in enumerate(splits):
             say(f"[9]   run {i + 1} stages (ms): {split}")
+        whole = []
+        for _ in range(5):  # no stage clock: the commit phase runs ahead of the host
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.commit_and_prove_staged(words, log_total, 7, cfg)
+            whole.append((time.perf_counter() - t0) * 1e3)
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, no stage clock: median "
+            f"{statistics.median(whole):.3f} ms of {[round(w, 3) for w in whole]}")
         torch.cuda.synchronize()
         before_bytes = torch.cuda.memory_allocated(dev)
         committed = fri.commit_phase(words, log_total, 7, cfg)
@@ -930,8 +1155,8 @@ def main() -> int:
     # -- 10. launch counts of the commit_many, commit_with_tree and prove phases
     prove_counts = ops.launch_counts()
     say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}")
-    for path, counts, unused in (("commit_many (6)", batch_counts, {"merkle_open"}),
-                                 ("commit_with_tree (7)", tree_counts, {"merkle_collapse", "merkle_open"}),
+    for path, counts, unused in (("commit_many (6)", batch_counts, prove_only),
+                                 ("commit_with_tree (7)", tree_counts, prove_only | {"merkle_collapse"}),
                                  ("prove (8-9)", prove_counts, set())):
         for name, count in counts.items():
             check(count > 0 or name in unused, f"kernel {name} was never launched by the {path} path")
@@ -1009,6 +1234,7 @@ def main() -> int:
     say(f"[11] whole run {time.perf_counter() - t_start:.1f} s")
 
     say(smi)
+    check(set(kernels) == set(ops.kernel_wrappers()), f"kernels measured {sorted(kernels)}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts,

@@ -17,7 +17,7 @@ import torch
 
 from .config import DEFAULT_CONFIG, PcsConfig  # noqa: F401  (re-export)
 from .core import fft, fri, merkle
-from .utils.packing import ingest_rev, log_total_for, stack_words
+from .utils.packing import ingest_rev, log_total_for, upload_words
 
 Commitment = bytes  # 32-byte Merkle root
 
@@ -29,12 +29,6 @@ def _device(device, what: str) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
-
-
-def _upload(datas, log_total: int, device: torch.device) -> torch.Tensor:
-    """(B, nw) words of the blobs on `device`: one host buffer (page-locked
-    for the card, `stack_words`) and one upload."""
-    return stack_words(datas, log_total, pin=device.type == "cuda").to(device, non_blocking=True)
 
 
 def commit_root_pipeline(words: torch.Tensor, log_total: int,
@@ -69,7 +63,7 @@ def commit(data: bytes, log_blowup_factor: int, device="cuda") -> Commitment:
     """Commit to a data blob (reference: src/commit.rs) on `device`."""
     device = _device(device, "commit")
     log_total = log_total_for(len(data))
-    words = _upload([data], log_total, device)[0]
+    words = upload_words([data], log_total, device)[1][0]
     return merkle.root_bytes(commit_root_pipeline(words, log_total, log_blowup_factor))
 
 
@@ -87,7 +81,7 @@ def commit_many(datas, log_blowup_factor: int, device="cuda") -> list:
     log_total = log_total_for(len(datas[0]))
     if any(log_total_for(len(d)) != log_total for d in datas):
         raise ValueError("commit_many requires equal padded sizes")
-    words = _upload(datas, log_total, device)
+    words = upload_words(datas, log_total, device)[1]
     return merkle.root_bytes_many(commit_root_pipeline_batch(words, log_total, log_blowup_factor))
 
 
@@ -98,7 +92,7 @@ def commit_with_tree(data: bytes, log_blowup_factor: int, device="cuda"):
     2^HOST_CUTOFF_LOG stay on the device (`merkle.device_levels`)."""
     device = _device(device, "commit_with_tree")
     log_total = log_total_for(len(data))
-    evals = _evaluations(_upload([data], log_total, device)[0], log_total, log_blowup_factor)
+    evals = _evaluations(upload_words([data], log_total, device)[1][0], log_total, log_blowup_factor)
     n = log_total - 2 + log_blowup_factor
     tree = merkle.CommitTree(merkle.device_levels(evals), n)
     return tree.root, evals, tree, n

@@ -1,9 +1,10 @@
 """Fiat-Shamir Blake2sChannel (host, strictly sequential).
 
 Jax-free copy of `frieda_tpu/core/channel.py`, the verifier's source of
-truth: the port's prover drives this host channel and fetches each layer's
-32-byte root before drawing its alpha (the JAX package's device twin,
-`core/device_channel.py`, exists only to spare round trips to a remote TPU).
+truth: the verifier replays every proof's transcript on it. The prover runs
+the same transcript in device memory (`core/device_channel.py`, the
+`transcript` and `grind` kernels of `ops/channel.py`), so that its commit
+phase never waits for the host; the tests hold the two bit-equal.
 
 Conventions:
   * digest: 32 bytes, zero-initialized; every mix replaces it with

@@ -3,7 +3,7 @@
 Counterpart of `frieda_tpu/core/fri.py`; the proof wire bytes and the
 verdicts are the JAX package's.
 
-Transcript order (per proof), on the host channel (`core/channel.py`):
+Transcript order (per proof):
   mix_u64(seed)? -> mix first-layer Merkle root -> draw alpha0
   per inner layer: mix root -> draw alpha
   mix_felts(last layer coefficients) -> grind + mix_u64(nonce)
@@ -13,28 +13,34 @@ Folds (stwo convention, no division by 2), on natural-order halves:
   circle->line: g[k] = (f(p) + f(-p)) + alpha * (f(p) - f(-p)) / y_p
   line:         g'[k] = (g(x) + g(-x)) + alpha * (g(x) - g(-x)) / x
 
-Architecture. The JAX package runs the whole commit phase as one jitted
-dispatch with a device-side transcript, to spare round trips to a remote
-TPU. Here the device work is enqueued eagerly and the host drives the
-channel: each layer's 32-byte root is fetched before its alpha is drawn (one
-small sync per layer). The evaluations, every folded layer and every pruned
-tree stay on the device until the queries are known (`commit_phase`);
-`merkle.Opening` then reads exactly the values and nodes the deduplicated
+Architecture, as the JAX package's `_fri_commit_fn`: the commit phase
+(`commit_phase`) enqueues all of its work on the device's stream, from the
+staged words to the raw query words, and waits for nothing. The Fiat-Shamir
+channel lives in device memory (`core/device_channel.py`, the `transcript`
+and `grind` kernels of `ops/channel.py`): each layer's root is mixed from
+its tree's device tensor, alpha is drawn where the next `fri_fold` reads it,
+and the grind searches on the card. `finish_proof` then makes ONE fetch of
+the transcript's outputs (the layer roots, the last-layer coefficients, a
+degree flag, the nonce and the raw query words; the head of the JAX
+package's packed vector, `_packed_layout`), deduplicates the queries on the
+host and decommits: `merkle.Opening` reads exactly the values and nodes the
 query set needs (`plan_openings`), in one `merkle_open` launch and one
 fetch, where the JAX package gathers every raw query's full authentication
-path into one packed vector (`_packed_layout`).
+path into its packed vector.
 
-The pipeline's LDE and tree functions come in a `Route`: the kernel wrappers
+The pipeline's device steps come in a `Route`: the kernel wrappers
 (`KERNELS`) for callers, and any other route of the same signatures (the
 plain versions, in chip_smoke.py) to check the kernels on the card.
 
-`prove_many` keeps up to a window of finished commit phases (`Committed`,
-resident on the device) ahead of their decommitments, on one stream.
+`prove_many` keeps up to a window of commit phases (`Committed`, resident on
+the device) ahead of their decommitments, on one stream: blob k + 1's
+commit phase is enqueued before blob k's outputs are fetched.
 
 The verifier (`verify_proof`, `verify_many`) is host code, as in the JAX
-package: it replays the transcript on the host channel and checks every
-Merkle opening (the native runtime, `frieda_tpu_torch/native/`) and every
-fold (numpy, `npfield`). It runs no kernel and needs no card.
+package: it replays the transcript on the host channel (`core/channel.py`)
+and checks every Merkle opening (the native runtime,
+`frieda_tpu_torch/native/`) and every fold (numpy, `npfield`). It runs no
+kernel and needs no card.
 """
 
 from __future__ import annotations
@@ -50,17 +56,17 @@ import torch
 
 from .. import native, ops
 from ..config import DEFAULT_CONFIG, PcsConfig
+from ..ops import channel as channel_ops
+from ..ops import fri as fri_ops
 from ..ops import ingest as ingest_ops
 from ..ops import merkle as merkle_ops
-from ..utils.convert import from_numpy_u32, to_numpy_u32
-from ..utils.packing import log_total_for, pad_to_words
+from ..utils.convert import from_numpy_u32, narrow, to_numpy_u32
+from ..utils.packing import log_total_for, upload_words
 from . import circle as hostcircle
 from . import fft, npfield
 from .channel import Blake2sChannel, sample_query_positions
-from .field import P, m31_add, m31_mul, m31_sub, qm31_mul
-from .grind import grind
-from .merkle import (MerkleDecommitment, Opening, build_pruned, compress_rows_host, root_bytes,
-                     verify_openings_rows)
+from .field import P, m31_add, m31_mul, m31_sub
+from .merkle import MerkleDecommitment, Opening, build_pruned, compress_rows_host, verify_openings_rows
 from .proof import FriLayerProof, FriProof, Proof
 
 _INV2 = (P + 1) // 2
@@ -75,10 +81,14 @@ class Route(NamedTuple):
     level: Callable  # (x, leaf, fused) -> Merkle level
     collapse: Callable  # (level, out_widths) -> [levels]
     open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening
+    fold: Callable  # (values (4, M), alpha (4,), inv (M/2,)) -> (4, M/2)
+    transcript: Callable  # (state, mix_u64=, mix_digest=, mix_felts=, draw_felt=, queries=) -> (alpha, words)
+    grind: Callable  # (state, pow_bits) -> (2,) nonce words (lo, hi)
 
 
 KERNELS = Route(ingest_ops.ingest, fft.evaluate_auto, merkle_ops.merkle_level,
-                merkle_ops.merkle_collapse, merkle_ops.merkle_open)
+                merkle_ops.merkle_collapse, merkle_ops.merkle_open, fri_ops.fri_fold,
+                channel_ops.transcript, channel_ops.grind)
 
 
 # ---------------------------------------------------------------------------
@@ -101,25 +111,25 @@ def fold_tables(n: int, device):
     return _fold_tables[key]
 
 
-def _fold(lo: torch.Tensor, hi: torch.Tensor, alpha, inv: torch.Tensor) -> torch.Tensor:
-    """(lo + hi) + alpha * (lo - hi) * inv over (4, M) QM31 columns."""
-    lo, hi = lo.to(torch.int64), hi.to(torch.int64)
-    f1 = m31_mul(m31_sub(lo, hi), inv)
-    return m31_add(m31_add(lo, hi), torch.stack(qm31_mul(alpha, tuple(f1)))).to(torch.int32)
+def _alpha(alpha, device) -> torch.Tensor:
+    """alpha as the (4,) int32 tensor the fold takes: a tensor as it is, a
+    QM31 tuple of ints or 0-d tensors stacked."""
+    if isinstance(alpha, torch.Tensor):
+        return alpha
+    return torch.stack([torch.as_tensor(a, dtype=torch.int32, device=device) for a in alpha])
 
 
 def fold_c(evals: torch.Tensor, alpha, ys_inv: torch.Tensor) -> torch.Tensor:
     """(4, N) circle evaluations -> (4, N/2) line values (int32); the
-    conjugate pairs are the two halves. alpha: QM31 tuple of ints."""
-    half = evals.shape[1] // 2
-    return _fold(evals[:, :half], evals[:, half:], alpha, ys_inv)
+    conjugate pairs are the two halves. alpha: a (4,) int32 tensor on the
+    device (the transcript's draw) or a QM31 tuple. One `fri_fold`."""
+    return fri_ops.fri_fold(evals, _alpha(alpha, evals.device), ys_inv)
 
 
 def fold_l(g: torch.Tensor, alpha, xs_inv: torch.Tensor) -> torch.Tensor:
     """(4, M) line values -> (4, M/2) next-layer values (int32); the ±x pairs
-    are the two halves."""
-    half = g.shape[1] // 2
-    return _fold(g[:, :half], g[:, half:], alpha, xs_inv)
+    are the two halves. alpha as for `fold_c`. One `fri_fold`."""
+    return fri_ops.fri_fold(g, _alpha(alpha, g.device), xs_inv)
 
 
 def _device_ifft_line(values: torch.Tensor, xs_invs, depth: int) -> torch.Tensor:
@@ -229,22 +239,88 @@ def _qm31s(cols: np.ndarray, sl: slice) -> list:
     return [tuple(int(v) for v in cols[:, j]) for j in range(sl.start, sl.stop)]
 
 
-class Committed(NamedTuple):
-    """What the commit phase of one proof leaves for its decommitment."""
+class Committed:
+    """What the commit phase of one proof leaves for its decommitment: the
+    layers and their trees on the device, and `packed`, the transcript's
+    outputs on the device (int32: the layer roots (8 words each), the last
+    layer's coefficients (4 words each), the degree flag, the nonce (lo,
+    hi) and the raw query words). `roots`, `last_layer_poly`, `nonce` and
+    `queries` make the one fetch of `packed` on first use (`fetch`) and
+    keep it; `staging` holds the host buffer the words were uploaded from
+    until then."""
 
-    layers: list  # (4, N_t) int32 evaluations of each FRI layer, on the device
-    trees: list  # their pruned trees
-    roots: list  # their 32-byte roots
-    last_layer_poly: list  # QM31 coefficients
-    nonce: int
-    queries: list  # positions in the first layer's domain (stored order)
+    def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int):
+        self.layers = layers  # (4, N_t) int32 evaluations of each FRI layer, on the device
+        self.trees = trees  # their pruned trees
+        self.packed = packed
+        self.bound = bound  # coefficients of the last layer
+        self.n_queries = n_queries
+        self.staging = None
+        self._host = None
+
+    def fetch(self) -> None:
+        """The one fetch of the transcript's outputs (a no-op after the
+        first). Raises AssertionError when the last layer exceeded its degree
+        bound."""
+        if self._host is not None:
+            return
+        words = to_numpy_u32(self.packed)
+        t, b = len(self.trees), self.bound
+        roots = [words[8 * i : 8 * (i + 1)].astype("<u4").tobytes() for i in range(t)]
+        o = 8 * t
+        last = words[o : o + 4 * b].reshape(b, 4)
+        o += 4 * b
+        if not words[o]:
+            raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
+        nonce = int(words[o + 1]) | int(words[o + 2]) << 32
+        raw = words[o + 3 : o + 3 + self.n_queries]
+        self._host = (roots, [tuple(int(v) for v in row) for row in last], nonce,
+                      sorted(set(int(q) for q in raw)), raw)
+        self.staging = None
+
+    @property
+    def roots(self) -> list:
+        """The 32-byte root of each layer's tree."""
+        self.fetch()
+        return self._host[0]
+
+    @property
+    def last_layer_poly(self) -> list:
+        """The last layer's QM31 coefficients."""
+        self.fetch()
+        return self._host[1]
+
+    @property
+    def nonce(self) -> int:
+        self.fetch()
+        return self._host[2]
+
+    @property
+    def queries(self) -> list:
+        """Positions in the first layer's domain (stored order), sorted and
+        deduplicated."""
+        self.fetch()
+        return self._host[3]
+
+    @property
+    def query_words(self) -> np.ndarray:
+        """The raw query draws, with duplicates, in draw order."""
+        self.fetch()
+        return self._host[4]
 
 
 def commit_phase(words: torch.Tensor, log_total: int, seed,
                  pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                  clock: _Clock | None = None) -> Committed:
-    """The commit phase of `prove_words`: LDE, a pruned tree and a fold per
-    layer, the last layer, the grind and the queries."""
+    """The commit phase of `prove_words`: the LDE, a pruned tree, a transcript
+    step and a fold per layer, the last layer, the grind and the query draws,
+    all enqueued on `words`' device; nothing waits for the device (tables
+    not yet cached for this size are uploaded first). Counterpart of
+    `_fri_commit_fn.run`.
+
+    On the kernel route the folds go through this module's `fold_c` and
+    `fold_l` (a caller may replace them); another route's `fold` is called
+    as it is."""
     fri_cfg = pcs_config.fri_config
     log_size = log_total - 2
     n = log_size + fri_cfg.log_blowup_factor
@@ -256,47 +332,46 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
             f"{fri_cfg.log_last_layer_degree_bound} >= poly log size {log_size}")
     device = words.device
     clock = clock or _Clock(device, None)
-    channel = Blake2sChannel()
+    circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
+    state = channel_ops.new_state(device)
     if seed is not None:
-        channel.mix_u64(int(seed))
+        with clock("transcript"):
+            route.transcript(state, mix_u64=int(seed))
 
     def commit_layer(g):
         with clock("lde_trees"):
             tree = build_pruned(g, route.level, route.collapse)
         with clock("transcript"):
-            root = root_bytes(tree.root)
-            channel.mix_digest(root)
-            alpha = channel.draw_felt()
+            alpha, _ = route.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
         layers.append(g)
         trees.append(tree)
-        roots.append(root)
         return alpha
 
-    layers, trees, roots = [], [], []
+    layers, trees = [], []
     with clock("lde_trees"):
         evals = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
     alpha = commit_layer(evals)
     with clock("folds"):
         ys_inv, xs_invs = fold_tables(n, device)
-        g = fold_c(evals, alpha, ys_inv)
+        g = circle_fold(evals, alpha, ys_inv)
     for l in range(n_inner):
         alpha = commit_layer(g)
         with clock("folds"):
-            g = fold_l(g, alpha, xs_invs[l])
-    with clock("folds"):
-        coeffs = to_numpy_u32(_device_ifft_line(g, xs_invs, n_inner))  # (2^last_log, 4)
+            g = line_fold(g, alpha, xs_invs[l])
     bound = 1 << fri_cfg.log_last_layer_degree_bound
-    if coeffs[bound:].any():
-        raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
-    last_layer_poly = [tuple(int(v) for v in row) for row in coeffs[:bound]]
+    with clock("folds"):
+        coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (2^last_log, 4) int64
+        last_poly = narrow(coeffs[:bound]).contiguous()
+        degree_ok = (coeffs[bound:] == 0).all().to(torch.int32).reshape(1)
     with clock("transcript"):
-        channel.mix_felts(last_layer_poly)
+        route.transcript(state, mix_felts=last_poly)
     with clock("grind"):
-        nonce = grind(channel, pcs_config.pow_bits, device)
+        nonce = route.grind(state, pcs_config.pow_bits)
     with clock("transcript"):
-        channel.mix_u64(nonce)
-        queries = sample_query_positions(channel, n, fri_cfg.n_queries)
-    return Committed(layers, trees, roots, last_layer_poly, nonce, queries)
+        _, query_words = route.transcript(state, mix_u64=nonce, queries=(fri_cfg.n_queries, n))
+        packed = torch.cat([t.root.reshape(8) for t in trees]
+                           + [last_poly.reshape(-1), degree_ok, nonce, query_words])
+    return Committed(layers, trees, packed, bound, fri_cfg.n_queries)
 
 
 def plan_openings(layers: list, trees: list, queries) -> tuple:
@@ -319,11 +394,15 @@ def plan_openings(layers: list, trees: list, queries) -> tuple:
 
 def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = DEFAULT_CONFIG,
                  route: Route = KERNELS, clock: _Clock | None = None):
-    """(commitment, Proof) of a finished commit phase: the decommitment
-    (every revealed value and node in one `merkle_open` launch and one
-    fetch) and the proof objects. Counterpart of `fri._finish_proof`."""
+    """(commitment, Proof) of a commit phase: the one fetch of its
+    transcript's outputs (which raises AssertionError for a last layer above
+    its degree bound), then the decommitment (every revealed value and node
+    in one `merkle_open` launch and one fetch) and the proof objects.
+    Counterpart of `fri._finish_proof`."""
     c = committed
     clock = clock or _Clock(c.layers[0].device, None)
+    with clock("transcript"):
+        c.fetch()
     with clock("decommit_plan"):
         opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries)
     with clock("decommit_open"):
@@ -360,11 +439,12 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
     `fri.finish_proof`.
 
     stats, when a dict, receives the host wall time of each stage
-    (synchronized: "lde_trees", "folds", "transcript", "grind", and the
-    decommitment's "decommit_plan" (witness planning and registration),
-    "decommit_open" (upload, `merkle_open`, fetch) and "decommit_assemble"
-    (the proof objects)), each stage's kernel launches, and
-    `open_launches`, the calls of the route's `open` step."""
+    (synchronized at both ends, so the commit phase then waits for the
+    device at every stage: "lde_trees", "folds", "transcript" (with the one
+    fetch), "grind", and the decommitment's "decommit_plan" (witness
+    planning and registration), "decommit_open" (upload, `merkle_open`,
+    fetch) and "decommit_assemble" (the proof objects)), each stage's kernel
+    launches, and `open_launches`, the calls of the route's `open` step."""
     clock = _Clock(words.device, stats)
     return finish_proof(commit_phase(words, log_total, seed, pcs_config, route, clock),
                         log_total, pcs_config, route, clock)
@@ -374,8 +454,7 @@ def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
     """(commitment, Proof) of a blob on `device` (reference:
     src/proof.rs:32-77)."""
     log_total = log_total_for(len(data))
-    words = from_numpy_u32(pad_to_words(data, log_total), device)
-    return prove_words(words, log_total, seed, pcs_config)
+    return prove_words(upload_words([data], log_total, device)[1][0], log_total, seed, pcs_config)
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +522,10 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
         if len(window) >= max_in_flight:
             out.append(finish_proof(*window.pop(0), pcs_config))
         log_total = log_total_for(len(data))
-        words = from_numpy_u32(pad_to_words(data, log_total), device)
-        window.append((commit_phase(words, log_total, seed, pcs_config), log_total))
+        host, words = upload_words([data], log_total, device)
+        committed = commit_phase(words[0], log_total, seed, pcs_config)
+        committed.staging = host  # the upload reads it asynchronously: kept until the fetch
+        window.append((committed, log_total))
     out.extend(finish_proof(c, log_total, pcs_config) for c, log_total in window)
     return out
 

@@ -6,8 +6,11 @@ the smallest nonce n >= 0 such that channel.clone().mix_u64(n)
 LE), one 40-byte BLAKE2s-256 block, so a batch of consecutive nonces is one
 `blake2s_hash_one_block` over a batch axis on the channel's device, and a
 min-reduce over the qualifying nonces keeps the sequential scan's answer.
-The sweep is plain PyTorch tensor code (the JAX package left it to XLA, not
-to Pallas); a CUDA tensor runs it on the card.
+
+`sweep` is the plain version of the `grind` kernel (`ops/channel.py`,
+`csrc/channel.cu`), which the prover launches on the card with the digest
+in device memory (`core/device_channel.py`); `grind` runs the same sweep
+from a host `Blake2sChannel`, for callers that hold one.
 """
 
 from __future__ import annotations
@@ -35,15 +38,24 @@ def _clears(w0: torch.Tensor, w1: torch.Tensor, pow_bits: int) -> torch.Tensor:
 
 
 def grind(channel: Blake2sChannel, pow_bits: int, device, batch: int | None = None) -> int:
-    """Minimum qualifying nonce, swept `batch` nonces at a time on `device`
-    (one host sync per batch). pow_bits <= 60, as PcsConfig allows."""
+    """Minimum qualifying nonce of a host channel, swept `batch` nonces at a
+    time on `device` (one host sync per batch). pow_bits <= 60, as
+    PcsConfig allows."""
+    digest = [int.from_bytes(channel.digest[4 * i : 4 * i + 4], "little") for i in range(8)]
+    return sweep(torch.tensor(digest, dtype=torch.int64, device=device), pow_bits, batch)
+
+
+def sweep(digest: torch.Tensor, pow_bits: int, batch: int | None = None) -> int:
+    """Minimum nonce whose BLAKE2s(digest || nonce_le8) clears pow_bits, for
+    (8,) int64 u32 digest words, swept `batch` u64 nonces at a time on the
+    digest's device (one host sync per batch). pow_bits <= 60."""
     if not 0 <= pow_bits <= 60:
         raise ValueError(f"pow_bits must be in [0, 60], got {pow_bits}")
     batch = batch or batch_size(pow_bits)
-    digest = [int.from_bytes(channel.digest[4 * i : 4 * i + 4], "little") for i in range(8)]
+    device = digest.device
     idx = torch.arange(batch, dtype=torch.int64, device=device)
     msg = torch.zeros((16, batch), dtype=torch.int64, device=device)
-    msg[:8] = torch.tensor(digest, dtype=torch.int64, device=device)[:, None]
+    msg[:8] = digest[:, None]
     none = 1 << 62
     base = 0
     while True:

@@ -1,4 +1,6 @@
-// BLAKE2s zero-state raw compression (the Merkle node hash, SURVEY.md A.6).
+// BLAKE2s zero-state raw compression (the Merkle node hash, SURVEY.md A.6),
+// and the RFC compression of the Fiat-Shamir channel (blake2s_compress,
+// below it).
 //
 // Replaces frieda_tpu/ops/merkle_pallas.py::_compress16. v = [0]*8 + IV,
 // t = 0, no final flag, out[i] = v[i] ^ v[i+8]. This is NOT the RFC
@@ -64,6 +66,40 @@ __device__ __forceinline__ void blake2s_compress_zero(const uint32_t (&m)[16], u
   out[6] = v6 ^ v14;
   out[7] = v7 ^ v15;
 }
+
+// RFC 7693 BLAKE2s compression of one block, for the Fiat-Shamir channel
+// (csrc/channel.cu): chaining state h, byte counter t (< 2^32 here) and the
+// final-block flag; out[i] = h[i] ^ v[i] ^ v[i+8]. The channel's hash is
+// BLAKE2s-256 with the parameter block in h (kB2sParamIV0), unlike the Merkle
+// node hash above.
+__device__ __forceinline__ void blake2s_compress(const uint32_t (&h)[8], const uint32_t (&m)[16],
+                                                 uint32_t t, bool final, uint32_t (&out)[8]) {
+  uint32_t v0 = h[0], v1 = h[1], v2 = h[2], v3 = h[3], v4 = h[4], v5 = h[5], v6 = h[6], v7 = h[7];
+  uint32_t v8 = 0x6A09E667u, v9 = 0xBB67AE85u, v10 = 0x3C6EF372u, v11 = 0xA54FF53Au;
+  uint32_t v12 = 0x510E527Fu ^ t, v13 = 0x9B05688Cu, v14 = 0x1F83D9ABu ^ (final ? 0xFFFFFFFFu : 0u);
+  uint32_t v15 = 0x5BE0CD19u;
+  FRIEDA_B2S_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+  FRIEDA_B2S_ROUND(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3)
+  FRIEDA_B2S_ROUND(11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4)
+  FRIEDA_B2S_ROUND(7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8)
+  FRIEDA_B2S_ROUND(9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13)
+  FRIEDA_B2S_ROUND(2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9)
+  FRIEDA_B2S_ROUND(12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11)
+  FRIEDA_B2S_ROUND(13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10)
+  FRIEDA_B2S_ROUND(6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5)
+  FRIEDA_B2S_ROUND(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0)
+  out[0] = h[0] ^ v0 ^ v8;
+  out[1] = h[1] ^ v1 ^ v9;
+  out[2] = h[2] ^ v2 ^ v10;
+  out[3] = h[3] ^ v3 ^ v11;
+  out[4] = h[4] ^ v4 ^ v12;
+  out[5] = h[5] ^ v5 ^ v13;
+  out[6] = h[6] ^ v6 ^ v14;
+  out[7] = h[7] ^ v7 ^ v15;
+}
+
+// IV[0] of BLAKE2s-256 without a key: digest length 32, fanout 1, depth 1.
+constexpr uint32_t kB2sParamIV0 = 0x6A09E667u ^ 0x01010020u;
 
 #undef FRIEDA_B2S_ROUND
 #undef FRIEDA_B2S_G

@@ -1,0 +1,253 @@
+// Kernels 7 and 8, transcript and grind: the Fiat-Shamir channel on the card.
+//
+// Replace the JAX package's device channel, frieda_tpu/core/device_channel.py:
+// dc_mix_u64, dc_mix_digest, dc_mix_felts, dc_draw_felt (dc_draw_base_felts)
+// and dc_sample_query_words (transcript), dc_grind (grind). XLA runs those
+// inside the FRI commit phase's one jitted dispatch
+// (frieda_tpu/core/fri.py:_fri_commit_fn); they have no Pallas kernel. Here
+// they are kernels because two of them loop on data: the whole-draw retry of
+// draw_felt and the nonce search of the grind. Plain PyTorch could run those
+// loops only with a host synchronization a trip.
+//
+// The channel's hash is RFC BLAKE2s-256 (parameter block in h, byte counter,
+// final flag: blake2s.cuh blake2s_compress), not the Merkle kernels'
+// zero-state compression. The state is 9 u32 words in device memory: the
+// digest (8 words, little-endian) and n_sent. Every mix replaces the digest
+// with BLAKE2s(digest || payload) and resets n_sent; a draw hashes
+// digest || n_sent (8 bytes LE) and counts n_sent up.
+//
+// transcript: one block of one warp runs the steps a launch asks for, in
+// this order: mix_u64 (a constant, or two words in device memory: the
+// grind's nonce), mix_digest (a Merkle root read from its tree), mix_felts
+// (k QM31 from device memory, ceil((32 + 16k) / 64) blocks), draw_felt
+// (retry while any of the 8 words >= draw_bound; the 4 reduced words are
+// written where the next fri_fold reads alpha), then the query draws. Bound:
+// latency, a chain of dependent compressions on lane 0 (one a mix of <= 64
+// bytes, one a draw attempt); the query draws are independent (n_sent
+// differs) and take one lane each.
+//
+// grind: the minimum nonce whose BLAKE2s(digest || nonce_le8) has at least
+// pow_bits trailing zeros in its first 16 bytes (a u128, little-endian), as
+// core/grind.py's sweep and the host's grind_host. Bound: integer issue,
+// (nonce + 1) compressions of one block. Design: one launch, the search loop
+// on the card. A grid that fits on the card at once walks the 64-bit nonces
+// grid-stride; a thread stops at its first qualifying nonce (atomicMin into
+// best) or at its first nonce not below the current best. best only falls,
+// so every nonce a thread skips lies above the final minimum, and every
+// nonce below it was hashed: the result is the minimum, whatever the order
+// in which threads run. The caller sets best to 2^64 - 1 first.
+
+#include "blake2s.cuh"
+#include "common.cuh"
+
+namespace {
+
+using frieda::blake2s_compress;
+using frieda::kP;
+
+constexpr int kTranscriptThreads = 32;
+constexpr int kGrindThreads = 256;
+
+__device__ __forceinline__ void param_iv(uint32_t (&h)[8]) {
+  h[0] = frieda::kB2sParamIV0;
+  h[1] = 0xBB67AE85u;
+  h[2] = 0x3C6EF372u;
+  h[3] = 0xA54FF53Au;
+  h[4] = 0x510E527Fu;
+  h[5] = 0x9B05688Cu;
+  h[6] = 0x1F83D9ABu;
+  h[7] = 0x5BE0CD19u;
+}
+
+// BLAKE2s-256 of digest || payload (n_words little-endian u32 words after the
+// 32 digest bytes). out may alias digest.
+__device__ void hash_after(const uint32_t (&digest)[8], const uint32_t* payload, int n_words,
+                           uint32_t (&out)[8]) {
+  uint32_t h[8];
+  param_iv(h);
+  const uint32_t len = 4u * (8u + static_cast<uint32_t>(n_words));
+  const int blocks = static_cast<int>((len + 63u) / 64u);
+  for (int b = 0; b < blocks; ++b) {
+    uint32_t m[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int w = 16 * b + i;
+      m[i] = w < 8 ? digest[w & 7] : (w - 8 < n_words ? payload[w - 8] : 0u);
+    }
+    const bool final = b == blocks - 1;
+    uint32_t next[8];
+    blake2s_compress(h, m, final ? len : 64u * static_cast<uint32_t>(b + 1), final, next);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = next[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = h[i];
+}
+
+struct TranscriptArgs {
+  uint32_t* state;          // digest (8 words), n_sent
+  int mix_u64;              // mix a u64: from u64_src (lo, hi) when set, else u64_value
+  unsigned long long u64_value;
+  const uint32_t* u64_src;
+  const uint32_t* root;     // mix_digest: 8 words, or null
+  const uint32_t* felts;    // mix_felts: n_felts x 4 words, or null
+  int n_felts;
+  uint32_t* alpha;          // draw_felt: 4 words out, or null
+  uint32_t draw_bound;      // retry while any drawn word >= draw_bound (2P)
+  uint32_t* queries;        // n_queries raw query words out, or null
+  int n_queries;
+  uint32_t query_mask;      // 2^log_domain - 1
+};
+
+__global__ void __launch_bounds__(kTranscriptThreads) transcript_kernel(TranscriptArgs a) {
+  __shared__ uint32_t digest_s[8];
+  __shared__ uint32_t n_sent_s;
+  if (threadIdx.x == 0) {
+    uint32_t d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = a.state[i];
+    uint32_t n_sent = a.state[8];
+    if (a.mix_u64) {
+      uint32_t v[2];
+      if (a.u64_src != nullptr) {
+        v[0] = a.u64_src[0];
+        v[1] = a.u64_src[1];
+      } else {
+        v[0] = static_cast<uint32_t>(a.u64_value);
+        v[1] = static_cast<uint32_t>(a.u64_value >> 32);
+      }
+      hash_after(d, v, 2, d);
+      n_sent = 0;
+    }
+    if (a.root != nullptr) {
+      hash_after(d, a.root, 8, d);
+      n_sent = 0;
+    }
+    if (a.felts != nullptr) {
+      hash_after(d, a.felts, 4 * a.n_felts, d);
+      n_sent = 0;
+    }
+    if (a.alpha != nullptr) {
+      uint32_t w[8];
+      bool ok;
+      do {
+        const uint32_t v[2] = {n_sent, 0u};
+        hash_after(d, v, 2, w);
+        ++n_sent;
+        ok = true;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ok &= w[i] < a.draw_bound;
+      } while (!ok);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a.alpha[i] = w[i] >= kP ? w[i] - kP : w[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) digest_s[i] = d[i];
+    n_sent_s = n_sent;
+  }
+  __syncthreads();
+  const uint32_t draws = a.queries != nullptr ? (static_cast<uint32_t>(a.n_queries) + 7u) / 8u : 0u;
+  if (draws) {
+    uint32_t d[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = digest_s[i];
+    for (uint32_t k = threadIdx.x; k < draws; k += kTranscriptThreads) {
+      const uint32_t v[2] = {n_sent_s + k, 0u};
+      uint32_t w[8];
+      hash_after(d, v, 2, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t q = 8u * k + i;
+        if (q < static_cast<uint32_t>(a.n_queries)) a.queries[q] = w[i] & a.query_mask;
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.state[i] = digest_s[i];
+    a.state[8] = n_sent_s + draws;
+  }
+}
+
+// Trailing zeros of the u128 little-endian w[0..3] (128 when all are zero).
+__device__ __forceinline__ int trailing_zeros128(const uint32_t (&w)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (w[i]) return 32 * i + __ffs(static_cast<int>(w[i])) - 1;
+  }
+  return 128;
+}
+
+__global__ void __launch_bounds__(kGrindThreads)
+grind_kernel(const uint32_t* __restrict__ state, int pow_bits, unsigned long long* best) {
+  uint32_t d[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = state[i];
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * kGrindThreads;
+  for (unsigned long long nonce = static_cast<unsigned long long>(blockIdx.x) * kGrindThreads + threadIdx.x;;
+       nonce += stride) {
+    if (nonce >= *reinterpret_cast<volatile unsigned long long*>(best)) return;
+    const uint32_t m[16] = {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
+                            static_cast<uint32_t>(nonce), static_cast<uint32_t>(nonce >> 32),
+                            0u, 0u, 0u, 0u, 0u, 0u};
+    uint32_t h[8], out[8];
+    param_iv(h);
+    blake2s_compress(h, m, 40u, true, out);
+    if (trailing_zeros128(out) >= pow_bits) {
+      atomicMin(best, nonce);
+      return;
+    }
+  }
+}
+
+}  // namespace
+
+// state: 9 u32 words (digest, n_sent), updated in place. Null pointers skip
+// their step; u64_src (2 words) overrides u64_value. The caller checks the
+// operands' shapes, n_felts >= 1 with felts, 1 <= draw_bound <= 2P and
+// 0 <= log_domain <= 32.
+extern "C" int frieda_transcript(void* state, int mix_u64, unsigned long long u64_value,
+                                 const void* u64_src, const void* root, const void* felts,
+                                 int n_felts, void* alpha, unsigned int draw_bound, void* queries,
+                                 int n_queries, int log_domain, void* stream) {
+  if (state == nullptr || (felts != nullptr && n_felts < 1) || draw_bound == 0 ||
+      draw_bound > 2u * kP || n_queries < 0 || log_domain < 0 || log_domain > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TranscriptArgs a{static_cast<uint32_t*>(state), mix_u64, u64_value,
+                   static_cast<const uint32_t*>(u64_src), static_cast<const uint32_t*>(root),
+                   static_cast<const uint32_t*>(felts), n_felts, static_cast<uint32_t*>(alpha),
+                   draw_bound, static_cast<uint32_t*>(queries), n_queries,
+                   log_domain == 32 ? 0xFFFFFFFFu : (1u << log_domain) - 1u};
+  transcript_kernel<<<1, kTranscriptThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  FRIEDA_LAUNCH_RESULT();
+}
+
+// Blocks of the grind's grid: as many as the card holds at once.
+extern "C" int frieda_grind_blocks(int* blocks) {
+  static int cached = 0;
+  static cudaError_t err = cudaSuccess;
+  if (cached == 0 && err == cudaSuccess) {
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grind_kernel, kGrindThreads, 0);
+    }
+    if (err == cudaSuccess) cached = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = cached;
+  return static_cast<int>(err);
+}
+
+// state: the channel's 9 words (the digest is read); best: one u64, 2^64 - 1
+// on entry, the minimum qualifying nonce on exit. 0 <= pow_bits <= 128.
+extern "C" int frieda_grind(const void* state, int pow_bits, void* best, void* stream) {
+  if (pow_bits < 0 || pow_bits > 128) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const int err = frieda_grind_blocks(&blocks);
+  if (err != 0) return err;
+  grind_kernel<<<blocks, kGrindThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(state), pow_bits, static_cast<unsigned long long*>(best));
+  FRIEDA_LAUNCH_RESULT();
+}

@@ -9,7 +9,9 @@ from __future__ import annotations
 def kernel_wrappers() -> dict:
     """Name -> wrapper function of every kernel the commit and prove paths
     launch."""
+    from .channel import grind, transcript
     from .fft import fft_pass
+    from .fri import fri_fold
     from .ingest import ingest
     from .merkle import merkle_collapse, merkle_level, merkle_open
 
@@ -19,6 +21,9 @@ def kernel_wrappers() -> dict:
         "merkle_level": merkle_level,
         "merkle_collapse": merkle_collapse,
         "merkle_open": merkle_open,
+        "fri_fold": fri_fold,
+        "transcript": transcript,
+        "grind": grind,
     }
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("common.cuh", "blake2s.cuh", "fft.cu", "ingest.cu", "merkle.cu")
+SOURCES = ("common.cuh", "blake2s.cuh", "fft.cu", "ingest.cu", "merkle.cu", "fri.cu", "channel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +41,10 @@ _SIGNATURES = {
     "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _I, _VP),
     "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _I, _VP),
     "frieda_merkle_open": (_VP, _I, _LL, _LL, _VP, _VP),
+    "frieda_fri_fold": (_VP, _VP, _VP, _VP, _LL, _VP),
+    "frieda_transcript": (_VP, _I, ctypes.c_ulonglong, _VP, _VP, _VP, _I, _VP, ctypes.c_uint, _VP, _I, _I, _VP),
+    "frieda_grind": (_VP, _I, _VP, _VP),
+    "frieda_grind_blocks": (ctypes.POINTER(_I),),
 }
 
 _lib = None

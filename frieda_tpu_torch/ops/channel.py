@@ -1,0 +1,153 @@
+"""Kernels 7 and 8, `transcript` and `grind`: the Fiat-Shamir channel on the
+card, its state in device memory.
+
+Replace the JAX package's device channel (`frieda_tpu/core/device_channel.py`:
+the `dc_mix_*`, `dc_draw_*` and `dc_sample_query_words` steps, and
+`dc_grind`), which XLA runs inside the FRI commit phase's one dispatch; no
+Pallas kernel. Source: `csrc/channel.cu` (RFC BLAKE2s-256 from
+`csrc/blake2s.cuh`). The plain versions are the `dc_*` functions of
+`core/device_channel.py`.
+
+The state is a (STATE_WORDS,) int32 tensor: the digest (words 0-7) and
+n_sent (word 8). `transcript` runs, in one launch, the steps it is given, in
+this order: mix_u64, mix_digest, mix_felts, draw_felt, the query draws; it
+updates the state in place and returns the drawn alpha and query words as
+new tensors. `grind` reads the digest and returns the minimum nonce as two
+int32 words (lo, hi) on the device, which `transcript(mix_u64=...)` takes as
+they are. Nothing here waits for the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core import device_channel as dc
+from ..utils.convert import narrow, widen
+from . import _build
+
+STATE_WORDS = 9
+_M64 = (1 << 64) - 1
+
+
+def new_state(device) -> torch.Tensor:
+    """A fresh channel: zero digest, n_sent 0."""
+    return torch.zeros(STATE_WORDS, dtype=torch.int32, device=device)
+
+
+def _check_state(state: torch.Tensor) -> None:
+    _build.check_u32(state, "state", (STATE_WORDS,))
+
+
+def _check_steps(state, mix_u64, mix_digest, mix_felts, queries) -> None:
+    _check_state(state)
+    if isinstance(mix_u64, torch.Tensor):
+        _build.check_u32(mix_u64, "mix_u64", (2,))
+        _build.check_same_device(state, mix_u64)
+    if mix_digest is not None:
+        _build.check_u32(mix_digest, "mix_digest", (8,))
+        _build.check_same_device(state, mix_digest)
+    if mix_felts is not None:
+        if mix_felts.dim() != 2 or mix_felts.shape[1] != 4 or not mix_felts.shape[0]:
+            raise ValueError(f"mix_felts: expected (k >= 1, 4) QM31, got {tuple(mix_felts.shape)}")
+        _build.check_u32(mix_felts, "mix_felts", tuple(mix_felts.shape))
+        _build.check_same_device(state, mix_felts)
+    if queries is not None:
+        n_queries, log_domain = queries
+        if n_queries < 0 or not 0 <= log_domain <= 32:
+            raise ValueError(f"queries: expected (n >= 0, 0 <= log_domain <= 32), got {queries}")
+    if not 1 <= dc.DRAW_BOUND <= 2 * dc.P:
+        raise ValueError(f"device_channel.DRAW_BOUND must be in [1, 2P], got {dc.DRAW_BOUND}")
+
+
+def transcript_plain(state: torch.Tensor, mix_u64=None, mix_digest=None, mix_felts=None,
+                     draw_felt: bool = False, queries=None) -> tuple:
+    """Plain version of `transcript`: the `dc_*` functions on the state's
+    device (the draw's retry tests on the host). Same arguments and
+    results."""
+    _check_steps(state, mix_u64, mix_digest, mix_felts, queries)
+    digest, n_sent = widen(state[:8]), widen(state[8])
+    if mix_u64 is not None:
+        if isinstance(mix_u64, torch.Tensor):
+            v = widen(mix_u64)
+            digest = dc.dc_mix_u64(digest, v[0], v[1])
+        else:
+            digest = dc.dc_mix_u64_const(digest, int(mix_u64) & _M64)
+        n_sent = 0
+    if mix_digest is not None:
+        digest, n_sent = dc.dc_mix_digest(digest, widen(mix_digest)), 0
+    if mix_felts is not None:
+        digest, n_sent = dc.dc_mix_felts(digest, widen(mix_felts)), 0
+    alpha = words = None
+    if draw_felt:
+        alpha, n_sent = dc.dc_draw_felt(digest, n_sent)
+        alpha = narrow(alpha)
+    if queries is not None:
+        words, n_sent = dc.dc_sample_query_words(digest, n_sent, *queries)
+        words = narrow(words)
+    state[:8] = narrow(digest)
+    state[8] = n_sent
+    return alpha, words
+
+
+def transcript(state: torch.Tensor, mix_u64=None, mix_digest=None, mix_felts=None,
+               draw_felt: bool = False, queries=None) -> tuple:
+    """One transcript launch: the steps given, in order, on the channel
+    `state` (updated in place). mix_u64: an int (the seed) or (2,) int32
+    words (lo, hi) on the device (the grind's nonce); mix_digest: (8,) int32
+    root words; mix_felts: (k, 4) int32 QM31; draw_felt: draw alpha;
+    queries: (n_queries, log_domain), the raw query words & (2^log_domain -
+    1). Returns (alpha (4,) int32 or None, query words (n_queries,) int32 or
+    None). Launches the kernel for a CUDA state, runs the plain version for
+    a CPU state."""
+    if not state.is_cuda:
+        return transcript_plain(state, mix_u64, mix_digest, mix_felts, draw_felt, queries)
+    _check_steps(state, mix_u64, mix_digest, mix_felts, queries)
+    dev = state.device
+    alpha = torch.empty(4, dtype=torch.int32, device=dev) if draw_felt else None
+    n_queries, log_domain = queries if queries is not None else (0, 0)
+    words = torch.empty(n_queries, dtype=torch.int32, device=dev) if queries is not None else None
+    src = mix_u64 if isinstance(mix_u64, torch.Tensor) else None
+    value = 0 if mix_u64 is None or src is not None else int(mix_u64) & _M64
+
+    def ptr(t):
+        return None if t is None or not t.numel() else t.data_ptr()
+
+    _build.check_launch(_build.library().frieda_transcript(
+        state.data_ptr(), int(mix_u64 is not None), ctypes.c_ulonglong(value), ptr(src), ptr(mix_digest),
+        ptr(mix_felts), 0 if mix_felts is None else mix_felts.shape[0], ptr(alpha), dc.DRAW_BOUND,
+        ptr(words), n_queries, log_domain, _build.stream_of(state)))
+    transcript.launches += 1
+    return alpha, words
+
+
+transcript.launches = 0
+
+
+def grind_plain(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
+    """Plain version of `grind`: `dc_grind`'s sweep (one host test a batch),
+    the nonce as (2,) int32 words (lo, hi) on the state's device."""
+    _check_state(state)
+    nonce = dc.dc_grind(widen(state[:8]), pow_bits)
+    return torch.tensor([nonce], dtype=torch.int64, device=state.device).view(torch.int32)
+
+
+def grind(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
+    """The minimum nonce whose mix into the channel `state` clears pow_bits
+    (0 <= pow_bits <= 60), as (2,) int32 words (lo, hi) on the state's
+    device. One kernel launch, the search on the card, for a CUDA state; the
+    plain version for a CPU state."""
+    if not 0 <= pow_bits <= 60:
+        raise ValueError(f"pow_bits must be in [0, 60], got {pow_bits}")
+    if not state.is_cuda:
+        return grind_plain(state, pow_bits)
+    _check_state(state)
+    best = torch.full((1,), -1, dtype=torch.int64, device=state.device)  # 2^64 - 1
+    _build.check_launch(_build.library().frieda_grind(
+        state.data_ptr(), pow_bits, best.data_ptr(), _build.stream_of(state)))
+    grind.launches += 1
+    return best.view(torch.int32)
+
+
+grind.launches = 0

@@ -42,6 +42,16 @@ def stack_words(datas, log_total: int, pin: bool = False) -> torch.Tensor:
     return host
 
 
+def upload_words(datas, log_total: int, device) -> tuple:
+    """(host buffer, words): `stack_words` of the blobs, page-locked for the
+    card, and its (B, nw) copy on `device`, uploaded without waiting for the
+    device. A page-locked block is not handed out again before its copy has
+    run (PyTorch's caching host allocator records the copy)."""
+    device = torch.device(device)
+    host = stack_words(datas, log_total, pin=device.type == "cuda")
+    return host, host.to(device, non_blocking=True)
+
+
 def pad_to_words(data: bytes, log_total: int) -> np.ndarray:
     """The one-blob `stack_words`, as a numpy uint32 array of
     ceil(30*2^log_total / 32) + 1 words."""

@@ -22,6 +22,7 @@ import sys
 import frieda_tpu_torch, frieda_tpu_torch.api, frieda_tpu_torch.config
 import frieda_tpu_torch.ops, frieda_tpu_torch.ops.fft, frieda_tpu_torch.ops.ingest
 import frieda_tpu_torch.ops.merkle, frieda_tpu_torch.ops._build
+import frieda_tpu_torch.ops.channel, frieda_tpu_torch.ops.fri, frieda_tpu_torch.core.device_channel
 import frieda_tpu_torch.utils.convert, frieda_tpu_torch.core.circle
 import frieda_tpu_torch.core.channel, frieda_tpu_torch.core.grind
 import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
