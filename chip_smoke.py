@@ -11,7 +11,7 @@ Phases, each printed as it runs:
      and the integer instructions of one BLAKE2s compression, of one M31
      butterfly and of one QM31 fold element, counted in the built SASS
      (cuobjdump), for the kernels' bounds;
-  3. each of the eight kernels against its plain PyTorch version on the card,
+  3. each of the nine kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with the
      least time the card could take for the same work (bound) and two times:
      "device" ms, the time of the call's launches alone on the card (CUDA
@@ -44,7 +44,10 @@ Phases, each printed as it runs:
      at C = 256 columns, n = 18, the fused leaf and inner `merkle_level` at
      (64, 4, 2^18) and (64, 8, 2^15), the one-level leaf and inner at
      (3, 4, 2^4) and (3, 8, 2^4), `merkle_collapse` at (64, 8, 4096) -> 1 and
-     (3, 8, 2) -> 1;
+     (3, 8, 2) -> 1; `fft_exchange` at the sharded path's shapes: the
+     blocks of 8 virtual shards at 2^24 felts, log_blowup 2 (stage 2 of a
+     (8, 4, 2^21) block) and log_blowup 1 (stages 1 and 2 of (8, 4, 2^20)),
+     and two separate (1, 1, 4 x 2^21) shards keeping one half each;
   4. `api.commit(data, 4, device="cuda")` on synthetic blobs against anchor
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
@@ -105,6 +108,20 @@ Phases, each printed as it runs:
      under a wrong seed, with the phase 8 proofs (mixed shapes) equal to a
      loop of `api.verify`, and its ms/proof beside the loop's on the 11 of
      one shape (host clock, median of 5).
+
+ 12. the sharded path (`frieda_tpu_torch.parallel`) on virtual shards:
+     meshes whose devices are cuda:0 repeated, so every shard's kernels run on
+     the card. `sharded_commit_root` at 2^24 felts over S = 2, 4, 8, 16 shards
+     (root == phase 5's 2^24 anchor); at log_blowup 2 and 1 over S = 8 (one and
+     two `fft_exchange` stages; root == `api.commit` at that blowup);
+     `sharded_commit_and_prove` at 2^24 felts / 20 queries over S = 8 (bytes
+     == phase 9's proof, verify True, tampered copy False), its commit phase
+     under sync debug mode "error"; `prove_many_sharded` on phase 11's 8 x
+     2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's proofs) and
+     `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
+     Host (enqueue) and device ms of each beside the single-device path's, in
+     turns in this phase, and the launches per kernel: every kernel of the
+     sharded path (all nine) launched in this phase.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON.
@@ -508,6 +525,51 @@ def main() -> int:
         del coeffs, c64, got, tw, src
         torch.cuda.empty_cache()
 
+    # fft_exchange at the sharded path's shapes (phase 12): the blocks of 8
+    # virtual shards of the 2^24-felt commit at log_blowup 2 (stage 2) and 1
+    # (stages 1, 2), and two separate shards keeping one half each
+    def exchange_case(what: str, lo, hi, tw, write=(True, True), timed: bool = False) -> dict:
+        want_lo, want_hi = fft_ops.fft_exchange_plain(widen(lo), widen(hi), widen(tw))
+        new_lo, new_hi = lo.clone(), hi.clone()
+        fft_ops.fft_exchange(new_lo, new_hi, tw, *write)
+        err = max(max_abs_err(new_lo, narrow(want_lo) if write[0] else lo),
+                  max_abs_err(new_hi, narrow(want_hi) if write[1] else hi))
+        check(err == 0, f"fft_exchange {what} differs from plain")
+        pairs = lo.numel()
+        b_ms, b_by = bound(4 * (2 * pairs + sum(write) * pairs + tw.numel()), pairs * bfly_ops)
+        out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+        if timed:
+            l64, h64, t64 = widen(lo), widen(hi), widen(tw)
+            out["ms"] = device_ms(lambda: fft_ops.fft_exchange(new_lo, new_hi, tw, *write), reps=5)
+            out["call_ms"] = cuda_ms(lambda: fft_ops.fft_exchange(new_lo, new_hi, tw, *write))
+            out["plain_ms"] = cuda_ms(lambda: fft_ops.fft_exchange_plain(l64, h64, t64), reps=3)
+            say(f"[3] fft_exchange {what}: bit-equal; device {out['ms']:.4f} ms, call {out['call_ms']:.4f} ms, "
+                f"plain {out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; share {b_ms / out['ms']:.3f})")
+            del l64, h64, t64
+        else:
+            say(f"[3] fft_exchange {what}: bit-equal")
+        return out
+
+    for log_blowup, m in ((2, 21), (1, 20)):
+        block = rand_u32((8, 4, 1 << m), P)
+        for p in range(log_blowup, 3):
+            tw = fft.stage_twiddles(22 + log_blowup, dev)[(1 << p) - 1 : (1 << (p + 1)) - 1]
+            v = block.view(8 >> (p + 1), 2, 1 << p, -1)
+            out = exchange_case(f"stage {p} of an (8, 4, 2^{m}) block (2^24 felts, log_blowup {log_blowup})",
+                                v[:, 0], v[:, 1], tw, timed=log_blowup == 2)
+            if log_blowup == 2:
+                kernels["fft_exchange"] = dict(
+                    source="frieda_tpu_torch/csrc/fft.cu",
+                    replaces="frieda_tpu/parallel/fft_sharded.py:298-309 (XLA after a ppermute; no Pallas kernel)",
+                    **out)
+        del block
+    a, b = rand_u32((1, 1, 4 << 21), P), rand_u32((1, 1, 4 << 21), P)
+    tw1 = rand_u32((1,), P)
+    exchange_case("two separate (1, 1, 4 x 2^21) shards, low half kept", a, b, tw1, (True, False))
+    exchange_case("two separate (1, 1, 4 x 2^21) shards, high half kept", a, b, tw1, (False, True))
+    del a, b
+    torch.cuda.empty_cache()
+
     def level_ops(leaf: bool, fused: bool, width: int) -> int:
         out_w = width // (8 if fused else (1 if leaf else 2))
         return ((width if leaf else 0) + (7 * out_w if fused else (0 if leaf else out_w))) * comp_ops
@@ -873,6 +935,7 @@ def main() -> int:
     commit_counts = ops.launch_counts()
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
     prove_only = {"merkle_open", "fri_fold", "transcript", "grind"}  # a proof's openings and commit phase
+    prove_only |= {"fft_exchange"}  # and the sharded path's exchange stages (phase 12)
     for name, count in commit_counts.items():
         check(count > 0 or name in prove_only, f"kernel {name} was never launched by the commit path")
     lap(5)
@@ -892,8 +955,8 @@ def main() -> int:
     say(f"[6] commit_many 64 x 2^16 felts: every root == a loop of commit, root 0 == the 2^16 anchor; "
         f"launches per commit_many {batch_counts} == one commit's")
     blobs20 = [synthetic_data(felt_bytes(20), k) for k in range(16)]
-    check(api.commit_many(blobs20, LOG_BLOWUP, device=dev) == [api.commit(d, LOG_BLOWUP, device=dev)
-                                                              for d in blobs20],
+    roots20 = api.commit_many(blobs20, LOG_BLOWUP, device=dev)  # phase 12's commit_roots_batch
+    check(roots20 == [api.commit(d, LOG_BLOWUP, device=dev) for d in blobs20],
           "commit_many of 16 x 2^20 felts differs from a loop of commit")
     say("[6] commit_many 16 x 2^20 felts: every root == a loop of commit")
     for sizes, log_blowup, expect in COMMIT_MANY_ANCHORS:
@@ -1048,6 +1111,7 @@ def main() -> int:
             f"copy False, seed {wrong} False")
 
     # -- 9. the staged prove at full width ------------------------------------
+    staged_wires = {}
     for log_felts, nq in ((20, 64), (24, 20)):
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
@@ -1055,6 +1119,7 @@ def main() -> int:
         words = from_numpy_u32(pad_to_words(data, log_total), dev)
         _, warm = api.commit_and_prove_staged(words, log_total, 7, cfg)  # warm-up: tables, caches
         wire = warm.to_bytes()
+        staged_wires[log_felts] = wire  # phase 12's sharded proof
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = ops.launch_counts()
@@ -1157,7 +1222,7 @@ def main() -> int:
     say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}")
     for path, counts, unused in (("commit_many (6)", batch_counts, prove_only),
                                  ("commit_with_tree (7)", tree_counts, prove_only | {"merkle_collapse"}),
-                                 ("prove (8-9)", prove_counts, set())):
+                                 ("prove (8-9)", prove_counts, {"fft_exchange"})):
         for name, count in counts.items():
             check(count > 0 or name in unused, f"kernel {name} was never launched by the {path} path")
     say(f"[10] every kernel of each path launched: commit_many {batch_counts}, commit_with_tree "
@@ -1180,7 +1245,7 @@ def main() -> int:
     many_counts = ops.launch_counts()
     many_peak = torch.cuda.max_memory_allocated(dev)
     for name, count in many_counts.items():
-        check(count > 0, f"kernel {name} was never launched by prove_many")
+        check(count > 0 or name == "fft_exchange", f"kernel {name} was never launched by prove_many")
     walls = {"loop": [], "prove_many": []}
     for kind in ("loop", "prove_many", "prove_many", "loop"):  # in turns
         torch.cuda.synchronize()
@@ -1230,15 +1295,21 @@ def main() -> int:
         f"{len({(len(p.proof.inner_layers), p.log_size_bound) for p in mixed})} shapes {want}; "
         f"on the 11 of one shape (8 valid, 2 tampered, 1 wrong seed; host): verify_many {many_ms:.3f} "
         f"ms/proof, looped verify {loop_ms:.3f} ms/proof (median of 5)")
+    many_out = [(com, p.to_bytes()) for com, p in batch]  # phase 12's prove_many_sharded
     del batch, proofs, mixed
-    say(f"[11] whole run {time.perf_counter() - t_start:.1f} s")
+    lap(11)
+
+    # -- 12. the sharded path on virtual shards of cuda:0 ---------------------
+    sharded_counts = sharded_phase(dev, results[24]["root"], staged_wires[24], many_out, roots20, datas, seeds)
+    del many_out, roots20
+    say(f"[12] whole run {time.perf_counter() - t_start:.1f} s")
 
     say(smi)
     check(set(kernels) == set(ops.kernel_wrappers()), f"kernels measured {sorted(kernels)}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts,
-                                            many_counts)),
+                                            many_counts, sharded_counts)),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "ms_is": "device time: CUDA events around a replayed CUDA graph of the calls, per call",
          "call_ms": k["call_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1249,6 +1320,208 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: list, datas: list,
+                  seeds: list) -> dict:
+    """Phase 12: the sharded path (`frieda_tpu_torch.parallel`) over meshes of
+    virtual shards of one card (devices: `dev` repeated), each result held
+    against the single-device path's, with the host and device ms of both;
+    returns the kernel launches of the phase."""
+    import torch
+
+    from frieda_tpu_torch import api, ops
+    from frieda_tpu_torch.config import FriConfig, PcsConfig
+    from frieda_tpu_torch.core import fft, fri, merkle
+    from frieda_tpu_torch.ops import ingest as ingest_ops
+    from frieda_tpu_torch.parallel import sharding
+    from frieda_tpu_torch.utils.convert import from_numpy_u32
+    from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
+
+    sharded_counts = dict.fromkeys(ops.kernel_wrappers(), 0)  # the sharded calls' launches, summed
+
+    def launched(fn) -> tuple:
+        """(fn(), {kernel: launches} of that call): every count set to 0 just
+        before the call and read just after; added to `sharded_counts`."""
+        ops.reset_launch_counts()
+        out = fn()
+        used = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, v in used.items():
+            sharded_counts[k] += v
+        return out, used
+
+    def launched_all_but_exchange(used: dict, what: str) -> None:
+        missing = [k for k in ops.kernel_wrappers() if k != "fft_exchange" and not used.get(k)]
+        check(not missing and not used.get("fft_exchange"), f"{what}: launches {used}; not launched: {missing}")
+
+    def enqueue_and_device(fn, strict: bool = False) -> tuple:
+        """(host ms to enqueue fn, device ms from before its first launch to
+        after its last (CUDA events), fn()); with `strict`, fn runs under
+        sync debug mode "error" (a synchronization raises)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        return host, start.elapsed_time(end), out
+
+    def mesh_of(n_data: int, n_elem: int):
+        return sharding.make_mesh(n_data, n_elem, devices=[dev] * (n_data * n_elem))
+
+    ops.reset_launch_counts()
+    data = synthetic_data(felt_bytes(24))
+    log_total = log_total_for(len(data))
+    words = from_numpy_u32(pad_to_words(data, log_total), dev)
+    coeffs = ingest_ops.ingest(words, log_total - 2)
+    mesh8 = mesh_of(1, 8)
+    for log_blowup, sizes in ((LOG_BLOWUP, (2, 4, 8, 16)), (2, (8,)), (1, (8,))):
+        n = log_total - 2 + log_blowup
+        tw = fft.stage_twiddles(n, dev)
+        want = anchor24 if log_blowup == LOG_BLOWUP else api.commit(data, log_blowup, device=dev).hex()
+        single = lambda: merkle.root_level(fft.evaluate_auto(coeffs, tw))  # noqa: B023, E731
+        one_dev, one_call = device_ms(single, reps=3), cuda_ms(single)
+        one_host = enqueue_and_device(single)[0]
+        for S in sizes:
+            mesh = mesh8 if S == 8 else mesh_of(1, S)
+            t0 = time.perf_counter()
+            root_words, used = launched(lambda: sharding.sharded_commit_root(coeffs, n, mesh))  # noqa: B023
+            root = merkle.root_bytes(root_words.reshape(8, 1)).hex()
+            first = time.perf_counter() - t0
+            check(root == want, f"sharded_commit_root 2^24 felts, log_blowup {log_blowup}, S = {S}: {root} != "
+                  f"the single-device root {want}")
+            exchanges = max(0, S.bit_length() - 1 - log_blowup)
+            check(used.get("fft_exchange", 0) == exchanges and used.get("fft_pass", 0) == 2 * S,
+                  f"sharded_commit_root S = {S}, log_blowup {log_blowup}: launches {used}")
+            fn = lambda: sharding.sharded_commit_root(coeffs, n, mesh)  # noqa: B023, E731
+            dev_ms, call = device_ms(fn, reps=3), cuda_ms(fn)
+            host = enqueue_and_device(fn)[0]
+            say(f"[12] sharded_commit_root 2^24 felts (domain 2^{n}, log_blowup {log_blowup}) over S = {S} "
+                f"virtual shards: root == {'phase 5 anchor' if log_blowup == LOG_BLOWUP else 'api.commit'}; "
+                f"device {dev_ms:.4f} ms (graph replay), call {call:.4f} ms, host enqueue {host:.4f} ms; "
+                f"single device (LDE + tree from the same coefficients): device {one_dev:.4f}, call "
+                f"{one_call:.4f}, host enqueue {one_host:.4f} ms; launches {used}; first call (shard tables "
+                f"built) {first:.3f} s")
+        del tw
+        torch.cuda.empty_cache()
+
+    # the 2^24-felt / 20-query proof over 8 shards, against phase 9's
+    cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 20))
+    t0 = time.perf_counter()
+    (com, proof), used = launched(lambda: sharding.sharded_commit_and_prove(data, 7, cfg, mesh8))
+    first = time.perf_counter() - t0
+    check(com.hex() == anchor24 and proof.to_bytes() == wire24,
+          "sharded_commit_and_prove 2^24 felts / 20 queries over S = 8: bytes != phase 9's proof")
+    check(api.verify(proof, 7), "sharded 2^24-felt proof: verify is False")
+    check(not api.verify(tampered(proof), 7), "sharded 2^24-felt proof: a tampered copy verifies")
+    # the 2^(log_size + 4) domain folds down to 2^4 (last-layer bound 2^0): log_size folds, each of a
+    # layer at least 2S = 16 wide, so one fri_fold launch a shard a fold
+    folds = log_total - 2
+    launched_all_but_exchange(used, "sharded_commit_and_prove 2^24 felts over S = 8")
+    check(used["fri_fold"] == 8 * folds and used["transcript"] == folds + 3 and used["grind"] == 1
+          and used["merkle_open"] == 1 and used["ingest"] == 1,
+          f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {8 * folds}, "
+          f"transcript {folds + 3}, grind, merkle_open and ingest 1")
+    again = fri.finish_proof(fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0), log_total, cfg)[1]
+    check(again.to_bytes() == wire24, "sharded staged proof differs from phase 9's")
+    host, dev_ms, committed = enqueue_and_device(
+        lambda: fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0), strict=True)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            committed.fetch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    check(syncs == 1, f"sharded commit phase: {syncs} synchronizing operations in its fetch")
+    check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire24,
+          "sharded proof after the sync-free commit phase differs")
+    say(f"[12] sharded_commit_and_prove 2^24 felts / 20 queries / pow 20 over S = 8: commitment and wire "
+        f"bytes == phase 9's proof; verify True, tampered copy False (first call with the shard tables "
+        f"{first:.3f} s); commit phase under sync debug mode 'error': no synchronization (host enqueue "
+        f"{host:.3f} ms, device {dev_ms:.3f} ms), then {syncs} synchronizing fetch; launches per proof {used}")
+    del committed
+    rows = {"single": [], "sharded": []}
+    commit = {"single": lambda: fri.commit_phase(words, log_total, 7, cfg),
+              "sharded": lambda: fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0)}
+    for kind in ("single", "sharded", "sharded", "single"):  # in turns
+        t0 = time.perf_counter()
+        host, dev_ms, committed = enqueue_and_device(commit[kind])
+        wire = fri.finish_proof(committed, log_total, cfg)[1].to_bytes()
+        rows[kind].append((host, dev_ms, (time.perf_counter() - t0) * 1e3))
+        check(wire == wire24, f"{kind} staged proof differs from phase 9's")
+        del committed
+    for kind, runs in rows.items():
+        say(f"[12]   2^24-felt / 20-query staged proof, {kind}: commit phase host enqueue ms "
+            f"{[round(r[0], 3) for r in runs]}, device ms {[round(r[1], 3) for r in runs]}; whole prove "
+            f"(commit phase synchronized, then the decommitment) ms {[round(r[2], 3) for r in runs]}")
+    del words, coeffs, mesh8  # the mesh keeps its shard tables
+    torch.cuda.empty_cache()
+
+    # prove_many_sharded and commit_roots_batch over a (2, 4) mesh
+    mesh24 = mesh_of(2, 4)
+    cfg64 = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
+    out, used = launched(lambda: sharding.prove_many_sharded(datas, seeds, cfg64, mesh24))
+    check([(c, p.to_bytes()) for c, p in out] == many_out, "prove_many_sharded 8 x 2^20 felts over (2, 4) "
+          "differs from phase 11's proofs")
+    check(all(api.verify(p, s) for (_, p), s in zip(out, seeds)), "a prove_many_sharded proof does not verify")
+    check(not api.verify(tampered(out[0][1]), seeds[0]), "a tampered prove_many_sharded proof verifies")
+    folds = log_total_for(len(datas[0])) - 2  # as above: one fri_fold a shard a fold, 4 shards a blob
+    launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
+    check(used["fri_fold"] == len(datas) * 4 * folds and used["grind"] == len(datas)
+          and used["merkle_open"] == len(datas),
+          f"prove_many_sharded: launches {used}, want fri_fold {len(datas) * 4 * folds}, grind and "
+          f"merkle_open {len(datas)}")
+    blobs = [synthetic_data(felt_bytes(20), k) for k in range(16)]
+    roots, used_roots = launched(lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24))
+    check(roots == roots20, "commit_roots_batch 16 x 2^20 felts over (2, 4) differs from api.commit_many")
+    check(all(used_roots.get(k) for k in ("ingest", "fft_pass", "merkle_level", "merkle_collapse")),
+          f"commit_roots_batch: launches {used_roots}")
+    walls = {k: [] for k in ("prove_many", "prove_many_sharded", "commit_many", "commit_roots_batch")}
+    calls = {"prove_many": lambda: api.prove_many(datas, seeds, cfg64, device=dev),
+             "prove_many_sharded": lambda: sharding.prove_many_sharded(datas, seeds, cfg64, mesh24),
+             "commit_many": lambda: api.commit_many(blobs, LOG_BLOWUP, device=dev),
+             "commit_roots_batch": lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24)}
+    for one, sharded in (("prove_many", "prove_many_sharded"), ("commit_many", "commit_roots_batch")):
+        for kind in (one, sharded, sharded, one):  # in turns
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[kind]()
+            walls[kind].append(round((time.perf_counter() - t0) * 1e3, 3))
+    busy = {}  # kind: (device busy ms, idle share) over one profiled call
+    for kind, fn in calls.items():
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us, records = device_busy_us(prof)
+        check(records > 0 and busy_us < wall_us, f"profile of {kind}: {records} records, busy {busy_us:.0f} "
+              f"us of {wall_us:.0f} us")
+        busy[kind] = f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}"
+    say(f"[12] prove_many_sharded 8 x 2^20 felts / 64 queries over a (2, 4) mesh: every commitment and wire "
+        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used}; walls in "
+        f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']}; one "
+        f"profiled call each: prove_many {busy['prove_many']}, prove_many_sharded {busy['prove_many_sharded']}")
+    say(f"[12] commit_roots_batch 16 x 2^20 felts over a (2, 4) mesh: every root == api.commit_many's; "
+        f"launches {used_roots}; walls in turns, ms: commit_many {walls['commit_many']}, commit_roots_batch "
+        f"{walls['commit_roots_batch']}; one profiled call each: commit_many {busy['commit_many']}, "
+        f"commit_roots_batch {busy['commit_roots_batch']}")
+    for name, count in sharded_counts.items():
+        check(count > 0, f"kernel {name} was never launched by the sharded calls (phase 12)")
+    say(f"[12] kernel launches of phase 12's sharded calls (the first call of each; every kernel > 0): "
+        f"{sharded_counts}")
+    return sharded_counts
 
 
 def wire_note(proof) -> str:

@@ -98,13 +98,19 @@ def evaluate(coeffs_rev: torch.Tensor, twiddles: torch.Tensor) -> torch.Tensor:
     return run_stages(dilate(coeffs_rev, p_min), twiddles, p_min, n)
 
 
-def evaluate_auto(coeffs_rev: torch.Tensor, twiddles: torch.Tensor) -> torch.Tensor:
+def evaluate_auto(coeffs_rev: torch.Tensor, twiddles: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """`evaluate` on int32 (u32 bits) tensors, run as the stage groups of
     `ops.fft.pass_plan`: the first group reads the undilated coefficients,
     the rest update the output in place. On a CUDA tensor every group is one
     `fft_pass` kernel launch; on a CPU tensor each group runs its plain
     version. A batch (B, 4, 2^log_l) -> (B, 4, 2^n) runs as the 4B columns
-    of one (4B, 2^log_l) array (`commit_many`): the same launches."""
+    of one (4B, 2^log_l) array (`commit_many`): the same launches.
+
+    `twiddles` may be any table of the `stage_twiddles` shape: a shard of
+    an element-sharded transform passes its own (`parallel/fft_sharded.py`).
+    `out`, a contiguous (C, 2^n) int32 tensor, receives the evaluations (it
+    may be `coeffs_rev` itself when log_l == n)."""
     from ..ops import fft as fft_ops
 
     n = twiddles_log_size(twiddles)
@@ -112,7 +118,8 @@ def evaluate_auto(coeffs_rev: torch.Tensor, twiddles: torch.Tensor) -> torch.Ten
         flat = evaluate_auto(coeffs_rev.reshape(-1, coeffs_rev.shape[-1]), twiddles)
         return flat.view(*coeffs_rev.shape[:2], flat.shape[-1])
     p_min, groups = fft_ops.pass_plan(n, _log_len(coeffs_rev, n))
-    out = torch.empty((coeffs_rev.shape[0], 1 << n), dtype=torch.int32, device=coeffs_rev.device)
+    if out is None:
+        out = torch.empty((coeffs_rev.shape[0], 1 << n), dtype=torch.int32, device=coeffs_rev.device)
     src, shift = coeffs_rev, p_min
     for p_lo, p_hi, col_log in groups:
         fft_ops.fft_pass(src, twiddles, out, p_lo, p_hi, col_log, shift)

@@ -111,6 +111,21 @@ def fold_tables(n: int, device):
     return _fold_tables[key]
 
 
+def block_fold_tables(mesh, n: int, e0: int, k: int, device) -> list:
+    """[inv_t]: the fold tables of shards e0 .. e0 + k - 1 of the domain of
+    log size n on the mesh's S shards, inv_0 = ys_inv and inv_t =
+    xs_layers_inv[t - 1], for every layer t at least 2S wide (those that fold
+    on their shards, `commit_phase_sharded`): (k, len / S) int32 tensors on
+    `device` whose row i is inv_t[e0 + i :: S], cut on the device out of the
+    cached `fold_tables` and kept by the mesh."""
+    def build():
+        ys_inv, xs_invs = fold_tables(n, device)
+        S = mesh.n_elem
+        return [t.view(-1, S)[:, e0 : e0 + k].T.contiguous() for t in [ys_inv, *xs_invs] if t.numel() >= S]
+
+    return mesh.cached(("fold_tables", n, e0, k, str(torch.device(device))), build)
+
+
 def _alpha(alpha, device) -> torch.Tensor:
     """alpha as the (4,) int32 tensor the fold takes: a tensor as it is, a
     QM31 tuple of ints or 0-d tensors stacked."""
@@ -249,9 +264,11 @@ class Committed:
     keep it; `staging` holds the host buffer the words were uploaded from
     until then."""
 
+    opening_cls = Opening  # the decommitment's reads (`merkle.ShardedOpening` for a sharded commit phase)
+
     def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int):
-        self.layers = layers  # (4, N_t) int32 evaluations of each FRI layer, on the device
-        self.trees = trees  # their pruned trees
+        self.layers = layers  # (4, N_t) int32 evaluations of each FRI layer, on the device (or `Sharded`)
+        self.trees = trees  # their pruned trees (or `merkle.ShardedTree`)
         self.packed = packed
         self.bound = bound  # coefficients of the last layer
         self.n_queries = n_queries
@@ -309,6 +326,21 @@ class Committed:
         return self._host[4]
 
 
+def _layer_sizes(log_total: int, pcs_config: PcsConfig) -> tuple:
+    """(log_size, n, n_inner) of a proof: the coefficients' and the domain's
+    log sizes and the line folds before the last layer; ValueError when the
+    last layer's degree bound leaves none."""
+    fri_cfg = pcs_config.fri_config
+    log_size = log_total - 2
+    n = log_size + fri_cfg.log_blowup_factor
+    n_inner = n - 1 - fri_cfg.log_last_layer_degree_bound - fri_cfg.log_blowup_factor
+    if n_inner < 0:
+        raise ValueError(
+            f"config unsatisfiable: log_last_layer_degree_bound "
+            f"{fri_cfg.log_last_layer_degree_bound} >= poly log size {log_size}")
+    return log_size, n, n_inner
+
+
 def commit_phase(words: torch.Tensor, log_total: int, seed,
                  pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                  clock: _Clock | None = None) -> Committed:
@@ -321,15 +353,7 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
     On the kernel route the folds go through this module's `fold_c` and
     `fold_l` (a caller may replace them); another route's `fold` is called
     as it is."""
-    fri_cfg = pcs_config.fri_config
-    log_size = log_total - 2
-    n = log_size + fri_cfg.log_blowup_factor
-    last_log = fri_cfg.log_last_layer_degree_bound + fri_cfg.log_blowup_factor
-    n_inner = n - 1 - last_log
-    if n_inner < 0:
-        raise ValueError(
-            f"config unsatisfiable: log_last_layer_degree_bound "
-            f"{fri_cfg.log_last_layer_degree_bound} >= poly log size {log_size}")
+    log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
     device = words.device
     clock = clock or _Clock(device, None)
     circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
@@ -358,6 +382,14 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
         alpha = commit_layer(g)
         with clock("folds"):
             g = line_fold(g, alpha, xs_invs[l])
+    return _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock)
+
+
+def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock) -> Committed:
+    """The end of a commit phase after the last fold: the last layer's
+    coefficients and degree check, its transcript step, the grind and the
+    query draws, and the transcript's outputs packed for the one fetch."""
+    fri_cfg = pcs_config.fri_config
     bound = 1 << fri_cfg.log_last_layer_degree_bound
     with clock("folds"):
         coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (2^last_log, 4) int64
@@ -374,11 +406,72 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
     return Committed(layers, trees, packed, bound, fri_cfg.n_queries)
 
 
-def plan_openings(layers: list, trees: list, queries) -> tuple:
+def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig,
+                         mesh, row: int) -> Committed:
+    """`commit_phase` over the `elem` axis of mesh row `row` (this process's
+    shards of it; `parallel/mesh.py`), the counterpart of `_fri_commit_fn`
+    with a mesh (`frieda_tpu/core/fri.py:182-205`); the same roots, transcript
+    and outputs as on one device. `words` lie on the row's home device.
+
+    Layers at least 2S wide stay element-sharded in the cyclic layout: the
+    extension runs per shard (`parallel/fft_sharded.sharded_evaluate`), each
+    shard builds its pruned tree over its part (`merkle.build_sharded_tree`:
+    a block of shards on one device in the launches of one tree, then the
+    gathered subtree roots hashed to the root), and folds its part with
+    `fri_fold` and its slice of the fold table (`block_fold_tables`). A layer
+    narrower than 2S is gathered onto the home device and continues there,
+    as on one device, and so does the last layer. The transcript and the
+    grind run on the home device: one channel state for the in-process
+    carrier, and one in each process of a process-group mesh, each the same
+    (the JAX package's replicated channel). On one device nothing here waits
+    for the device. The layers of the returned `Committed` are `Sharded` or
+    tensors, its trees `ShardedTree` or `PrunedTree`, and its
+    decommitment runs through `merkle.ShardedOpening`."""
+    from ..parallel.fft_sharded import sharded_evaluate
+    from ..parallel.mesh import Sharded, new_sharded
+    from .merkle import ShardedOpening, build_sharded_tree
+
+    log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
+    home, S = mesh.home(row), mesh.n_elem
+    state = channel_ops.new_state(home)
+    if seed is not None:
+        channel_ops.transcript(state, mix_u64=int(seed))
+    coeffs = ingest_ops.ingest(words, log_size)
+    ys_inv, xs_invs = fold_tables(n, home)
+    if 1 << n >= 2 * S:
+        g = sharded_evaluate(coeffs, n, mesh, row)
+    else:
+        g = fft.evaluate_auto(coeffs, fft.stage_twiddles(n, home))
+    layers, trees = [], []
+    for t in range(n_inner + 1):
+        tree = build_sharded_tree(g) if isinstance(g, Sharded) else build_pruned(g)
+        alpha, _ = channel_ops.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
+        layers.append(g)
+        trees.append(tree)
+        if not isinstance(g, Sharded):
+            g = fri_ops.fri_fold(g, alpha, ys_inv if t == 0 else xs_invs[t - 1])
+            continue
+        out = new_sharded(mesh, row, (4, g.blocks[0][1].shape[-1] // 2))
+        for (e0, src), (_, dst) in zip(g.blocks, out.blocks):
+            a = alpha.to(src.device)
+            inv = block_fold_tables(mesh, n, e0, src.shape[0], src.device)[t]
+            for i in range(src.shape[0]):
+                fri_ops.fri_fold(src[i], a, inv[i], out=dst[i])
+        g = out if out.width >= 2 * S else out.gather()
+    if isinstance(g, Sharded):
+        g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
+    committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
+                                  _Clock(home, None))
+    committed.opening_cls = ShardedOpening
+    return committed
+
+
+def plan_openings(layers: list, trees: list, queries, opening_cls=Opening) -> tuple:
     """(opening, slice of the evaluations, [(slice of the FRI witness, [slices
     of the Merkle witness per level]) per layer]): every value and node a
-    proof reveals, registered on one `Opening`."""
-    opening = Opening(layers, trees)
+    proof reveals, registered on one `Opening` (or `opening_cls`: the
+    sharded commit phase's `merkle.ShardedOpening`)."""
+    opening = opening_cls(layers, trees)
     eval_sl = opening.values(0, np.array(queries, np.int64))
     plan = []
     pos = list(queries)
@@ -404,7 +497,7 @@ def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = D
     with clock("transcript"):
         c.fetch()
     with clock("decommit_plan"):
-        opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries)
+        opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
     with clock("decommit_open"):
         vals, nodes = opening.run(route.open)
     with clock("decommit_assemble"):

@@ -216,6 +216,38 @@ class PrunedTree:
         return self.level(self.log_leaves)
 
 
+def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn) -> list:
+    """[(level k, (..., 8, m) nodes)]: the stored levels of `build_pruned`
+    over (4, N) columns, or over a batch (B, 4, N), one tree a blob."""
+    from ..ops import merkle as merkle_ops
+
+    n = columns.shape[-1]
+    fused = n >= 8
+    level = level_fn(columns, True, fused)
+    lev = 3 if fused else 0
+    stored = [(lev, level)]
+    while level.shape[-1] > merkle_ops.COLLAPSE_MAX:
+        level = level_fn(level, False, True)
+        lev += 3
+        stored.append((lev, level))
+    m = level.shape[-1]
+    if m > 1:
+        widths = tail_widths(m)
+        for w, arr in zip(widths, collapse_fn(level, widths)):
+            stored.append((lev + (m // w).bit_length() - 1, arr))
+    return stored
+
+
+def _flatten(stored: list) -> tuple:
+    """(flat, offsets) of stored levels: (..., total) int32, level k's (8, m)
+    block at offsets[k] = (offset, m) of each blob's row."""
+    offsets, off = {}, 0
+    for k, arr in stored:
+        offsets[k] = (off, arr.shape[-1])
+        off += 8 * arr.shape[-1]
+    return torch.cat([arr.reshape(*arr.shape[:-2], -1) for _, arr in stored], dim=-1), offsets
+
+
 def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> PrunedTree:
     """Pruned tree over (4, N) int32 natural-order columns, N a power of two.
 
@@ -233,28 +265,23 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> Prun
     prover passes its own so that one pipeline can run either route."""
     from ..ops import merkle as merkle_ops
 
-    level_fn = level_fn or merkle_ops.merkle_level
-    collapse_fn = collapse_fn or merkle_ops.merkle_collapse
-    n = columns.shape[1]
-    fused = n >= 8
-    level = level_fn(columns, True, fused)
-    lev = 3 if fused else 0
-    stored = [(lev, level)]
-    while level.shape[1] > merkle_ops.COLLAPSE_MAX:
-        level = level_fn(level, False, True)
-        lev += 3
-        stored.append((lev, level))
-    m = level.shape[1]
-    if m > 1:
-        widths = tail_widths(m)
-        for w, arr in zip(widths, collapse_fn(level, widths)):
-            stored.append((lev + (m // w).bit_length() - 1, arr))
-    offsets, off = {}, 0
-    for k, arr in stored:
-        offsets[k] = (off, arr.shape[1])
-        off += arr.numel()
-    flat = torch.cat([arr.reshape(-1) for _, arr in stored])
-    return PrunedTree(n.bit_length() - 1, flat, offsets)
+    stored = _pruned_levels(columns, level_fn or merkle_ops.merkle_level,
+                            collapse_fn or merkle_ops.merkle_collapse)
+    flat, offsets = _flatten(stored)
+    return PrunedTree(columns.shape[1].bit_length() - 1, flat, offsets)
+
+
+def build_pruned_many(columns: torch.Tensor) -> tuple:
+    """(trees, roots): the `build_pruned` trees of a batch (B, 4, N) of
+    column sets, in the launches of one tree (the kernels' blob axis), each
+    tree's `flat` a row of one (B, total) tensor; roots: (B, 8) root words."""
+    from ..ops import merkle as merkle_ops
+
+    stored = _pruned_levels(columns, merkle_ops.merkle_level, merkle_ops.merkle_collapse)
+    flat, offsets = _flatten(stored)
+    log_leaves = columns.shape[-1].bit_length() - 1
+    off = offsets[log_leaves][0]
+    return [PrunedTree(log_leaves, row, offsets) for row in flat], flat[:, off : off + 8]
 
 
 class Opening:
@@ -309,6 +336,185 @@ class Opening:
         self.open_calls += 1
         n_val = 4 * len(values)
         return out[:n_val].reshape(4, -1), out[n_val:].reshape(8, -1)
+
+
+# ---------------------------------------------------------------------------
+# Trees and openings over an element-sharded layer (`parallel/`)
+# ---------------------------------------------------------------------------
+
+def _subroot_level(x, subroots: dict) -> torch.Tensor:
+    """(8, S) natural-order level of the S shards' subtree roots of a
+    `parallel.mesh.Sharded` layer, on its home device (one gather)."""
+    pieces = x.mesh.all_gather(x.row, subroots, [8] * x.mesh.n_elem)
+    return torch.stack(pieces, dim=1)
+
+
+def sharded_root_level(x) -> torch.Tensor:
+    """(8, 1) root node of the tree over a `parallel.mesh.Sharded` (4, M)
+    layer, M >= S: each block of shards runs `root_level` (the kernels'
+    blob axis: the launches of one tree), whose root is node s of the whole
+    tree's level of width S (natural pairs j, j + M/2 stay on a shard); the
+    S subtree roots are gathered and collapsed to the root in one launch."""
+    from ..ops import merkle as merkle_ops
+
+    subroots = {}
+    for e0, block in x.blocks:
+        roots = root_level(block)
+        subroots.update({e0 + i: roots[i] for i in range(roots.shape[0])})
+    level = _subroot_level(x, subroots)
+    return level if level.shape[1] == 1 else merkle_ops.merkle_collapse(level)[0]
+
+
+@dataclass
+class ShardedTree:
+    """The pruned tree over a `parallel.mesh.Sharded` (4, 2^log_leaves)
+    layer: `shards[s]`, each local shard's `build_pruned` tree over its part,
+    whose stored levels are the whole tree's from the leaves up to width S;
+    `top`, every level from the S subtree roots (level log_leaves - log2 S,
+    node s from shard s) to the root, all stored (None for S = 1); `root`,
+    the (8, 1) root node."""
+
+    log_leaves: int
+    shards: dict
+    top: PrunedTree | None
+    root: torch.Tensor
+
+
+def build_sharded_tree(x) -> ShardedTree:
+    """`ShardedTree` of a `parallel.mesh.Sharded` layer of at least 2S
+    columns: `build_pruned_many` a block of shards, one gather of the
+    subtree roots, and one `merkle_collapse` writing every level of the top."""
+    from ..ops import merkle as merkle_ops
+
+    shards, subroots = {}, {}
+    for e0, block in x.blocks:
+        trees, roots = build_pruned_many(block)
+        for i, tree in enumerate(trees):
+            shards[e0 + i] = tree
+            subroots[e0 + i] = roots[i]
+    level = _subroot_level(x, subroots)
+    log_leaves = x.width.bit_length() - 1
+    S = level.shape[1]
+    if S == 1:
+        return ShardedTree(log_leaves, shards, None, level)
+    widths = tuple(S >> k for k in range(1, S.bit_length()))
+    outs = merkle_ops.merkle_collapse(level, widths)
+    flat, offsets = _flatten([(0, level)] + [(k + 1, o) for k, o in enumerate(outs)])
+    return ShardedTree(log_leaves, shards, PrunedTree(S.bit_length() - 1, flat, offsets), outs[-1])
+
+
+class ShardedOpening(Opening):
+    """`Opening` over layers that are either `parallel.mesh.Sharded` (trees
+    `ShardedTree`) or replicated (4, N_t) tensors (trees `PrunedTree`), all
+    of one mesh row. Reads are registered by global stored index, as on one
+    device; `run` maps each to an entry of the `merkle_open` table:
+
+      * a value, or a node of a level at least S wide, of a sharded layer:
+        natural j = bitrev(i), shard s = j mod S, local stored index
+        bitrev(j // S) at the same level of shard s's tree. A missing level k
+        is rebuilt from level 3 * (k // 3) of the same shard (descendants of a
+        node stay on its shard);
+      * a node of a level narrower than S: the top tree, whose levels are all
+        stored (its column tensor is a (4, S) zero placeholder, never read);
+      * a read of a replicated layer: its tree, as on one device.
+
+    Every (layer, shard) is its own table entry: one launch for each device
+    that holds an entry. In a process-group mesh each process opens its own
+    shards and the replicated entries, and the shards' answers are gathered
+    over the row (`Mesh.all_gather`)."""
+
+    def __init__(self, columns: list, trees: list):
+        from ..parallel.mesh import Sharded
+
+        super().__init__(columns, trees)
+        sharded = [x for x in columns if isinstance(x, Sharded)]
+        self.mesh, self.row = (sharded[0].mesh, sharded[0].row) if sharded else (None, None)
+        self.slots = (self.mesh.n_elem if self.mesh else 1) + 2  # an entry's code: t * slots + slot
+        self.top, self.rep = self.slots - 2, self.slots - 1  # the slots past the shards'
+
+    def _locate(self, t: int, k: np.ndarray, s: np.ndarray) -> tuple:
+        """(slots, local levels, local stored indices) of reads (t, k, s):
+        slot e for shard e of a sharded layer, `self.top` for its top tree,
+        `self.rep` for a replicated layer."""
+        from .circle import bitrev_array
+
+        tree = self.trees[t]
+        if not isinstance(tree, ShardedTree):
+            return np.full_like(s, self.rep), k, s
+        L, log_s = tree.log_leaves, self.mesh.log_elem
+        in_top = L - k < log_s
+        j, local = np.zeros_like(s), np.zeros_like(s)
+        for bits in np.unique(L - k[~in_top]):
+            sel = ~in_top & (L - k == bits)
+            j[sel] = bitrev_array(s[sel], int(bits))
+            local[sel] = bitrev_array(j[sel] >> log_s, int(bits) - log_s)
+        slot = np.where(in_top, self.top, j & ((1 << log_s) - 1))
+        return slot, np.where(in_top, k - (L - log_s), k), np.where(in_top, s, local)
+
+    def _held(self, slot: int) -> bool:
+        return slot >= self.top or self.mesh.is_local(self.row, slot)
+
+    def _entry(self, code: int) -> tuple:
+        """(device, columns, tree) of an entry."""
+        t, slot = divmod(code, self.slots)
+        if slot == self.rep:
+            return self.columns[t].device, self.columns[t], self.trees[t]
+        if slot == self.top:
+            home = self.mesh.home(self.row)
+            return home, torch.zeros((4, self.mesh.n_elem), dtype=torch.int32, device=home), self.trees[t].top
+        return self.mesh.device(self.row, slot), self.columns[t].part(slot), self.trees[t].shards[slot]
+
+    def run(self, open_fn=None):
+        """-> (values (4, V), nodes (8, R)) uint32 numpy arrays, in
+        registration order: one call of `open_fn` (`ops.merkle.merkle_open`)
+        a device, over the entries this process holds, one fetch a device."""
+        from ..ops import merkle as merkle_ops
+        from ..utils.convert import to_numpy_u32
+
+        values, nodes = self.jobs()
+        reads = {}  # kind: (entry codes, local levels, local stored indices), registration order
+        for kind, (t, k, s) in (("v", (values[:, 0], 0 * values[:, 0], values[:, 1])), ("n", nodes.T)):
+            code, lk, ls = np.empty_like(s), np.empty_like(s), np.empty_like(s)
+            for layer in np.unique(t):
+                sel = t == layer
+                slot, lk[sel], ls[sel] = self._locate(int(layer), k[sel], s[sel])
+                code[sel] = layer * self.slots + slot
+            reads[kind] = (code, lk, ls)
+        entries = {int(c): self._entry(int(c)) for c in np.unique(np.concatenate([reads["v"][0], reads["n"][0]]))
+                   if self._held(int(c) % self.slots)}
+        out = {"v": np.zeros((4, len(values)), np.uint32), "n": np.zeros((8, len(nodes)), np.uint32)}
+        for dev in dict.fromkeys(dev for dev, _, _ in entries.values()):
+            codes = np.array([c for c, e in entries.items() if e[0] == dev], np.int64)  # ascending
+            sel = {kind: np.isin(reads[kind][0], codes) for kind in reads}
+            idx = {kind: np.searchsorted(codes, reads[kind][0][sel[kind]]) for kind in reads}
+            got = to_numpy_u32((open_fn or merkle_ops.merkle_open)(
+                [entries[c][1] for c in codes.tolist()], [entries[c][2] for c in codes.tolist()],
+                np.stack([idx["v"], reads["v"][2][sel["v"]]], 1),
+                np.stack([idx["n"], reads["n"][1][sel["n"]], reads["n"][2][sel["n"]]], 1)))
+            self.open_calls += 1
+            cut = 4 * int(sel["v"].sum())
+            out["v"][:, sel["v"]] = got[:cut].reshape(4, -1)
+            out["n"][:, sel["n"]] = got[cut:].reshape(8, -1)
+        if self.mesh is not None and self.mesh.group is not None:
+            self._gather_remote({kind: reads[kind][0] % self.slots for kind in reads}, out)
+        return out["v"], out["n"]
+
+    def _gather_remote(self, slots: dict, out: dict) -> None:
+        """Fill the reads of other processes' shards: each shard's answers,
+        values then nodes in registration order, gathered over the row."""
+        S = self.mesh.n_elem
+        numels = [4 * int((slots["v"] == e).sum()) + 8 * int((slots["n"] == e).sum()) for e in range(S)]
+        mine = {}
+        for e in self.mesh.local_elems(self.row):
+            piece = np.concatenate([out[kind][:, slots[kind] == e].reshape(-1) for kind in "vn"])
+            mine[e] = torch.from_numpy(piece.view(np.int32)).to(self.mesh.device(self.row, e))
+        pieces = self.mesh.all_gather(self.row, mine, numels)
+        for e in range(S):
+            if e not in mine:
+                got = pieces[e].cpu().numpy().view(np.uint32)
+                cut = 4 * int((slots["v"] == e).sum())
+                out["v"][:, slots["v"] == e] = got[:cut].reshape(4, -1)
+                out["n"][:, slots["n"] == e] = got[cut:].reshape(8, -1)
 
 
 @dataclass

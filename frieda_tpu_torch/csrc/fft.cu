@@ -43,6 +43,10 @@
 // C columns would need C times the tile, beyond the 227 KB a block may have at
 // g = 11. The TPU version's transposed views, LANES and GROUP_BITS_MAX exist
 // for its (8, 128) vector tiles and have no counterpart here.
+//
+// Kernel 9, fft_exchange (end of this file): the butterfly stage whose pairs
+// lie on two shards of an element-sharded transform, which the JAX package's
+// sharded FFT leaves to XLA (frieda_tpu/parallel/fft_sharded.py:298-309).
 
 #include "common.cuh"
 
@@ -224,5 +228,61 @@ extern "C" int frieda_fft_pass(const void* src, void* dst, const void* tw, int C
   const Group G{static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
                 static_cast<const uint32_t*>(tw), n, p_lo, g, k, src_shift, C};
   fft_pass_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(G);
+  FRIEDA_LAUNCH_RESULT();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 9, fft_exchange: one cross-shard butterfly stage.
+//
+// Replaces the elementwise butterfly after the ppermute in
+// frieda_tpu/parallel/fft_sharded.py:298-309 (XLA; no Pallas kernel). In the
+// cyclic layout of frieda_tpu_torch/parallel/ (element j on shard j mod S),
+// the stage at bit p < log2 S pairs shard s with shard s + 2^p, element for
+// element, with the one twiddle T_p[s mod 2^p]:
+//   lo' = lo + t * hi,   hi' = lo - t * hi
+// (the low shard's new value is x_self + t x_partner, the high shard's
+// x_partner - t x_self). Rows: lo and hi are `rows` rows of `len` words, row
+// r = a * B + b at word offset a * a_stride + b * len of each, twiddle tw[b];
+// the S shards of one device as one (S, C, 2^m) tensor are one launch a
+// stage (a = pair group, b = s mod 2^p). `write` bit 0 stores lo', bit 1
+// stores hi': a shard whose partner lives in another process keeps its own
+// half only.
+//
+// Bound: device-memory bytes, 16 a pair (two words read, two written) for 7
+// integer instructions; one thread a pair, a warp on 128 contiguous bytes of
+// each row, no shared memory.
+
+namespace {
+
+constexpr int kExchangeThreads = 256;
+
+__global__ void __launch_bounds__(kExchangeThreads)
+fft_exchange_kernel(uint32_t* lo, uint32_t* hi, const uint32_t* __restrict__ tw, unsigned b_count,
+                    size_t a_stride, size_t len, int write) {
+  const size_t l = static_cast<size_t>(blockIdx.x) * kExchangeThreads + threadIdx.x;
+  if (l >= len) return;
+  const unsigned a = blockIdx.y / b_count, b = blockIdx.y - a * b_count;
+  const size_t off = a * a_stride + b * len + l;
+  uint32_t x = lo[off], y = hi[off];
+  butterfly(x, y, tw[b] << 1);
+  if (write & 1) lo[off] = x;
+  if (write & 2) hi[off] = y;
+}
+
+}  // namespace
+
+// lo, hi: rows of len u32 words, row r = a * b_count + b at a * a_stride +
+// b * len; tw: b_count canonical twiddles. Updates lo and hi in place (as
+// `write` says). The caller checks the shapes and that the rows do not
+// overlap.
+extern "C" int frieda_fft_exchange(void* lo, void* hi, const void* tw, int rows, int b_count,
+                                   long long a_stride, long long len, int write, void* stream) {
+  if (rows < 1 || rows > 65535 || b_count < 1 || rows % b_count || len < 1 || write < 1 || write > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((len + kExchangeThreads - 1) / kExchangeThreads),
+                  static_cast<unsigned>(rows));
+  fft_exchange_kernel<<<grid, kExchangeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi), static_cast<const uint32_t*>(tw),
+      static_cast<unsigned>(b_count), static_cast<size_t>(a_stride), static_cast<size_t>(len), write);
   FRIEDA_LAUNCH_RESULT();
 }

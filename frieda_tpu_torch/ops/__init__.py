@@ -8,9 +8,9 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """Name -> wrapper function of every kernel the commit and prove paths
-    launch."""
+    launch, their sharded forms (`parallel/`) included."""
     from .channel import grind, transcript
-    from .fft import fft_pass
+    from .fft import fft_exchange, fft_pass
     from .fri import fri_fold
     from .ingest import ingest
     from .merkle import merkle_collapse, merkle_level, merkle_open
@@ -24,6 +24,7 @@ def kernel_wrappers() -> dict:
         "fri_fold": fri_fold,
         "transcript": transcript,
         "grind": grind,
+        "fft_exchange": fft_exchange,
     }
 
 

@@ -13,6 +13,12 @@ shared memory only for the exchange between rounds (`csrc/fft.cu`). Tiles
 are disjoint, so every group after the first updates the output in place.
 `pass_plan` is a pure function of (n, log_l), so the CPU tests run the same
 groups through the plain version.
+
+Kernel 9, `fft_exchange`: the butterfly stage whose pairs lie on two shards
+of an element-sharded transform (`parallel/fft_sharded.py`), which the JAX
+package leaves to XLA (`frieda_tpu/parallel/fft_sharded.py:298-309`): rows
+of the low and the high shard, one twiddle a row, updated in place, one
+thread a pair (`csrc/fft.cu`).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import functools
 import torch
 
 from ..core import fft as core_fft
+from ..core.field import m31_add, m31_mul, m31_sub
 from ..utils.convert import narrow, widen
 from . import _build
 
@@ -96,3 +103,58 @@ def fft_pass(src: torch.Tensor, twiddles: torch.Tensor, out: torch.Tensor,
 
 
 fft_pass.launches = 0
+
+
+def fft_exchange_plain(lo: torch.Tensor, hi: torch.Tensor, twiddles: torch.Tensor) -> tuple:
+    """Plain version on int64 values: lo, hi (A, B, L), twiddles (B,) ->
+    (lo + t * hi, lo - t * hi) with t = twiddles[b] on row (a, b)."""
+    u = m31_mul(twiddles[:, None], hi)
+    return m31_add(lo, u), m31_sub(lo, u)
+
+
+def fft_exchange(lo: torch.Tensor, hi: torch.Tensor, twiddles: torch.Tensor,
+                 write_lo: bool = True, write_hi: bool = True) -> None:
+    """One cross-shard butterfly stage in place: lo <- lo + t * hi and hi <- lo
+    - t * hi (each only if its write flag is set), with t = twiddles[b] on row
+    (a, b). lo and hi: (A, B, L) int32 views with the same strides, each row
+    of L contiguous words, the B rows of one a contiguous, and no word of lo
+    in hi: the low and high halves of a (S, C, 2^m) block viewed as (S /
+    2^(p+1), 2, 2^p, C * 2^m), or two separate (1, 1, C * 2^m) shards;
+    twiddles (B,). Launches the kernel on CUDA tensors, runs the plain
+    version on CPU tensors."""
+    if lo.dim() != 3 or lo.shape != hi.shape or lo.stride() != hi.stride():
+        raise ValueError(f"lo {tuple(lo.shape)} / {lo.stride()} and hi {tuple(hi.shape)} / "
+                         f"{hi.stride()}: expected two (A, B, L) views of the same strides")
+    A, B, L = lo.shape
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected torch.int32 (u32 bits), got {t.dtype}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {t.device}")
+    if not A * B * L or lo.stride(2) != 1 or lo.stride(1) != L or lo.stride(0) < B * L:
+        raise ValueError(f"lo/hi: rows of L contiguous words expected, got shape {(A, B, L)}, "
+                         f"strides {lo.stride()}")
+    d, s0 = (hi.data_ptr() - lo.data_ptr()) // 4, lo.stride(0)
+    k = min(A - 1, max(1 - A, -round(d / s0)))  # the row offset that brings hi closest to lo
+    if any(abs(d + j * s0) < B * L for j in (k - 1, k, k + 1) if abs(j) < A):
+        raise ValueError("lo and hi overlap")
+    if not (write_lo or write_hi):
+        raise ValueError("nothing to write")
+    _build.check_u32(twiddles, "twiddles", (B,))
+    _build.check_same_device(lo, hi, twiddles)
+    if lo.is_cuda:
+        if A * B > 65535:
+            raise ValueError(f"{A * B} rows: at most 65535 a launch")
+        _build.check_launch(_build.library().frieda_fft_exchange(
+            lo.data_ptr(), hi.data_ptr(), twiddles.data_ptr(), A * B, B, lo.stride(0), L,
+            int(write_lo) | int(write_hi) << 1, _build.stream_of(lo)))
+        fft_exchange.launches += 1
+        return
+    new_lo, new_hi = fft_exchange_plain(widen(lo), widen(hi), widen(twiddles))
+    if write_lo:
+        lo.copy_(narrow(new_lo))
+    if write_hi:
+        hi.copy_(narrow(new_hi))
+
+
+fft_exchange.launches = 0

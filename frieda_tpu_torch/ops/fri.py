@@ -30,21 +30,25 @@ def fri_fold_plain(values: torch.Tensor, alpha, inv: torch.Tensor) -> torch.Tens
     return m31_add(m31_add(lo, hi), torch.stack(qm31_mul(tuple(alpha), tuple(f1))))
 
 
-def fri_fold(values: torch.Tensor, alpha: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+def fri_fold(values: torch.Tensor, alpha: torch.Tensor, inv: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """int32 form of `fri_fold_plain`: values (4, M) canonical M31 words, M
     even; alpha (4,); inv (M/2,); all int32 on one device. Returns (4, M/2)
-    int32. Launches the kernel on CUDA tensors, runs the plain version on
-    CPU tensors."""
+    int32, written into `out` when given (a contiguous (4, M/2) int32
+    tensor: a shard's row of a stacked layer). Launches the kernel on CUDA
+    tensors, runs the plain version on CPU tensors."""
     if values.dim() != 2 or values.shape[0] != 4 or values.shape[1] < 2 or values.shape[1] % 2:
         raise ValueError(f"values: expected (4, M) with M even, got {tuple(values.shape)}")
     half = values.shape[1] // 2
     _build.check_u32(values, "values", (4, 2 * half))
     _build.check_u32(alpha, "alpha", (4,))
     _build.check_u32(inv, "inv", (half,))
-    _build.check_same_device(values, alpha, inv)
+    if out is None:
+        out = torch.empty((4, half), dtype=torch.int32, device=values.device)
+    _build.check_u32(out, "out", (4, half))
+    _build.check_same_device(values, alpha, inv, out)
     if not values.is_cuda:
-        return narrow(fri_fold_plain(widen(values), widen(alpha), widen(inv)))
-    out = torch.empty((4, half), dtype=torch.int32, device=values.device)
+        return out.copy_(narrow(fri_fold_plain(widen(values), widen(alpha), widen(inv))))
     _build.check_launch(_build.library().frieda_fri_fold(
         values.data_ptr(), alpha.data_ptr(), inv.data_ptr(), out.data_ptr(), half,
         _build.stream_of(values)))

@@ -29,6 +29,8 @@ import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
 import frieda_tpu_torch.core.npfield, frieda_tpu_torch.core.merkle, frieda_tpu_torch.native
 from frieda_tpu_torch.api import commit_many, commit_with_tree, prove_many, verify, verify_many
 from frieda_tpu_torch.core.merkle import CommitTree, build_tree, device_levels, host_levels_from
+import frieda_tpu_torch.parallel.mesh, frieda_tpu_torch.parallel.sharding
+import frieda_tpu_torch.parallel.fft_sharded, frieda_tpu_torch.parallel.multihost
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "frieda_tpu"))
 print(",".join(loaded))
 """
