@@ -6,14 +6,21 @@ prover and the verifier.
     python3 chip_smoke.py
 
 Phases, each printed as it runs:
-  1. the card: `nvidia-smi` name and power limit, torch's device name;
+  1. the card: `nvidia-smi` name and power limit, torch's device name, and
+     the peaks of `frieda_tpu_torch/utils/profiling.py` that the bounds use
+     (memory rate; the SM count read from the device, the maximum clock
+     beside `nvidia-smi`'s clocks.max.sm);
   2. the kernel build from `frieda_tpu_torch/csrc/` (nvcc, into build/kernels/),
      and the integer instructions of one BLAKE2s compression, of one M31
      butterfly and of one QM31 fold element, counted in the built SASS
-     (cuobjdump), for the kernels' bounds;
+     (cuobjdump), each beside the fixed per-unit floor of utils/profiling
+     that the bounds use (a difference is printed, not a failure);
   3. each of the nine kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with the
-     least time the card could take for the same work (bound) and two times:
+     least time the card could take for the same work (bound, from
+     utils/profiling: the function's bytes and its units of work times the
+     fixed floors; each kernel's beside the Bound PERF.md listed before it,
+     every share at most 1) and two times:
      "device" ms, the time of the call's launches alone on the card (CUDA
      events around a CUDA graph of 20 calls, divided by 20:
      `tools/torch_harness.device_ms`), and "call" ms, CUDA events around one
@@ -52,7 +59,8 @@ Phases, each printed as it runs:
      roots computed with the JAX package (`frieda_tpu.api.commit` on CPU);
   5. a 2^24-felt commit: the kernel path's root equals the plain path's root
      on the card; median commit time (call, and a CUDA graph's replay) and
-     felts/s at 2^22 and 2^24 felts;
+     felts/s at 2^22 and 2^24 felts, each graded by
+     `profiling.commit_roofline` (every key printed, the share at most 1);
   6. `api.commit_many`: 64 blobs of 2^16 felts equal a loop of `api.commit`
      (root 0 the 2^16 anchor), with the launches of one `api.commit`; 16
      blobs of 2^20 felts equal a loop; `COMMIT_MANY_ANCHORS` (the JAX
@@ -78,21 +86,27 @@ Phases, each printed as it runs:
   9. the staged prove (`api.commit_and_prove_staged`, words on the card) at
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
-     path's (the same prover on the plain versions); the median of five
-     whole proves without the stage clock, the median prove time of three
-     runs with it, each run's stage split (the decommitment as
+     path's (the same prover on the plain versions); the median prove time
+     of three runs with the stage clock, each run's stage split (the decommitment as
      plan, open and assemble), kernel launches per proof (`merkle_open` once,
      no `merkle_level` in the decommitment; `fri_fold` once a layer,
      `transcript` once a layer and three more, `grind` once) and peak device
      memory; a warm `fri.commit_phase` run under
-     `torch.cuda.set_sync_debug_mode("error")` (it synchronizes nowhere), its
+     `torch.cuda.set_sync_debug_mode("error")` with FRIEDA_SPANS=1 (it
+     synchronizes nowhere, and its span prints), its
      host enqueue ms beside its device ms (CUDA events), and exactly one
      synchronizing fetch (`Committed.fetch`, counted in "warn" mode) before
      the decommitment, whose proof bytes equal the warm proof's; the
      bytes one finished commit phase (`fri.Committed`) keeps on the card
      (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
      prove_many window that gives; `api.verify` accepts the proof and
-     rejects a tampered copy, with verify's host ms (median of 5);
+     rejects a tampered copy, with verify's host ms (median of 5); ten whole
+     proves without the stage clock with the spans (`utils/profiling.span`)
+     and ten with a no-op in their place, in turns, the median of the first
+     beside the spread of the second, and an empty span's host cost; at
+     2^20 felts a torch.profiler trace of `api.commit`,
+     `api.commit_and_prove`, the staged prove and `api.verify` on the card
+     holds every span name (`SPANS`);
  10. every kernel's launch count over each path: the commit phases (4-5,
      checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
      `merkle_level` forms) and the prove phases (8-9): each must be > 0,
@@ -144,8 +158,10 @@ share over 5 back-to-back device-resident commits (torch.profiler).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import io
 import json
 import os
 import pathlib
@@ -161,6 +177,12 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 from torch_harness import (card, cuda_ms, device_busy_us, device_ms, host_ms,  # noqa: E402
                            proof_collapse_widths)
+
+# The JAX package's span names on the paths phase 9 traces (utils/profiling),
+# all but commit/host_tree_top: the port ends the tree on the card.
+SPANS = ("commit/ingest", "commit/device(unpack+lde+merkle)", "prove/ingest",
+         "prove/device_dispatch(lde+merkle+transcript+grind)", "prove/fetch_packed", "prove/assemble",
+         "verify")
 
 # (blob bytes, root of commit(synthetic_data(bytes), 4)): computed with the
 # JAX package, frieda_tpu.api.commit on CPU; tests/test_torch_commit.py keeps
@@ -206,11 +228,13 @@ LOG_BLOWUP = 4
 SEED = 20261016
 P = (1 << 31) - 1
 
-# The card's peaks for the bounds (NVIDIA H100 SXM data sheet, 700 W): device
-# memory 3.35 TB/s; instructions 132 SMs x 4 schedulers x 32 lanes x
-# 1.98 GHz boost = 33.45e12 32-bit integer instructions/s.
-HBM_BYTES_S = 3.35e12
-INT_INSTR_S = 132 * 4 * 32 * 1.98e9
+# The Bound column of PERF.md section 6 before utils/profiling (ms) for each
+# kernel's line, from the helpers this script had then (the build's SASS counts, the
+# launches' twiddle and job-table bytes); phase 3 prints it beside the bound
+# from utils/profiling.
+EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, "merkle_level": 0.9046,
+                  "merkle_collapse": 0.000118, "merkle_open": 0.000235, "fri_fold": 0.5208,
+                  "transcript": 5.8e-8, "grind": 0.0427}
 # SASS opcodes that are not integer work: memory, control, moves.
 SASS_SKIP = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
              "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
@@ -398,6 +422,7 @@ def main() -> int:
     from frieda_tpu_torch.ops import ingest as ingest_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.core.circle import bitrev_array
+    from frieda_tpu_torch.utils import profiling
     from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words, words_for
 
@@ -414,12 +439,6 @@ def main() -> int:
     def max_abs_err(a, b) -> int:
         return int((widen(a) - widen(b)).abs().max().item())
 
-    def bound(n_bytes: float, n_ops: float) -> tuple:
-        """(least ms, what sets it): bytes over the memory rate or integer
-        instructions over the instruction rate, whichever is longer."""
-        t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / INT_INSTR_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     fit = sys.argv[sys.argv.index("--prove-fit") + 1] if "--prove-fit" in sys.argv else None
     split = "--commit-split" in sys.argv
 
@@ -428,6 +447,12 @@ def main() -> int:
     say(f"[1] nvidia-smi: {smi}")
     say(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device 0: {torch.cuda.get_device_name(0)}; count {torch.cuda.device_count()}")
+    peaks = profiling.card_peaks()
+    check(peaks is not None, f"utils/profiling.CARDS has no peaks for {torch.cuda.get_device_name(0)}: "
+          "the kernels' bounds need them")
+    say(f"[1] peaks (utils/profiling): device memory {peaks.hbm_bytes_s / 1e12} TB/s; integer instructions "
+        f"{peaks.sms} SMs (torch.cuda.get_device_properties) x 4 x 32 x {peaks.max_sm_clock_hz / 1e9} GHz "
+        f"= {peaks.int_instr_s:.6g}/s; nvidia-smi clocks.max.sm: {card('clocks.max.sm')}")
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -445,14 +470,18 @@ def main() -> int:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
             say(f"[2]   {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
-    comp_ops = len(sass_int_ops(so, "frieda_blake2s_probe"))
-    say(f"[2] one BLAKE2s compression: {comp_ops} integer instructions in the SASS")
     bfly = sass_int_ops(so, "frieda_fft_butterfly_probe")
-    bfly_ops = len(bfly)
-    say(f"[2] one M31 butterfly on one column (twiddle doubled once per round): {bfly_ops} "
-        f"integer instructions in the SASS: {' '.join(bfly)}")
-    fold_ops = len(sass_int_ops(so, "frieda_fri_fold_probe"))
-    say(f"[2] one QM31 fold element (alpha and the inverse doubled): {fold_ops} integer instructions in the SASS")
+    say(f"[2] the M31 butterfly probe's SASS: {' '.join(bfly)}")
+    for what, probe, fixed in (
+            ("one BLAKE2s compression", "frieda_blake2s_probe", profiling.BLAKE2S_COMPRESS_INSTR),
+            ("one M31 butterfly on one column (twiddle doubled once per round)", "frieda_fft_butterfly_probe",
+             profiling.M31_BUTTERFLY_INSTR),
+            ("one QM31 fold element (alpha and the inverse doubled)", "frieda_fri_fold_probe",
+             profiling.QM31_FOLD_INSTR)):
+        count = len(sass_int_ops(so, probe))
+        note = "equal" if count == fixed else f"differs by {count - fixed:+d}; the bounds keep the floor"
+        say(f"[2] {what}: {count} integer instructions in the SASS; the bounds' fixed floor "
+            f"(utils/profiling) {fixed} ({note})")
     if fit is not None:
         return prove_fit(int(fit))
     if split:
@@ -476,7 +505,7 @@ def main() -> int:
         call = cuda_ms(lambda: ingest_ops.ingest(words, log_size))
         plain_ms = cuda_ms(lambda: ingest_ops.ingest_plain(w64, log_size))
         err = max_abs_err(got, want)
-        b_ms, b_by = bound(4 * words.numel() + 16 * (1 << log_size), 0)
+        b_ms, b_by = profiling.ingest_bound(words.numel(), 4 << log_size)
         say(f"[3] ingest log_size={log_size} ({form}): bit-equal; device {ms:.4f} ms, call {call:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; share {b_ms / ms:.3f})")
         kernels["ingest"] = dict(
@@ -501,11 +530,10 @@ def main() -> int:
         call = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw))
         plain_ms = cuda_ms(lambda: fft.evaluate(c64, tw), reps=3)
         p_min, groups = fft_ops.pass_plan(n, log_l)
-        b_ms, b_by = bound(16 * (1 << log_l) + 4 * tw.numel() + 16 * (1 << n),
-                           4 * log_l * (1 << (n - 1)) * bfly_ops)
+        b_ms, b_by = profiling.fft_pass_bound(4, log_l, n)
         say(f"[3] fft_pass n={n} log_l={log_l}, groups {groups}: bit-equal; "
             f"device {ms:.4f} ms ({len(groups)} launches), call {call:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}; {bfly_ops} instructions a butterfly)")
+            f"bound {b_ms:.4f} ms ({b_by}; {profiling.M31_BUTTERFLY_INSTR} instructions a butterfly)")
         src, shift = coeffs, p_min
         for p_lo, p_hi, k in groups:
             g_ms = cuda_ms(lambda: fft_ops.fft_pass(src, tw, got, p_lo, p_hi, k, shift))  # noqa: B023
@@ -535,8 +563,7 @@ def main() -> int:
         err = max(max_abs_err(new_lo, narrow(want_lo) if write[0] else lo),
                   max_abs_err(new_hi, narrow(want_hi) if write[1] else hi))
         check(err == 0, f"fft_exchange {what} differs from plain")
-        pairs = lo.numel()
-        b_ms, b_by = bound(4 * (2 * pairs + sum(write) * pairs + tw.numel()), pairs * bfly_ops)
+        b_ms, b_by = profiling.fft_exchange_bound(lo.numel(), sum(write))
         out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
         if timed:
             l64, h64, t64 = widen(lo), widen(hi), widen(tw)
@@ -570,14 +597,6 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
 
-    def level_ops(leaf: bool, fused: bool, width: int) -> int:
-        out_w = width // (8 if fused else (1 if leaf else 2))
-        return ((width if leaf else 0) + (7 * out_w if fused else (0 if leaf else out_w))) * comp_ops
-
-    def level_bound(leaf: bool, fused: bool, width: int) -> tuple:
-        out_w = width // (8 if fused else (1 if leaf else 2))
-        return bound((16 if leaf else 32) * width + 32 * out_w, level_ops(leaf, fused, width))
-
     def level_case(leaf: bool, fused: bool, width: int, what: str) -> dict:
         x = rand_u32((4, width), P) if leaf else rand_u32((8, width))
         x64 = widen(x)
@@ -587,7 +606,7 @@ def main() -> int:
         ms = device_ms(lambda: merkle_ops.merkle_level(x, leaf=leaf, fused=fused))
         call = cuda_ms(lambda: merkle_ops.merkle_level(x, leaf=leaf, fused=fused))
         plain_ms = cuda_ms(lambda: merkle_ops.merkle_level_plain(x64, leaf=leaf, fused=fused), reps=3)
-        b_ms, b_by = level_bound(leaf, fused, width)
+        b_ms, b_by = profiling.merkle_level_bound(width, leaf, fused)
         say(f"[3] merkle_level leaf={leaf} fused={fused} width {width} ({what}): bit-equal; "
             f"device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         return dict(max_abs_err=max_abs_err(got, want), ms=ms, call_ms=call, plain_ms=plain_ms,
@@ -629,7 +648,7 @@ def main() -> int:
         if m == 4096:  # 4096 -> (512, 64, 8, 1), a 2^26 tree's tail
             l64 = widen(level)
             plain_ms = cuda_ms(lambda: merkle_ops.merkle_collapse_plain(l64, widths))  # noqa: B023
-            b_ms, b_by = bound(32 * (4096 + sum(widths)), 4095 * comp_ops)
+            b_ms, b_by = profiling.merkle_collapse_bound(4096, widths)
             kernels["merkle_collapse"] = dict(
                 source="frieda_tpu_torch/csrc/merkle.cu",
                 replaces="frieda_tpu/ops/merkle_pallas.py:240",
@@ -665,14 +684,11 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: merkle_ops.merkle_open_plain(*args), reps=3)  # noqa: B023
         _, _, _, r, leaf, _ = merkle_ops.open_plan(committed.trees, values, nodes)
         hashes = int(((leaf + 1) * (1 << r) - 1).sum())  # leaf hashes, then 2^r - 1 pairs a read
-        read = np.where(leaf, 16, 32) << r  # 2^r leaves (4 words) or stored nodes (8 words)
-        n_bytes = 8 * table.numel() + 16 * len(values) + int(read.sum()) + 4 * got.numel()
-        b_ms, b_by = bound(n_bytes, hashes * comp_ops)
+        b_ms, b_by = profiling.merkle_open_bound(len(values), leaf, r)
         say(f"[3] merkle_open, 2^{log_felts}-felt / {nq}-query proof ({len(committed.layers)} layers, "
             f"{len(values)} values, {len(nodes)} nodes, {hashes} compressions): bit-equal; device "
-            f"{ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
-            f"{n_bytes} bytes); chain floor {gap_ms:.4f} + 3 x {level_ms:.4f} = "
-            f"{gap_ms + 3 * level_ms:.4f} ms")
+            f"{ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+            f"chain floor {gap_ms:.4f} + 3 x {level_ms:.4f} = {gap_ms + 3 * level_ms:.4f} ms")
         if log_felts == 24:
             kernels["merkle_open"] = dict(
                 source="frieda_tpu_torch/csrc/merkle.cu",
@@ -689,8 +705,7 @@ def main() -> int:
         got = fri_ops.fri_fold(values, alpha, inv)
         want = narrow(fri_ops.fri_fold_plain(v64, a64, i64))
         check(torch.equal(got, want), f"fri_fold {what} differs from plain")
-        half = values.shape[1] // 2
-        b_ms, b_by = bound(4 * (4 * 2 * half + half + 4 + 4 * half), half * fold_ops)
+        b_ms, b_by = profiling.fri_fold_bound(values.shape[1] // 2)
         out = dict(max_abs_err=max_abs_err(got, want), bound_ms=b_ms, bound_by=b_by)
         del got, want
         if timed:
@@ -725,10 +740,9 @@ def main() -> int:
         inv = ys26 if l == 0 else xs26[l - 1]
         fold_dev += device_ms(lambda: fri_ops.fri_fold(x, alpha, inv), reps=4 if l < 3 else 20)  # noqa: B023
     del x
-    fold_bytes = sum(4 * (4 * (1 << (26 - l)) + (1 << (25 - l)) + 4 + 4 * (1 << (25 - l))) for l in range(22))
+    fold_bound = sum(profiling.fri_fold_bound(1 << (25 - l))[0] for l in range(22))
     say(f"[3] fri_fold over the 2^24-felt proof's 22 folds (4 x 2^26 ... 4 x 2^5): device {fold_dev:.4f} ms "
-        f"in all; bound {fold_bytes / HBM_BYTES_S * 1e3:.4f} ms ({fold_bytes} bytes); launch floor "
-        f"22 x {gap_ms:.4f} = {22 * gap_ms:.4f} ms")
+        f"in all; bound {fold_bound:.4f} ms; launch floor 22 x {gap_ms:.4f} = {22 * gap_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     # transcript: every step on 64 seeded states against the host channel and
@@ -774,16 +788,18 @@ def main() -> int:
         "64 of 2^10 ... 2^32) on 64 seeded states: bit-equal to the plain version and the host channel")
     st = channel_ops.new_state(dev)
     channel_ops.transcript(st, mix_u64=7)
-    forms = (("seed", dict(mix_u64=7), 1), ("layer: root + alpha", dict(mix_digest=root, draw_felt=True), 2),
-             ("last-layer felts, k = 1", dict(mix_felts=felts[:1]), 1),
-             ("nonce + 20 queries", dict(mix_u64=nonce, queries=(20, 26)), 2),
-             ("nonce + 64 queries", dict(mix_u64=nonce, queries=(64, 24)), 2))
+    # (what, step, dependent compressions, (message bytes, drawn bytes, compressions))
+    forms = (("seed", dict(mix_u64=7), 1, (8, 0, 1)),
+             ("layer: root + alpha", dict(mix_digest=root, draw_felt=True), 2, (32, 16, 2)),
+             ("last-layer felts, k = 1", dict(mix_felts=felts[:1]), 1, (16, 0, 1)),
+             ("nonce + 20 queries", dict(mix_u64=nonce, queries=(20, 26)), 2, (8, 80, 4)),
+             ("nonce + 64 queries", dict(mix_u64=nonce, queries=(64, 24)), 2, (8, 256, 9)))
     step_ms = {}
-    for what, step, chain in forms:
+    for what, step, chain, work in forms:
         ms = step_ms[what] = device_ms(lambda: channel_ops.transcript(st, **step))  # noqa: B023
         call = cuda_ms(lambda: channel_ops.transcript(st, **step))  # noqa: B023
         plain_ms = cuda_ms(lambda: channel_ops.transcript_plain(st, **step), reps=3)  # noqa: B023
-        b_ms, b_by = bound(2 * 36 + 64, chain * comp_ops)
+        b_ms, b_by = profiling.transcript_bound(*work)
         say(f"[3] transcript {what}: device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms; bound "
             f"{b_ms:.6f} ms ({b_by}); chain floor {gap_ms:.4f} + {chain} x {level_ms:.4f} = "
             f"{gap_ms + chain * level_ms:.4f} ms")
@@ -819,7 +835,7 @@ def main() -> int:
                     break
                 n += 1
             check(nonce == n, f"grind pow_bits={pow_bits}: {nonce} != the host scan's {n}")
-        b_ms, b_by = bound(36 + 8, (nonce + 1) * comp_ops)
+        b_ms, b_by = profiling.grind_bound(nonce)
         ms = device_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
         call = cuda_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
         plain_ms = cuda_ms(lambda: channel_ops.grind_plain(st, pow_bits), reps=3)  # noqa: B023
@@ -840,13 +856,13 @@ def main() -> int:
 
     # the blob axis (commit_many: 64 x 2^16 felts, log_blowup 4, and small
     # batches), each against its one-blob plain version per blob, stacked
-    def batch_case(what: str, fn, plain_one, x, n_bytes: float, n_ops: float) -> None:
+    def batch_case(what: str, fn, plain_one, x, bound: tuple) -> None:
         got = fn(x)
         want = torch.stack([narrow(plain_one(widen(b))) for b in x])
         check(torch.equal(got, want), f"{what} differs from its plain version per blob")
         ms = device_ms(lambda: fn(x), reps=5)
         call = cuda_ms(lambda: fn(x))
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound
         say(f"[3] {what}: bit-equal per blob; device {ms:.4f} ms, call {call:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}; share {b_ms / ms:.3f})")
 
@@ -856,30 +872,28 @@ def main() -> int:
         batch_case(f"ingest ({n_blobs}, {words.shape[1]}) log_size={log_size} ({form})",
                    lambda w: ingest_ops.ingest(w, log_size),  # noqa: B023
                    lambda w: ingest_ops.ingest_plain(w, log_size),  # noqa: B023
-                   words, 4 * words.numel() + 16 * n_blobs * (1 << log_size), 0)
+                   words, profiling.ingest_bound(words.numel(), n_blobs * 4 << log_size))
     tw = fft.stage_twiddles(18, dev)
     coeffs = rand_u32((64, 4, 1 << 14), P)
     _, groups = fft_ops.pass_plan(18, 14)
     batch_case(f"fft_pass C=256 n=18 log_l=14 ((64, 4, 2^14) as (256, 2^14), groups {groups})",
                lambda c: fft.evaluate_auto(c, tw), lambda c: fft.evaluate(c, tw), coeffs,
-               4 * coeffs.numel() + 4 * tw.numel() + 4 * 256 * (1 << 18),
-               256 * 14 * (1 << 17) * bfly_ops)
+               profiling.fft_pass_bound(256, 14, 18))
     del coeffs, tw
     for n_blobs, leaf, fused, width in ((64, True, True, 1 << 18), (64, False, True, 1 << 15),
                                         (3, True, False, 1 << 4), (3, False, False, 1 << 4)):
         x = rand_u32((n_blobs, 4, width), P) if leaf else rand_u32((n_blobs, 8, width))
-        one_bytes = ((16 if leaf else 32) * width + 32 * (width // (8 if fused else (1 if leaf else 2))))
         batch_case(f"merkle_level leaf={leaf} fused={fused} {tuple(x.shape)}",
                    lambda v: merkle_ops.merkle_level(v, leaf, fused),  # noqa: B023
                    lambda v: merkle_ops.merkle_level_plain(v, leaf, fused),  # noqa: B023
-                   x, n_blobs * one_bytes, n_blobs * level_ops(leaf, fused, width))
+                   x, profiling.merkle_level_bound(width, leaf, fused, blobs=n_blobs))
     for n_blobs, m in ((64, 4096), (3, 2)):
         level = rand_u32((n_blobs, 8, m))
         batch_case(f"merkle_collapse ({n_blobs}, 8, {m}) -> 1, {n_blobs} clusters of "
                    f"{merkle_ops.collapse_plan(m)}",
                    lambda v: merkle_ops.merkle_collapse(v)[0],
                    lambda v: merkle_ops.merkle_collapse_plain(v)[0],
-                   level, n_blobs * 32 * (m + 1), n_blobs * (m - 1) * comp_ops)
+                   level, profiling.merkle_collapse_bound(m, blobs=n_blobs))
     del x, level, words
     fri._fold_tables.clear()  # phase 9's peak memory counts no tables of these proofs
     torch.cuda.synchronize()
@@ -917,6 +931,12 @@ def main() -> int:
             f"{graph_ms:.4f} ms); "
             f"whole call {wall * 1e3:.1f} ms = {felts / wall / 1e6:.2f} M felts/s; "
             f"peak device memory {peak / 2**30:.3f} GiB; root {root.hex()}")
+        for what, t_ms in (("graph replay", graph_ms), ("call", ms)):
+            roof = profiling.commit_roofline(log_total - 2 + LOG_BLOWUP, t_ms / 1e3)
+            check(0 < roof["sol_fraction"] <= 1, f"commit_roofline 2^{log_felts} felts ({what}): share "
+                  f"{roof['sol_fraction']} outside (0, 1]")
+            say(f"[5] commit_roofline 2^{log_felts} felts, {what} {t_ms:.4f} ms: "
+                + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in roof.items()))
         del words
 
     data = synthetic_data(felt_bytes(24))
@@ -1074,11 +1094,14 @@ def main() -> int:
               f"commit_with_tree 2^22: a node of level {level} is not the hash of its children")
     tree_ms = device_ms(lambda: merkle.device_levels(evals), reps=3)
     root_ms = device_ms(lambda: merkle.root_level(evals), reps=3)
+    roof = profiling.merkle_roofline(n, tree_ms / 1e3, top_log=n - levels + 1, store_levels=True)
+    check(0 < roof["sol_fraction"] <= 1, f"device_levels: share {roof['sol_fraction']} outside (0, 1]")
     say(f"[7] commit_with_tree 2^22 felts (n = {n}): root == the 2^22 anchor == api.commit's; {levels} "
         f"device levels, {len(tree.hlevels)} host levels; every level's node at 64 indices == the host "
         f"hash of its children; launches {tree_counts} (one-level merkle_level: 1 leaf, {levels - 1} "
-        f"inner); device "
-        f"levels {tree_ms:.4f} ms (graph replay) against the fused root_level's {root_ms:.4f} ms")
+        f"inner); device levels {tree_ms:.4f} ms (graph replay; bound {roof['min_seconds_at_sol'] * 1e3:.4f} "
+        f"ms, {roof['bound']}, share {roof['sol_fraction']:.3f}: profiling.merkle_roofline) against the "
+        f"fused root_level's {root_ms:.4f} ms")
     del evals, tree
     torch.cuda.empty_cache()
     lap(7)
@@ -1135,12 +1158,18 @@ def main() -> int:
         torch.cuda.synchronize()
         start.record()
         t0 = time.perf_counter()
+        os.environ["FRIEDA_SPANS"] = "1"  # the span prints its wall, still with no synchronization
+        printed = io.StringIO()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            committed = fri.commit_phase(words, log_total, 7, cfg)
+            with contextlib.redirect_stderr(printed):
+                committed = fri.commit_phase(words, log_total, 7, cfg)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+            del os.environ["FRIEDA_SPANS"]
         enqueue_ms = (time.perf_counter() - t0) * 1e3
+        check(printed.getvalue().startswith(f"[span] {SPANS[3]}: "), f"2^{log_felts}-felt commit phase "
+              f"under FRIEDA_SPANS=1 printed {printed.getvalue()!r}")
         end.record()
         end.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
@@ -1154,10 +1183,11 @@ def main() -> int:
         check(syncs == 1, f"2^{log_felts}-felt commit phase: {syncs} synchronizing operations in its fetch")
         check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire,
               f"2^{log_felts}-felt proof after the sync-free commit phase differs")
-        say(f"[9] 2^{log_felts}-felt commit phase under sync debug mode 'error': no synchronization; host "
-            f"enqueue {enqueue_ms:.3f} ms, device {start.elapsed_time(end):.3f} ms (CUDA events from before "
-            f"the first launch); then {syncs} synchronizing fetch of {committed.packed.numel()} words before "
-            f"the decommitment; proof bytes unchanged")
+        say(f"[9] 2^{log_felts}-felt commit phase under sync debug mode 'error' and FRIEDA_SPANS=1: no "
+            f"synchronization ({printed.getvalue().strip()}); host enqueue {enqueue_ms:.3f} ms, device "
+            f"{start.elapsed_time(end):.3f} ms (CUDA events from before the first launch); then {syncs} "
+            f"synchronizing fetch of {committed.packed.numel()} words before the decommitment; proof bytes "
+            f"unchanged")
         del committed
         walls, splits = [], []
         for _ in range(3):
@@ -1179,14 +1209,26 @@ def main() -> int:
             f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
         for i, split in enumerate(splits):
             say(f"[9]   run {i + 1} stages (ms): {split}")
-        whole = []
-        for _ in range(5):  # no stage clock: the commit phase runs ahead of the host
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            api.commit_and_prove_staged(words, log_total, 7, cfg)
-            whole.append((time.perf_counter() - t0) * 1e3)
-        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, no stage clock: median "
-            f"{statistics.median(whole):.3f} ms of {[round(w, 3) for w in whole]}")
+        whole = {"on": [], "off": []}
+        for kind in ("on", "off", "off", "on") * 5:  # no stage clock: the commit phase runs ahead of the host
+            with contextlib.nullcontext() if kind == "on" else no_spans(fri):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                api.commit_and_prove_staged(words, log_total, 7, cfg)
+                whole[kind].append((time.perf_counter() - t0) * 1e3)
+        on, off = statistics.median(whole["on"]), whole["off"]
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            with profiling.span("chip_smoke/empty"):
+                pass
+        span_us = (time.perf_counter() - t0) / 10_000 * 1e6
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, no stage clock, in turns: spans on, median "
+            f"{on:.3f} ms of {[round(w, 3) for w in whole['on']]}; spans off (utils/profiling.span a no-op), "
+            f"median {statistics.median(off):.3f} ms of {[round(w, 3) for w in off]}; the median with spans "
+            f"{'lies' if min(off) <= on <= max(off) else 'does NOT lie'} within the spread without them; "
+            f"an empty span costs {span_us:.2f} us of host time (10^4 in a row; 3 a staged prove)")
+        if log_felts == 20:
+            span_trace(dev, data, words, log_total, cfg)
         torch.cuda.synchronize()
         before_bytes = torch.cuda.memory_allocated(dev)
         committed = fri.commit_phase(words, log_total, 7, cfg)
@@ -1304,8 +1346,13 @@ def main() -> int:
     del many_out, roots20
     say(f"[12] whole run {time.perf_counter() - t_start:.1f} s")
 
-    say(smi)
     check(set(kernels) == set(ops.kernel_wrappers()), f"kernels measured {sorted(kernels)}")
+    for name, k in kernels.items():
+        share = k["bound_ms"] / k["ms"]
+        check(0 < share <= 1, f"{name}: bound {k['bound_ms']} ms over device {k['ms']} ms = {share} outside (0, 1]")
+        say(f"[3] {name}: bound {k['bound_ms']:.6g} ms ({k['bound_by']}; utils/profiling), PERF.md section 6 "
+            f"before it: {EARLIER_BOUNDS[name]} ms; device {k['ms']:.4f} ms, share {share:.3f}")
+    say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts,
@@ -1522,6 +1569,46 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     say(f"[12] kernel launches of phase 12's sharded calls (the first call of each; every kernel > 0): "
         f"{sharded_counts}")
     return sharded_counts
+
+
+@contextlib.contextmanager
+def no_spans(module):
+    """The module's `span` replaced by a no-op for the block: its paths
+    without their annotations, for their host cost."""
+    span, module.span = module.span, lambda name, out=None: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        module.span = span
+
+
+def span_trace(dev, data: bytes, words, log_total: int, cfg) -> None:
+    """One `api.commit`, `api.commit_and_prove`, staged prove and `api.verify`
+    of the blob under torch.profiler on the card: every name of `SPANS` is a
+    range in the trace (each span also pushed and popped an NVTX range), and
+    the card ran kernels in it."""
+    import torch
+
+    from frieda_tpu_torch import api
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        api.commit(data, LOG_BLOWUP, device=dev)
+        api.commit_and_prove(data, 7, cfg, device=dev)
+        _, proof = api.commit_and_prove_staged(words, log_total, 7, cfg)
+        check(api.verify(proof, 7), "the traced staged proof does not verify")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    missing = [n for n in SPANS if n not in names]
+    busy_us, records = device_busy_us(prof)
+    check(not missing and records > 0, f"torch.profiler trace on the card: spans {missing} missing, "
+          f"{records} device records")
+    say(f"[9] torch.profiler trace of api.commit, api.commit_and_prove, the staged prove and api.verify "
+        f"(2^20 felts, 64 queries) on the card: every span name present, each "
+        f"{[names.count(n) for n in SPANS]} times ({', '.join(SPANS)}: the host's ranges and, where a range "
+        f"enqueued device work, its annotation on the device's timeline); NVTX ranges pushed and popped "
+        f"without error; {records} device records, busy {busy_us:.0f} us")
 
 
 def wire_note(proof) -> str:

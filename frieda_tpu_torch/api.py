@@ -18,6 +18,7 @@ import torch
 from .config import DEFAULT_CONFIG, PcsConfig  # noqa: F401  (re-export)
 from .core import fft, fri, merkle
 from .utils.packing import ingest_rev, log_total_for, upload_words
+from .utils.profiling import span
 
 Commitment = bytes  # 32-byte Merkle root
 
@@ -62,9 +63,11 @@ def commit_root_pipeline_batch(words: torch.Tensor, log_total: int,
 def commit(data: bytes, log_blowup_factor: int, device="cuda") -> Commitment:
     """Commit to a data blob (reference: src/commit.rs) on `device`."""
     device = _device(device, "commit")
-    log_total = log_total_for(len(data))
-    words = upload_words([data], log_total, device)[1][0]
-    return merkle.root_bytes(commit_root_pipeline(words, log_total, log_blowup_factor))
+    with span("commit/ingest"):
+        log_total = log_total_for(len(data))
+        words = upload_words([data], log_total, device)[1][0]
+    with span("commit/device(unpack+lde+merkle)"):
+        return merkle.root_bytes(commit_root_pipeline(words, log_total, log_blowup_factor))
 
 
 def commit_many(datas, log_blowup_factor: int, device="cuda") -> list:

@@ -62,6 +62,7 @@ from ..ops import ingest as ingest_ops
 from ..ops import merkle as merkle_ops
 from ..utils.convert import from_numpy_u32, narrow, to_numpy_u32
 from ..utils.packing import log_total_for, upload_words
+from ..utils.profiling import span
 from . import circle as hostcircle
 from . import fft, npfield
 from .channel import Blake2sChannel, sample_query_positions
@@ -220,8 +221,9 @@ def _merkle_witness_plans(log_n: int, known_leaves):
 class _Clock:
     """Host wall time per stage, synchronized at both ends, when `stats` is a
     dict (stats["stage_s"][name] accumulates seconds, and
-    stats["stage_launches"][name][kernel] the stage's kernel launches); a
-    no-op otherwise."""
+    stats["stage_launches"][name][kernel] the stage's kernel launches), each
+    stage a `span` of its name from after the first synchronization to after
+    the second; a no-op otherwise."""
 
     def __init__(self, device: torch.device, stats):
         self.stats = stats
@@ -238,10 +240,11 @@ class _Clock:
         if self.sync:
             torch.cuda.synchronize()
         before = ops.launch_counts()
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            torch.cuda.synchronize()
+        with span(name):
+            t0 = time.perf_counter()
+            yield
+            if self.sync:
+                torch.cuda.synchronize()
         stages = self.stats["stage_s"]
         stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
         launches = self.stats["stage_launches"].setdefault(name, {})
@@ -281,7 +284,8 @@ class Committed:
         bound."""
         if self._host is not None:
             return
-        words = to_numpy_u32(self.packed)
+        with span("prove/fetch_packed"):
+            words = to_numpy_u32(self.packed)
         t, b = len(self.trees), self.bound
         roots = [words[8 * i : 8 * (i + 1)].astype("<u4").tobytes() for i in range(t)]
         o = 8 * t
@@ -357,32 +361,33 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
     device = words.device
     clock = clock or _Clock(device, None)
     circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
-    state = channel_ops.new_state(device)
-    if seed is not None:
-        with clock("transcript"):
-            route.transcript(state, mix_u64=int(seed))
+    with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
+        state = channel_ops.new_state(device)
+        if seed is not None:
+            with clock("transcript"):
+                route.transcript(state, mix_u64=int(seed))
 
-    def commit_layer(g):
+        def commit_layer(g):
+            with clock("lde_trees"):
+                tree = build_pruned(g, route.level, route.collapse)
+            with clock("transcript"):
+                alpha, _ = route.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
+            layers.append(g)
+            trees.append(tree)
+            return alpha
+
+        layers, trees = [], []
         with clock("lde_trees"):
-            tree = build_pruned(g, route.level, route.collapse)
-        with clock("transcript"):
-            alpha, _ = route.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
-        layers.append(g)
-        trees.append(tree)
-        return alpha
-
-    layers, trees = [], []
-    with clock("lde_trees"):
-        evals = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
-    alpha = commit_layer(evals)
-    with clock("folds"):
-        ys_inv, xs_invs = fold_tables(n, device)
-        g = circle_fold(evals, alpha, ys_inv)
-    for l in range(n_inner):
-        alpha = commit_layer(g)
+            evals = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
+        alpha = commit_layer(evals)
         with clock("folds"):
-            g = line_fold(g, alpha, xs_invs[l])
-    return _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock)
+            ys_inv, xs_invs = fold_tables(n, device)
+            g = circle_fold(evals, alpha, ys_inv)
+        for l in range(n_inner):
+            alpha = commit_layer(g)
+            with clock("folds"):
+                g = line_fold(g, alpha, xs_invs[l])
+        return _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock)
 
 
 def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock) -> Committed:
@@ -433,35 +438,36 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
 
     log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
     home, S = mesh.home(row), mesh.n_elem
-    state = channel_ops.new_state(home)
-    if seed is not None:
-        channel_ops.transcript(state, mix_u64=int(seed))
-    coeffs = ingest_ops.ingest(words, log_size)
-    ys_inv, xs_invs = fold_tables(n, home)
-    if 1 << n >= 2 * S:
-        g = sharded_evaluate(coeffs, n, mesh, row)
-    else:
-        g = fft.evaluate_auto(coeffs, fft.stage_twiddles(n, home))
-    layers, trees = [], []
-    for t in range(n_inner + 1):
-        tree = build_sharded_tree(g) if isinstance(g, Sharded) else build_pruned(g)
-        alpha, _ = channel_ops.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
-        layers.append(g)
-        trees.append(tree)
-        if not isinstance(g, Sharded):
-            g = fri_ops.fri_fold(g, alpha, ys_inv if t == 0 else xs_invs[t - 1])
-            continue
-        out = new_sharded(mesh, row, (4, g.blocks[0][1].shape[-1] // 2))
-        for (e0, src), (_, dst) in zip(g.blocks, out.blocks):
-            a = alpha.to(src.device)
-            inv = block_fold_tables(mesh, n, e0, src.shape[0], src.device)[t]
-            for i in range(src.shape[0]):
-                fri_ops.fri_fold(src[i], a, inv[i], out=dst[i])
-        g = out if out.width >= 2 * S else out.gather()
-    if isinstance(g, Sharded):
-        g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
-    committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
-                                  _Clock(home, None))
+    with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
+        state = channel_ops.new_state(home)
+        if seed is not None:
+            channel_ops.transcript(state, mix_u64=int(seed))
+        coeffs = ingest_ops.ingest(words, log_size)
+        ys_inv, xs_invs = fold_tables(n, home)
+        if 1 << n >= 2 * S:
+            g = sharded_evaluate(coeffs, n, mesh, row)
+        else:
+            g = fft.evaluate_auto(coeffs, fft.stage_twiddles(n, home))
+        layers, trees = [], []
+        for t in range(n_inner + 1):
+            tree = build_sharded_tree(g) if isinstance(g, Sharded) else build_pruned(g)
+            alpha, _ = channel_ops.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
+            layers.append(g)
+            trees.append(tree)
+            if not isinstance(g, Sharded):
+                g = fri_ops.fri_fold(g, alpha, ys_inv if t == 0 else xs_invs[t - 1])
+                continue
+            out = new_sharded(mesh, row, (4, g.blocks[0][1].shape[-1] // 2))
+            for (e0, src), (_, dst) in zip(g.blocks, out.blocks):
+                a = alpha.to(src.device)
+                inv = block_fold_tables(mesh, n, e0, src.shape[0], src.device)[t]
+                for i in range(src.shape[0]):
+                    fri_ops.fri_fold(src[i], a, inv[i], out=dst[i])
+            g = out if out.width >= 2 * S else out.gather()
+        if isinstance(g, Sharded):
+            g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
+        committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
+                                      _Clock(home, None))
     committed.opening_cls = ShardedOpening
     return committed
 
@@ -500,7 +506,7 @@ def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = D
         opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
     with clock("decommit_open"):
         vals, nodes = opening.run(route.open)
-    with clock("decommit_assemble"):
+    with clock("decommit_assemble"), span("prove/assemble"):
         node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
         layer_proofs = [
             FriLayerProof(
@@ -547,7 +553,9 @@ def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
     """(commitment, Proof) of a blob on `device` (reference:
     src/proof.rs:32-77)."""
     log_total = log_total_for(len(data))
-    return prove_words(upload_words([data], log_total, device)[1][0], log_total, seed, pcs_config)
+    with span("prove/ingest"):
+        words = upload_words([data], log_total, device)[1][0]
+    return prove_words(words, log_total, seed, pcs_config)
 
 
 # ---------------------------------------------------------------------------
@@ -615,7 +623,8 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
         if len(window) >= max_in_flight:
             out.append(finish_proof(*window.pop(0), pcs_config))
         log_total = log_total_for(len(data))
-        host, words = upload_words([data], log_total, device)
+        with span("prove/ingest"):
+            host, words = upload_words([data], log_total, device)
         committed = commit_phase(words[0], log_total, seed, pcs_config)
         committed.staging = host  # the upload reads it asynchronously: kept until the fetch
         window.append((committed, log_total))
@@ -737,7 +746,8 @@ def verify_proof(proof: Proof, seed) -> bool:
     verdict's `try`, so a failed build raises."""
     native.library()
     try:
-        return _verify_proof_inner(proof, seed)
+        with span("verify"):
+            return _verify_proof_inner(proof, seed)
     except IndexError:
         raise  # panic parity: missing evaluations
     except Exception:  # noqa: BLE001 - a malformed proof object is invalid

@@ -26,6 +26,7 @@ import torch
 from ..config import PcsConfig
 from ..core import fft, fri, merkle
 from ..utils.packing import log_total_for, upload_words
+from ..utils.profiling import span
 from .fft_sharded import sharded_evaluate
 from .mesh import Mesh
 
@@ -120,7 +121,8 @@ def sharded_commit_and_prove(data: bytes, seed, pcs_config: PcsConfig, mesh: Mes
     single-device `commit_and_prove`."""
     row = mesh.rows()[0]
     log_total = log_total_for(len(data))
-    host, words = upload_words([data], log_total, mesh.home(row))
+    with span("prove/ingest"):
+        host, words = upload_words([data], log_total, mesh.home(row))
     committed = fri.commit_phase_sharded(words[0], log_total, seed, pcs_config, mesh, row)
     committed.staging = host
     return fri.finish_proof(committed, log_total, pcs_config)

@@ -11,11 +11,14 @@ pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from frieda_tpu.core import blake2s as jb  # noqa: E402
 from frieda_tpu.spec import blake2s as sb  # noqa: E402
 from frieda_tpu_torch.core import blake2s as tb  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
+
+torch.set_num_threads(1)
 
 P = (1 << 31) - 1
 

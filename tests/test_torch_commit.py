@@ -7,10 +7,14 @@ import pytest
 
 pytest.importorskip("torch")
 
+import torch  # noqa: E402
+
 from chip_smoke import ANCHORS, synthetic_data  # noqa: E402
 from frieda_tpu import api as japi  # noqa: E402
 from frieda_tpu.spec import commit as sc  # noqa: E402
 from frieda_tpu_torch import api as tapi  # noqa: E402
+
+torch.set_num_threads(1)
 
 CASES = [(s, b) for s in (0, 1, 61, 1024, 9999) for b in (1, 4)] + [(333, 3), (4096, 2)]
 

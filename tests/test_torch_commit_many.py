@@ -22,6 +22,8 @@ from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.utils import packing as tp  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32  # noqa: E402
 
+torch.set_num_threads(1)
+
 P = (1 << 31) - 1
 
 # (blob sizes, log_blowup): B in {1, 3, 5}, sizes that differ but share a

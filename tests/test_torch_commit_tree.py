@@ -12,6 +12,7 @@ pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from chip_smoke import synthetic_data  # noqa: E402
 from frieda_tpu import api as japi  # noqa: E402
@@ -19,6 +20,8 @@ from frieda_tpu.core import merkle as jm  # noqa: E402
 from frieda_tpu_torch import api as tapi  # noqa: E402
 from frieda_tpu_torch.core import merkle as tm  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
+
+torch.set_num_threads(1)
 
 P = (1 << 31) - 1
 

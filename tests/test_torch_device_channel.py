@@ -36,6 +36,8 @@ from frieda_tpu_torch.ops import channel as channel_ops  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words  # noqa: E402
 
+torch.set_num_threads(1)
+
 P = (1 << 31) - 1
 CASES = {c["name"]: c for c in json.loads(
     (pathlib.Path(__file__).parent / "data" / "frozen_proofs.json").read_text())}

@@ -7,11 +7,14 @@ pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from frieda_tpu.core import field as jf  # noqa: E402
 from frieda_tpu.spec import field as sf  # noqa: E402
 from frieda_tpu_torch.core import field as tf  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
+
+torch.set_num_threads(1)
 
 P = sf.P
 BOUNDARY = np.array(

@@ -33,6 +33,8 @@ from frieda_tpu_torch.core import merkle as tm  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 
+torch.set_num_threads(1)
+
 P = sf.P
 BOUNDARY = np.array([0, 1, 2, P - 1, P - 2, (1 << 30) - 1, 1 << 30, (1 << 30) + 1], np.uint32)
 

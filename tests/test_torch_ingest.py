@@ -16,6 +16,8 @@ from frieda_tpu_torch.ops import ingest as ingest_ops  # noqa: E402
 from frieda_tpu_torch.utils import packing as tp  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32  # noqa: E402
 
+torch.set_num_threads(1)
+
 
 def _blob(size: int) -> bytes:
     return np.random.default_rng(size).integers(0, 256, size, dtype=np.uint8).tobytes()

@@ -19,6 +19,8 @@ from frieda_tpu_torch.core.blake2s import compress_rows  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 
+torch.set_num_threads(1)
+
 P = (1 << 31) - 1
 
 

@@ -23,6 +23,9 @@ import pytest
 pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = bytes((7 * i + 1) % 256 for i in range(2048))

@@ -15,6 +15,8 @@ import torch  # noqa: E402
 
 from frieda_tpu_torch import api  # noqa: E402
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
@@ -23,7 +25,7 @@ import frieda_tpu_torch, frieda_tpu_torch.api, frieda_tpu_torch.config
 import frieda_tpu_torch.ops, frieda_tpu_torch.ops.fft, frieda_tpu_torch.ops.ingest
 import frieda_tpu_torch.ops.merkle, frieda_tpu_torch.ops._build
 import frieda_tpu_torch.ops.channel, frieda_tpu_torch.ops.fri, frieda_tpu_torch.core.device_channel
-import frieda_tpu_torch.utils.convert, frieda_tpu_torch.core.circle
+import frieda_tpu_torch.utils.convert, frieda_tpu_torch.utils.profiling, frieda_tpu_torch.core.circle
 import frieda_tpu_torch.core.channel, frieda_tpu_torch.core.grind
 import frieda_tpu_torch.core.proof, frieda_tpu_torch.core.fri
 import frieda_tpu_torch.core.npfield, frieda_tpu_torch.core.merkle, frieda_tpu_torch.native

@@ -26,6 +26,8 @@ from frieda_tpu_torch.core.proof import Proof  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words  # noqa: E402
 
+torch.set_num_threads(1)
+
 CASES = json.loads((pathlib.Path(__file__).parent / "data" / "frozen_proofs.json").read_text())
 BY_NAME = {c["name"]: c for c in CASES}
 

@@ -23,6 +23,8 @@ from frieda_tpu_torch import api  # noqa: E402
 from frieda_tpu_torch.config import FriConfig, PcsConfig  # noqa: E402
 from frieda_tpu_torch.core import fri  # noqa: E402
 
+torch.set_num_threads(1)
+
 CASES = json.loads((pathlib.Path(__file__).parent / "data" / "frozen_proofs.json").read_text())
 BY_NAME = {c["name"]: c for c in CASES}
 CFG = PcsConfig(pow_bits=4, fri_config=FriConfig(2, 0, 8))

@@ -37,6 +37,8 @@ from frieda_tpu_torch.parallel.mesh import Mesh, Sharded  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, upload_words  # noqa: E402
 
+torch.set_num_threads(1)
+
 P = (1 << 31) - 1
 DATA = bytes((7 * i + 1) % 256 for i in range(2048))  # tests/test_sharding.py's
 LOG_BLOWUP = 2

@@ -17,6 +17,7 @@ import json  # noqa: E402
 import pathlib  # noqa: E402
 
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from frieda_tpu import api as japi  # noqa: E402
 from frieda_tpu.core import circle as jcircle  # noqa: E402
@@ -27,6 +28,8 @@ from frieda_tpu.core.proof import Proof as JProof  # noqa: E402
 from frieda_tpu_torch import api, native  # noqa: E402
 from frieda_tpu_torch.core import circle, fri, merkle, npfield  # noqa: E402
 from frieda_tpu_torch.core.proof import Proof  # noqa: E402
+
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CASES = json.loads((ROOT / "tests" / "data" / "frozen_proofs.json").read_text())

@@ -1,6 +1,7 @@
 """Timers and before/after scaffolding shared by `chip_smoke.py` and
 `tools/torch_kernel_times.py`. Imports nothing of `frieda_tpu_torch`, so a
-tool can time another checkout's package with the same timers.
+tool can time another checkout's package with the same timers (and grade it
+by this checkout's bounds: `profiling`).
 
 - `cuda_ms`: CUDA events around one Python call (call time: the wrapper's
   host work while the card waits is in it);
@@ -8,6 +9,8 @@ tool can time another checkout's package with the same timers.
   time: the launches alone);
 - `host_ms`: the host clock, synchronized at both ends;
 - `device_busy_us`: the device's busy time in a torch.profiler trace;
+- `profiling`: this checkout's `frieda_tpu_torch/utils/profiling.py` (the
+  kernels' bounds), loaded from its file;
 - `package_copies` / `build_all` / `in_turns`: copy the package with its
   sources edited, build every copy's kernels at once, run a command against
   each checkout in turns (A B ... B A), one process each.
@@ -15,6 +18,8 @@ tool can time another checkout's package with the same timers.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import pathlib
 import shutil
 import statistics
@@ -25,11 +30,24 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def card() -> str:
-    """Card 0's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+def card(fields: str = "name,power.limit") -> str:
+    """Card 0's name and power limit (or other `--query-gpu` fields), as
+    nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={fields}",
                            "--format=csv,noheader"], check=True, capture_output=True,
                           text=True).stdout.strip()
+
+
+@functools.cache
+def profiling():
+    """This checkout's `frieda_tpu_torch/utils/profiling.py`, loaded from its
+    file, so that a run over another checkout's package (an older commit
+    without it) is graded by the same bounds."""
+    spec = importlib.util.spec_from_file_location(
+        "frieda_profiling", REPO / "frieda_tpu_torch" / "utils" / "profiling.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def cuda_ms(fn, reps: int = 5) -> float:

@@ -32,7 +32,10 @@ Parts, one line each shape:
   together, then a link) and as one nvcc over every source, in turns
   (seconds, 2 each; not in the default parts).
 `ingest`, `merkle`, `open` and `commit` give device time (`torch_harness.device_ms`:
-CUDA events around a replayed CUDA graph of 20 calls, per call).
+CUDA events around a replayed CUDA graph of 20 calls, per call). Each line
+gives the least time the card could take for the same work and the time's
+share of it, from this checkout's `frieda_tpu_torch/utils/profiling.py`
+(`torch_harness.profiling`), whichever checkout `--root` names.
 The first line gives the card's `nvidia-smi` name and power limit. Exits
 nonzero without CUDA.
 
@@ -65,7 +68,8 @@ import numpy as np
 import torch
 
 from torch_harness import (REPO, build_all, card, cuda_ms, device_ms, host_ms, in_turns,
-                           package_copies, proof_collapse_widths)
+                           package_copies, profiling, proof_collapse_widths)
+
 
 LDE_SHAPES = ((22, 18), (24, 20), (26, 22))  # 2^20-felt prove, 2^22 commit, 2^24 commit and prove
 P = (1 << 31) - 1
@@ -87,6 +91,11 @@ PLANS = (
 )
 
 
+def graded(ms: float, bound: tuple) -> str:
+    """`bound ... ms (what sets it), share ...` of a time against its bound."""
+    return f"bound {bound[0]:.6f} ms ({bound[1]}), share {bound[0] / ms:.3f}"
+
+
 def time_lde(dev, rng, reps: int, checked: bool) -> None:
     from frieda_tpu_torch.core import fft
     from frieda_tpu_torch.ops import fft as fft_ops
@@ -102,7 +111,8 @@ def time_lde(dev, rng, reps: int, checked: bool) -> None:
         ms = cuda_ms(lambda: fft.evaluate_auto(coeffs, tw), reps)  # noqa: B023
         p_min, groups = fft_ops.pass_plan(n, log_l)
         what = "bit-equal" if checked else "not checked"
-        print(f"[times] LDE n={n} log_l={log_l}: {what}; call {ms:.4f} ms, {len(groups)} launches", flush=True)
+        print(f"[times] LDE n={n} log_l={log_l}: {what}; call {ms:.4f} ms, {len(groups)} launches; "
+              f"{graded(ms, profiling().fft_pass_bound(4, log_l, n))}", flush=True)
         src, shift = coeffs, p_min
         for p_lo, p_hi, k in groups:
             g_ms = cuda_ms(lambda: fft_ops.fft_pass(src, tw, got, p_lo, p_hi, k, shift), reps)  # noqa: B023
@@ -127,7 +137,8 @@ def time_ingest(rand_u32) -> None:
         ms = device_ms(lambda: ingest_ops.ingest(words, log_size))  # noqa: B023
         form = (f" ({ingest_ops.ingest_tile(log_size)} tiles a block)"
                 if hasattr(ingest_ops, "ingest_tile") else "")
-        print(f"[times] ingest log_size={log_size}{form}: bit-equal; device {ms:.4f} ms", flush=True)
+        print(f"[times] ingest log_size={log_size}{form}: bit-equal; device {ms:.4f} ms; "
+              f"{graded(ms, profiling().ingest_bound(words.numel(), 4 << log_size))}", flush=True)
 
 
 def time_build() -> None:
@@ -164,7 +175,9 @@ def time_commit(dev) -> None:
         if root != api.commit(data, 4, device=dev):
             raise SystemExit(f"torch_kernel_times: 2^{log_felts}-felt commit root differs from api.commit")
         ms = device_ms(lambda: api.commit_root_pipeline(words, log_felts, 4), reps=3)  # noqa: B023
-        print(f"[times] commit_root_pipeline 2^{log_felts} felts: device {ms:.4f} ms", flush=True)
+        roof = profiling().commit_roofline(log_felts + 2, ms / 1e3)
+        print(f"[times] commit_root_pipeline 2^{log_felts} felts: device {ms:.4f} ms; "
+              f"{graded(ms, (roof['min_seconds_at_sol'] * 1e3, roof['bound']))}", flush=True)
         del words
         torch.cuda.empty_cache()
 
@@ -184,7 +197,8 @@ def time_merkle(rand_u32) -> None:
             raise SystemExit(f"torch_kernel_times: merkle_collapse {m} -> {widths} differs from plain")
         ms = times[m, widths] = device_ms(lambda: merkle_ops.merkle_collapse(level, widths))  # noqa: B023
         plan = f" (cluster {merkle_ops.collapse_plan(m)})" if hasattr(merkle_ops, "collapse_plan") else ""
-        print(f"[times] merkle_collapse {m} -> {widths}{plan}: bit-equal; device {ms:.4f} ms", flush=True)
+        print(f"[times] merkle_collapse {m} -> {widths}{plan}: bit-equal; device {ms:.4f} ms; "
+              f"{graded(ms, profiling().merkle_collapse_bound(m, widths))}", flush=True)
     print(f"[times] merkle_collapse over the 2^24-felt proof's {len(shapes)} trees: device "
           f"{sum(times[m, merkle.tail_widths(m)] for m in shapes):.4f} ms", flush=True)
     for leaf, fused, width in ((True, False, 1 << 12), (False, False, 1 << 13),
@@ -196,11 +210,12 @@ def time_merkle(rand_u32) -> None:
                              "differs from plain")
         ms = device_ms(lambda: merkle_ops.merkle_level(x, leaf, fused))  # noqa: B023
         print(f"[times] merkle_level leaf={leaf} fused={fused} width {width}: bit-equal; "
-              f"device {ms:.4f} ms", flush=True)
+              f"device {ms:.4f} ms; {graded(ms, profiling().merkle_level_bound(width, leaf, fused))}", flush=True)
 
 
 def _proof_opening(fri, words, log_total: int, cfg):
-    """The `Opening` whose `run` one `fri.prove_words` call makes."""
+    """The `Opening` whose `run` one `fri.prove_words` call makes (the class
+    a `Committed` names, or before it the module's `Opening`)."""
     seen = []
 
     class Recorded(fri.Opening):
@@ -208,11 +223,15 @@ def _proof_opening(fri, words, log_total: int, cfg):
             seen.append(self)
             return super().run(*args)
 
-    real, fri.Opening = fri.Opening, Recorded
+    owner, name = getattr(fri, "Committed", None), "opening_cls"
+    if not hasattr(owner, name):
+        owner, name = fri, "Opening"
+    real = getattr(owner, name)
+    setattr(owner, name, Recorded)
     try:
         fri.prove_words(words, log_total, 7, cfg)
     finally:
-        fri.Opening = real
+        setattr(owner, name, real)
     return seen[0]
 
 
@@ -264,7 +283,9 @@ def time_open(dev) -> None:
             table = torch.from_numpy(merkle_ops.open_table(*args)).to(dev)
             ms = device_ms(lambda: merkle_ops.merkle_open(*args, table))  # noqa: B023
             call = cuda_ms(lambda: merkle_ops.merkle_open(*args))  # noqa: B023
-            what = f"merkle_open bit-equal; device {ms:.4f} ms, call {call:.4f} ms"
+            _, _, _, r, leaf, _ = merkle_ops.open_plan(opening.trees, *opening.jobs())
+            what = (f"merkle_open bit-equal; device {ms:.4f} ms, call {call:.4f} ms; "
+                    f"{graded(ms, profiling().merkle_open_bound(len(args[2]), leaf, r))}")
         else:
             with _device_work_only():
                 ms = device_ms(opening.run)
