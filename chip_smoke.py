@@ -91,7 +91,9 @@ Phases, each printed as it runs:
      plan, open and assemble), kernel launches per proof (`merkle_open` once,
      no `merkle_level` in the decommitment; `fri_fold` once a layer,
      `transcript` once a layer and three more, `grind` once) and peak device
-     memory; a warm `fri.commit_phase` run under
+     memory (allocated: everything live at the peak of a proof whose commit
+     phase is a graph replay, its instance's outputs included; and the
+     reserved bytes, the instances' pools included); a warm eager `fri.commit_phase` run under
      `torch.cuda.set_sync_debug_mode("error")` with FRIEDA_SPANS=1 (it
      synchronizes nowhere, and its span prints), its
      host enqueue ms beside its device ms (CUDA events), and exactly one
@@ -135,7 +137,28 @@ Phases, each printed as it runs:
      `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
      Host (enqueue) and device ms of each beside the single-device path's, in
      turns in this phase, and the launches per kernel: every kernel of the
-     sharded path (all nine) launched in this phase.
+     sharded path (all nine) launched in this phase. The sharded proofs'
+     launches are read from a second call: the first runs the eager
+     warm-up and the capture of the commit phase's graph (phase 13).
+ 13. the commit phase as one dispatch (`fri.dispatch_commit_phase`: a CUDA
+     graph captured once per configuration and replayed; phases 8, 9, 11
+     and 12 already prove through it) against the eager `fri.commit_phase`,
+     at 2^20 felts / 64 queries, 2^24 felts / 20 queries and the 2^24 / 20 q
+     proof over 8 virtual shards: proof bytes == eager's == the anchor
+     (2^20), phase 9's (2^24, itself == the plain route) and the single
+     device's (sharded); two `Committed` of one key alive at once (a second
+     instance captured: its `torch.cuda.memory_reserved` growth per domain
+     element beside `fri.RESIDENT_BYTES_PER_ELEMENT`), finished in reverse
+     order, each == eager; one capture per key over repeated calls; launches
+     per proof == eager's; the dispatch (copy, seed fill, replay) under sync
+     debug mode "error", then one synchronizing fetch; host enqueue, device
+     and whole-prove ms of both, median of 5 in turns, and the words' copy.
+     Then 9 keys (2^10 felts, 1-9 queries): the 9th evicts the least
+     recently used, and the first is captured again; the cached tables
+     cleared under a live graph (it holds them) and its proof unchanged;
+     `prove_many` on phase 11's 8 x 2^20 felts: bytes == a loop, instances
+     of its key <= its window, proofs/s against the loop in turns, idle
+     share, peak allocated and reserved memory.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON.
@@ -147,6 +170,10 @@ runs only phases 1-2 and one staged prove of 2^26 felts (20 queries,
 pow_bits 20, log_blowup 4) and prints its time, stage split and peak device
 memory: whether the largest blob the JAX bench names fits one card; then
 `api.verify` accepts the proof (host ms) and rejects a tampered copy.
+
+    python3 chip_smoke.py --commit-graph
+
+runs only phases 1-2 and 13 (~1 min).
 
     python3 chip_smoke.py --commit-split
 
@@ -160,6 +187,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import io
 import json
@@ -375,23 +403,46 @@ def prove_fit(log_felts: int) -> int:
     log_total = log_total_for(len(data))
     words = from_numpy_u32(pad_to_words(data, log_total), dev)
     del data
+    domain = 1 << (log_total - 2 + LOG_BLOWUP)
     t0 = time.perf_counter()
-    _, proof = api.commit_and_prove_staged(words, log_total, 7, cfg)  # tables built on first use
+    _, proof = api.commit_and_prove_staged(words, log_total, 7, cfg)  # tables, warm-up and capture on first use
     torch.cuda.synchronize()
-    say(f"[fit] first prove of 2^{log_felts} felts (host tables included): "
-        f"{time.perf_counter() - t0:.3f} s; proof {wire_note(proof)}")
+    say(f"[fit] first prove of 2^{log_felts} felts through the commit phase's graph (host tables, eager "
+        f"warm-up and capture included): {time.perf_counter() - t0:.3f} s; proof {wire_note(proof)}; "
+        f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    first = fri.dispatch_commit_phase(words, log_total, 7, cfg)
+    t0 = time.perf_counter()
+    second = fri.dispatch_commit_phase(words, log_total, 7, cfg)  # `first` holds its lease: a second instance
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_reserved(dev) - reserved0
+    check(grown <= fri.RESIDENT_BYTES_PER_ELEMENT * domain, f"2^{log_felts} felts: a second instance grew "
+          f"memory_reserved {grown / domain:.3f} bytes per domain element, above "
+          f"fri.RESIDENT_BYTES_PER_ELEMENT {fri.RESIDENT_BYTES_PER_ELEMENT}")
+    graph_bytes = [fri.finish_proof(c, log_total, cfg)[1].to_bytes() for c in (second, first)]
+    del first, second
+    say(f"[fit] a second live Committed captured a second instance in {capture_s:.3f} s: memory_reserved "
+        f"+{grown} bytes = {grown / domain:.3f} bytes per domain element (fri.RESIDENT_BYTES_PER_ELEMENT "
+        f"{fri.RESIDENT_BYTES_PER_ELEMENT}); prove_many window "
+        f"{fri.safe_in_flight(log_total - 2, cfg.fri_config, dev)}")
+    fri.clear_commit_graphs()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     stats = {}
     t0 = time.perf_counter()
-    fri.prove_words(words, log_total, 7, cfg, stats=stats)
+    _, eager = fri.prove_words(words, log_total, 7, cfg, stats=stats)  # the stage clock runs it eagerly
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(graph_bytes == [proof.to_bytes()] * 2 and eager.to_bytes() == proof.to_bytes(),
+          f"2^{log_felts} felts: the graph proofs != the eager proof")
     peak = torch.cuda.max_memory_allocated(dev)
     free, total = torch.cuda.mem_get_info(dev)
     split = " ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items())
-    say(f"[fit] staged prove 2^{log_felts} felts, 20 queries, pow 20 (domain 2^{log_total - 2 + LOG_BLOWUP}): "
-        f"{wall * 1e3:.3f} ms (synchronized stages, ms: {split}); peak device memory {peak} bytes = "
-        f"{peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB ({peak / (1 << (log_total - 2 + LOG_BLOWUP)):.1f} "
+    say(f"[fit] eager staged prove 2^{log_felts} felts, 20 queries, pow 20 (domain 2^{log_total - 2 + LOG_BLOWUP}): "
+        f"{wall * 1e3:.3f} ms (synchronized stages, ms: {split}); bytes == the graph's; peak device memory "
+        f"{peak} bytes = {peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB ({peak / domain:.1f} "
         f"bytes per domain element)")
     t0 = time.perf_counter()
     ok = api.verify(proof, 7)
@@ -441,6 +492,7 @@ def main() -> int:
 
     fit = sys.argv[sys.argv.index("--prove-fit") + 1] if "--prove-fit" in sys.argv else None
     split = "--commit-split" in sys.argv
+    graph_only = "--commit-graph" in sys.argv
 
     # -- 1. the card ---------------------------------------------------------
     smi = card()
@@ -486,6 +538,10 @@ def main() -> int:
         return prove_fit(int(fit))
     if split:
         return commit_split()
+    if graph_only:
+        graph_phase(dev)
+        say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 3. each kernel against its plain version, at main-path shapes --------
     kernels = {}
@@ -1146,10 +1202,11 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = ops.launch_counts()
-        api.commit_and_prove_staged(words, log_total, 7, cfg)
+        api.commit_and_prove_staged(words, log_total, 7, cfg)  # a replay of the graph the warm-up captured
         per_proof = {k: v - before[k] for k, v in ops.launch_counts().items()}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.memory_reserved(dev)
         layers = log_total - 2  # the proof's layers at llb 0: n - last_log
         check(per_proof["fri_fold"] == layers and per_proof["transcript"] == layers + 3
               and per_proof["grind"] == 1, f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
@@ -1206,7 +1263,9 @@ def main() -> int:
             f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
             f"kernel launches per proof {per_proof} (in the decommitment: merkle_open "
             f"{opened['merkle_open']}, merkle_level rebuilds {opened['merkle_level']}); "
-            f"peak device memory {peak} bytes = {peak / 2**30:.3f} GiB; proof {wire_note(warm)}")
+            f"peak device memory allocated {peak} bytes = {peak / 2**30:.3f} GiB (everything live: the graph "
+            f"instances' outputs, tables, words, the decommitment), reserved {reserved / 2**30:.3f} GiB (the "
+            f"instances' pools of every key so far included); proof {wire_note(warm)}")
         for i, split in enumerate(splits):
             say(f"[9]   run {i + 1} stages (ms): {split}")
         whole = {"on": [], "off": []}
@@ -1237,9 +1296,10 @@ def main() -> int:
         del committed
         domain = 1 << (log_total - 2 + LOG_BLOWUP)
         safe = fri.safe_in_flight(log_total - 2, cfg.fri_config, dev)
-        say(f"[9] one Committed of 2^{log_felts} felts keeps {resident} bytes on the card = "
+        say(f"[9] one eager Committed of 2^{log_felts} felts keeps {resident} bytes on the card = "
             f"{resident / domain:.3f} bytes per domain element (words uploaded, tables cached); "
-            f"prove_many window: safe {safe}, default {min(8, safe)} (card total "
+            f"prove_many window (a graph instance a proof in flight, fri.RESIDENT_BYTES_PER_ELEMENT "
+            f"{fri.RESIDENT_BYTES_PER_ELEMENT}): safe {safe}, default {min(8, safe)} (card total "
             f"{fri.device_memory_bytes(dev)} bytes)")
         check(api.verify(warm, 7), f"2^{log_felts}-felt proof: verify is False")
         check(not api.verify(tampered(warm), 7), f"2^{log_felts}-felt proof: a tampered copy verifies")
@@ -1343,8 +1403,13 @@ def main() -> int:
 
     # -- 12. the sharded path on virtual shards of cuda:0 ---------------------
     sharded_counts = sharded_phase(dev, results[24]["root"], staged_wires[24], many_out, roots20, datas, seeds)
-    del many_out, roots20
-    say(f"[12] whole run {time.perf_counter() - t_start:.1f} s")
+    del roots20
+    lap(12)
+
+    # -- 13. the commit phase as one dispatch -------------------------------------
+    graph_phase(dev, staged_wires[24], many_out)
+    del many_out
+    say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
 
     check(set(kernels) == set(ops.kernel_wrappers()), f"kernels measured {sorted(kernels)}")
     for name, k in kernels.items():
@@ -1459,11 +1524,13 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         del tw
         torch.cuda.empty_cache()
 
-    # the 2^24-felt / 20-query proof over 8 shards, against phase 9's
+    # the 2^24-felt / 20-query proof over 8 shards, against phase 9's; the
+    # first call warms up and captures its commit phase, the second is counted
     cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 20))
     t0 = time.perf_counter()
-    (com, proof), used = launched(lambda: sharding.sharded_commit_and_prove(data, 7, cfg, mesh8))
+    sharding.sharded_commit_and_prove(data, 7, cfg, mesh8)
     first = time.perf_counter() - t0
+    (com, proof), used = launched(lambda: sharding.sharded_commit_and_prove(data, 7, cfg, mesh8))
     check(com.hex() == anchor24 and proof.to_bytes() == wire24,
           "sharded_commit_and_prove 2^24 felts / 20 queries over S = 8: bytes != phase 9's proof")
     check(api.verify(proof, 7), "sharded 2^24-felt proof: verify is False")
@@ -1492,8 +1559,9 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire24,
           "sharded proof after the sync-free commit phase differs")
     say(f"[12] sharded_commit_and_prove 2^24 felts / 20 queries / pow 20 over S = 8: commitment and wire "
-        f"bytes == phase 9's proof; verify True, tampered copy False (first call with the shard tables "
-        f"{first:.3f} s); commit phase under sync debug mode 'error': no synchronization (host enqueue "
+        f"bytes == phase 9's proof; verify True, tampered copy False (first call, with the shard tables, "
+        f"the warm-up and the capture: {first:.3f} s); eager commit phase under sync debug mode 'error': "
+        f"no synchronization (host enqueue "
         f"{host:.3f} ms, device {dev_ms:.3f} ms), then {syncs} synchronizing fetch; launches per proof {used}")
     del committed
     rows = {"single": [], "sharded": []}
@@ -1516,6 +1584,7 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     # prove_many_sharded and commit_roots_batch over a (2, 4) mesh
     mesh24 = mesh_of(2, 4)
     cfg64 = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
+    sharding.prove_many_sharded(datas, seeds, cfg64, mesh24)  # each row's key warmed up and captured
     out, used = launched(lambda: sharding.prove_many_sharded(datas, seeds, cfg64, mesh24))
     check([(c, p.to_bytes()) for c, p in out] == many_out, "prove_many_sharded 8 x 2^20 felts over (2, 4) "
           "differs from phase 11's proofs")
@@ -1566,9 +1635,302 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         f"commit_roots_batch {busy['commit_roots_batch']}")
     for name, count in sharded_counts.items():
         check(count > 0, f"kernel {name} was never launched by the sharded calls (phase 12)")
-    say(f"[12] kernel launches of phase 12's sharded calls (the first call of each; every kernel > 0): "
+    say(f"[12] kernel launches of phase 12's sharded calls (the counted call of each; every kernel > 0): "
         f"{sharded_counts}")
     return sharded_counts
+
+
+def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) -> None:
+    """Phase 13: the commit phase as one dispatch (`fri.dispatch_commit_phase`,
+    a cached CUDA graph) against the eager `fri.commit_phase`, at the two
+    prove cells and the sharded proof; the cache's keys, leases and tables;
+    `prove_many` through it. wire24: phase 9's 2^24-felt proof; many_out:
+    phase 11's prove_many [(commitment, wire bytes)] (None when this phase
+    runs alone)."""
+    import weakref
+
+    import torch
+
+    from frieda_tpu_torch import api, ops
+    from frieda_tpu_torch.config import FriConfig, PcsConfig
+    from frieda_tpu_torch.core import fft, fri
+    from frieda_tpu_torch.parallel import sharding
+    from frieda_tpu_torch.utils.convert import from_numpy_u32
+    from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
+
+    t_phase = time.perf_counter()
+    fri.clear_commit_graphs()  # every key of phases 8-12 is free: their pools go
+    torch.cuda.empty_cache()
+    mesh8 = sharding.make_mesh(1, 8, devices=[dev] * 8)
+    anchor20 = next(blake for name, _, _, _, _, blake in PROVE_ANCHORS if name == "felts2p20_64q")
+
+    def captures() -> int:
+        return fri.commit_graphs()[0]
+
+    def counted(fn) -> tuple:
+        ops.reset_launch_counts()
+        out = fn()
+        return out, {k: v for k, v in ops.launch_counts().items() if v}
+
+    def clocked(fn, finish) -> tuple:
+        """(host enqueue ms, device ms from before the first launch to after
+        the last (CUDA events), whole prove ms): fn() enqueues the commit
+        phase, finish(committed) decommits it."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        committed = fn()
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        finish(committed)
+        wall = (time.perf_counter() - t0) * 1e3
+        return host, start.elapsed_time(end), wall
+
+    cells = (("2^20 felts / 64 q", 20, 64, None), ("2^24 felts / 20 q", 24, 20, None),
+             ("2^24 felts / 20 q over 8 virtual shards", 24, 20, mesh8))
+    for what, log_felts, nq, mesh in cells:
+        cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
+        data = synthetic_data(felt_bytes(log_felts))
+        log_total = log_total_for(len(data))
+        words = from_numpy_u32(pad_to_words(data, log_total), dev)
+        words2 = from_numpy_u32(pad_to_words(synthetic_data(felt_bytes(log_felts), 1), log_total), dev)
+        domain = 1 << (log_total - 2 + LOG_BLOWUP)
+
+        def eager(w=words, seed=7):
+            if mesh is None:
+                return fri.commit_phase(w, log_total, seed, cfg)
+            return fri.commit_phase_sharded(w, log_total, seed, cfg, mesh, 0)  # noqa: B023
+
+        def graph(w=words, seed=7):
+            return fri.dispatch_commit_phase(w, log_total, seed, cfg, mesh)  # noqa: B023
+
+        def finish(c):
+            return fri.finish_proof(c, log_total, cfg)[1].to_bytes()  # noqa: B023
+
+        want, eager_counts = counted(lambda: finish(eager()))
+        want2 = finish(eager(words2, 8))
+        n0 = captures()
+        t0 = time.perf_counter()
+        first = graph()
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        second = graph(words2, 8)  # `first` holds its lease: a second instance
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_reserved(dev) - reserved0
+        check(captures() - n0 == 2, f"{what}: {captures() - n0} captures for two leases of one key")
+        got2, got = finish(second), finish(first)  # in reverse order
+        check(got == want and got2 == want2, f"{what}: graph proof bytes != eager's (two live Committed, "
+              "finished in reverse order)")
+        if mesh is None and log_felts == 20:
+            check(hashlib.blake2s(got).hexdigest() == anchor20, f"{what}: graph proof != the JAX anchor")
+        if log_felts == 24 and wire24 is not None:
+            check(got == wire24, f"{what}: graph proof != phase 9's (the plain route's bytes)")
+        n1 = captures()
+        repeated, graph_counts = counted(lambda: [finish(graph()) for _ in range(3)])
+        check(all(r == want for r in repeated) and captures() == n1,
+              f"{what}: 3 repeated graph proofs: {captures() - n1} captures, bytes equal {repeated == [want] * 3}")
+        check(graph_counts == {k: 3 * v for k, v in eager_counts.items()},
+              f"{what}: launches of 3 graph proofs {graph_counts}, eager proof {eager_counts}")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            committed = graph()
+            torch.cuda.synchronize()
+        traced = traced_launches(prof)
+        recorded = committed._lease.launches
+        check(traced == recorded and recorded == {k: v for k, v in eager_counts.items() if k != "merkle_open"},
+              f"{what}: kernels in a torch.profiler trace of one replay {traced}, recorded at its capture "
+              f"{recorded}, eager commit phase {eager_counts} (less merkle_open)")
+        check(finish(committed) == want, f"{what}: the traced replay's proof differs")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            committed = graph()  # copy, seed fill, replay
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                committed.fetch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        check(syncs == 1 and finish(committed) == want, f"{what}: {syncs} synchronizing operations in the "
+              "fetch after the dispatch, or its proof differs")
+        del committed
+        rows = {"eager": [], "graph": []}
+        for r in range(5):  # in turns
+            for kind in ("eager", "graph") if r % 2 == 0 else ("graph", "eager"):
+                rows[kind].append(clocked(eager if kind == "eager" else graph, finish))
+        copy_ms = cuda_ms(lambda: torch.empty_like(words).copy_(words))  # noqa: B023
+        med = {k: [statistics.median(r[i] for r in v) for i in range(3)] for k, v in rows.items()}
+        say(f"[13] {what}: graph proof bytes == eager's{' == the JAX anchor' if log_felts == 20 and mesh is None else ''}"
+            f"{' == phase 9' if log_felts == 24 and wire24 is not None else ''}; first dispatch (warm-up, "
+            f"capture, replay) {first_s:.3f} s; a second live Committed captured a second instance: "
+            f"memory_reserved +{grown} bytes = {grown / domain:.3f} bytes per domain element "
+            f"({'within' if grown <= fri.RESIDENT_BYTES_PER_ELEMENT * domain else 'ABOVE'} "
+            f"fri.RESIDENT_BYTES_PER_ELEMENT {fri.RESIDENT_BYTES_PER_ELEMENT}); both proofs == eager, finished in "
+            f"reverse order; 3 repeated proofs: no capture, launches per proof == eager's {eager_counts}; a "
+            f"torch.profiler trace of one replay holds each recorded launch: {traced}; "
+            f"the dispatch under sync debug mode 'error': no synchronization, then {syncs} synchronizing fetch")
+        for kind, runs in rows.items():
+            say(f"[13]   {what}, {kind} commit phase, 5 in turns: host enqueue ms "
+                f"{[round(x[0], 3) for x in runs]} (median {med[kind][0]:.3f}), device ms "
+                f"{[round(x[1], 3) for x in runs]} (median {med[kind][1]:.3f}), whole prove ms "
+                f"{[round(x[2], 3) for x in runs]} (median {med[kind][2]:.3f})")
+        say(f"[13]   {what}: the words' device-to-device copy into the static buffer {copy_ms:.4f} ms "
+            f"({words.numel() * 4} bytes)")
+        del words, words2, first, second
+        torch.cuda.empty_cache()
+    del mesh8
+
+    # nine keys: 2^10 felts at 1-9 queries; the ninth evicts the first
+    data = synthetic_data(felt_bytes(10))
+    log_total = log_total_for(len(data))
+    words = from_numpy_u32(pad_to_words(data, log_total), dev)
+    cfgs = [PcsConfig(pow_bits=8, fri_config=FriConfig(LOG_BLOWUP, 0, q)) for q in range(1, 10)]
+    n0 = captures()
+    firsts = [api.commit_and_prove_staged(words, log_total, 7, c)[1].to_bytes() for c in cfgs]
+    keys = fri.commit_graphs()[1]
+    check(captures() - n0 == 9 and len(keys) == 8, f"9 keys: {captures() - n0} captures, {len(keys)} kept")
+    again = api.commit_and_prove_staged(words, log_total, 7, cfgs[0])[1].to_bytes()
+    check(captures() - n0 == 10 and again == firsts[0], f"the first of 9 keys: {captures() - n0 - 9} captures "
+          "on its return, or its proof changed")
+    n = log_total - 2 + LOG_BLOWUP
+    held = weakref.ref(fri.fold_tables(n, dev)[0]), weakref.ref(fft.stage_twiddles(n, dev))
+    fri._fold_tables.clear()
+    fft._stage_twiddles_dev.clear()
+    gc.collect()
+    check(all(ref() is not None for ref in held), "a live graph's tables were freed with the caches")
+    check(api.commit_and_prove_staged(words, log_total, 7, cfgs[0])[1].to_bytes() == firsts[0],
+          "a live graph's proof changed after the caches were cleared")
+    check(fri.finish_proof(fri.commit_phase(words, log_total, 7, cfgs[0]), log_total, cfgs[0])[1].to_bytes()
+          == firsts[0], "the eager proof changed after the caches were cleared (tables uploaded again)")
+    say(f"[13] 9 keys (2^10 felts, 1-9 queries): 9 captures, 8 keys kept; the first key captured again on "
+        f"its return, proof unchanged; the fold and stage tables' caches cleared: the live graph still holds "
+        f"its tables and its proof is unchanged, and the eager path uploads them again")
+    del words
+
+    # prove_many on phase 11's blobs
+    cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
+    datas = [synthetic_data(felt_bytes(20), k) for k in range(8)]
+    seeds = list(range(1, 9))
+    log_size = log_total_for(len(datas[0])) - 2
+    window = min(8, fri.safe_in_flight(log_size, cfg.fri_config, dev))
+    fri.clear_commit_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    batch = [(c, p.to_bytes()) for c, p in api.prove_many(datas, seeds, cfg, device=dev)]
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    peak, peak_reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+    grown = torch.cuda.memory_reserved(dev) - reserved0
+    instances = list(fri.commit_graphs()[1].values())
+    check(instances == [window], f"prove_many with window {window}: instances {instances}")
+    looped = [(c, p.to_bytes()) for c, p in (api.commit_and_prove(d, s, cfg, device=dev)
+                                             for d, s in zip(datas, seeds))]
+    check(batch == looped and (many_out is None or batch == many_out),
+          "prove_many through the graphs != a loop of commit_and_prove (or phase 11's)")
+    walls = {"loop": [], "prove_many": []}
+    for kind in ("loop", "prove_many", "prove_many", "loop"):  # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "loop":
+            for d, s in zip(datas, seeds):
+                api.commit_and_prove(d, s, cfg, device=dev)
+        else:
+            api.prove_many(datas, seeds, cfg, device=dev)
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        api.prove_many(datas, seeds, cfg, device=dev)
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    busy_us, records = device_busy_us(prof)
+    check(records > 0 and busy_us < prof_us, f"profile of prove_many: {records} records, busy {busy_us:.0f} us")
+    rate = {k: 8 / statistics.mean(v) * 1e3 for k, v in walls.items()}
+    say(f"[13] prove_many 8 x 2^20 felts / 64 q through the graphs: bytes == a loop of commit_and_prove"
+        f"{' == phase 11' if many_out is not None else ''}; {instances[0]} instances of its key (window "
+        f"{window}); first call (1 warm-up, {window} captures) {cold:.3f} ms; walls in turns, ms: loop "
+        f"{walls['loop'][0]:.3f}, prove_many {walls['prove_many'][0]:.3f}, {walls['prove_many'][1]:.3f}, loop "
+        f"{walls['loop'][1]:.3f}: prove_many {rate['prove_many']:.3f} proofs/s, loop {rate['loop']:.3f} "
+        f"proofs/s; idle share {1 - busy_us / prof_us:.3f} (device busy {busy_us:.0f} us in {records} records "
+        f"of {prof_us:.0f} us); peak allocated {peak / 2**30:.3f} GiB, peak reserved {peak_reserved / 2**30:.3f} "
+        f"GiB, reserved growth over the first call {grown / 2**30:.3f} GiB (the {window} pools), of "
+        f"{fri.device_memory_bytes(dev) / 2**30:.3f} GiB (60%: {0.6 * fri.device_memory_bytes(dev) / 2**30:.3f})")
+    check(peak_reserved <= 0.6 * fri.device_memory_bytes(dev), "prove_many's reserved memory above 60% of the card")
+    del datas, batch, looped
+
+    # prove_many at 2^24 felts over several keys in a row: each call's window
+    # of instances stays cached, and a later key's captures close the free
+    # instances of the least recently used keys to keep within 60% of the card
+    total = fri.device_memory_bytes(dev)
+    budget = int(fri.MEMORY_SHARE * total)
+    datas = [synthetic_data(felt_bytes(24), k) for k in range(8)]
+    log_total = log_total_for(len(datas[0]))
+    words0 = from_numpy_u32(pad_to_words(datas[0], log_total), dev)
+    fri.clear_commit_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    notes = []
+    for nq, seeded in ((20, True), (20, False), (21, True), (22, True)):
+        cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
+        seeds = list(range(1, 9)) if seeded else [None] * 8
+        window = min(8, fri.safe_in_flight(log_total - 2, cfg.fri_config, dev))
+        t0 = time.perf_counter()
+        proofs = [p for _, p in api.prove_many(datas, seeds, cfg, device=dev)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = fri.prove_words(words0, log_total, seeds[0], cfg, stats={})[1]  # the stage clock: eager
+        check(proofs[0].to_bytes() == eager.to_bytes(), f"prove_many 2^24 felts / {nq} q seeded {seeded}: "
+              "proof 0 != the eager proof")
+        check(all(api.verify(p, s) for p, s in zip(proofs, seeds)), f"prove_many 2^24 / {nq} q: a proof fails")
+        held = fri._GRAPHS.held_bytes(dev)
+        keys = list(fri.commit_graphs()[1].values())
+        check(held <= budget and keys[-1] == window, f"prove_many 2^24 / {nq} q: the cache holds {held} bytes "
+              f"(budget {budget}), instances per key {keys}, window {window}")
+        notes.append(f"{nq} q {'seeded' if seeded else 'no seed'}: window {window}, {wall:.3f} s, instances "
+                     f"per key {keys}, {held / 2**30:.3f} GiB held, reserved "
+                     f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB")
+        del proofs
+    say(f"[13] prove_many 8 x 2^24 felts over 4 keys in a row (proof 0 of each == the eager proof, every "
+        f"proof verifies): {'; '.join(notes)}; the cache within {budget / 2**30:.3f} GiB "
+        f"(fri.MEMORY_SHARE of {total / 2**30:.3f} GiB) after each call; peak reserved over the sequence "
+        f"{torch.cuda.max_memory_reserved(dev) / 2**30:.3f} GiB, peak allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    del datas, words0
+    fri.clear_commit_graphs()
+    torch.cuda.empty_cache()
+    say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# A kernel's name in a trace -> the wrapper that counts its launches.
+KERNEL_OF_WRAPPER = re.compile(
+    r"\b(ingest|fft_pass|fft_exchange|merkle_level|merkle_collapse|merkle_open|fri_fold|transcript|grind)"
+    r"(?:_element|_tile)?_kernel\b")
+
+
+def traced_launches(prof) -> dict:
+    """{wrapper: kernels of it} in a finished `torch.profiler.profile`: the
+    launches the card ran, which for a CUDA graph's replay are its kernel
+    nodes (the wrappers' counts there are the capture's record)."""
+    import torch
+
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        m = KERNEL_OF_WRAPPER.search(e.name()) if e.device_type() == torch.autograd.DeviceType.CUDA else None
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
 
 
 @contextlib.contextmanager

@@ -32,6 +32,19 @@ The pipeline's device steps come in a `Route`: the kernel wrappers
 (`KERNELS`) for callers, and any other route of the same signatures (the
 plain versions, in chip_smoke.py) to check the kernels on the card.
 
+On the card the callers' commit phase is one dispatch, as the JAX package's
+jitted `_fri_commit_fn` is: `dispatch_commit_phase` replays a CUDA graph of
+`commit_phase`, captured once per configuration and cached (at most 8
+keys, and within `MEMORY_SHARE` of a card's memory), with the words in a
+static buffer and the seed as two device words.
+A replay writes over the outputs of the instance's last replay, so an
+instance is leased to the `Committed` it produced until `finish_proof`
+ends with it (or it is collected); a key holds as many instances as were
+leased at once. The commit phase runs eagerly, by design and not as a
+fallback, on the CPU, on another `Route` than the kernels, under the stage
+clock (`stats`, which synchronizes inside the phase) and for a mesh whose
+carrier is a process group or whose row spans more than one device.
+
 `prove_many` keeps up to a window of commit phases (`Committed`, resident on
 the device) ahead of their decommitments, on one stream: blob k + 1's
 commit phase is enqueued before blob k's outputs are fetched.
@@ -45,10 +58,12 @@ kernel and needs no card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
 import warnings
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -61,7 +76,7 @@ from ..ops import fri as fri_ops
 from ..ops import ingest as ingest_ops
 from ..ops import merkle as merkle_ops
 from ..utils.convert import from_numpy_u32, narrow, to_numpy_u32
-from ..utils.packing import log_total_for, upload_words
+from ..utils.packing import log_total_for, upload_words, words_for
 from ..utils.profiling import span
 from . import circle as hostcircle
 from . import fft, npfield
@@ -277,6 +292,15 @@ class Committed:
         self.n_queries = n_queries
         self.staging = None
         self._host = None
+        self._lease = None  # the captured commit phase whose outputs these are (`_Instance.lend`)
+
+    def release(self) -> None:
+        """End the lease on the captured commit phase whose replay wrote this
+        `Committed`, if any: its next replay may write over these tensors.
+        `finish_proof` calls it when it ends."""
+        if self._lease is not None:
+            self._lease.give_back(self)
+            self._lease = None
 
     def fetch(self) -> None:
         """The one fetch of the transcript's outputs (a no-op after the
@@ -345,6 +369,29 @@ def _layer_sizes(log_total: int, pcs_config: PcsConfig) -> tuple:
     return log_size, n, n_inner
 
 
+_M64 = (1 << 64) - 1
+
+
+def write_seed(out: torch.Tensor, seed) -> torch.Tensor:
+    """Write a seed into `out`, a (2,) int32 tensor: its u32 words (lo, hi)
+    of `int(seed) & (2^64 - 1)`, as the JAX package normalises it
+    (`frieda_tpu/core/fri.py:583`), in one fill of the pair viewed as one
+    int64 (no host synchronization, nothing baked into a kernel's
+    arguments). Returns `out`."""
+    value = int(seed) & _M64
+    out.view(torch.int64).fill_(value - (1 << 64) if value >> 63 else value)
+    return out
+
+
+def seed_words(seed, device) -> torch.Tensor | None:
+    """The seed as the (2,) int32 words that `transcript(mix_u64=...)` mixes,
+    on `device`: None for None (nothing is mixed), a (2,) int32 tensor as it
+    is, else `write_seed` into a new tensor."""
+    if seed is None or isinstance(seed, torch.Tensor):
+        return seed
+    return write_seed(torch.empty(2, dtype=torch.int32, device=device), seed)
+
+
 def commit_phase(words: torch.Tensor, log_total: int, seed,
                  pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                  clock: _Clock | None = None) -> Committed:
@@ -352,20 +399,24 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
     step and a fold per layer, the last layer, the grind and the query draws,
     all enqueued on `words`' device; nothing waits for the device (tables
     not yet cached for this size are uploaded first). Counterpart of
-    `_fri_commit_fn.run`.
+    `_fri_commit_fn.run`. seed: None, an int, or its (2,) int32 words on the
+    device (`seed_words`), which the transcript mixes as a tensor.
 
-    On the kernel route the folds go through this module's `fold_c` and
-    `fold_l` (a caller may replace them); another route's `fold` is called
-    as it is."""
+    This is the eager form, each launch issued from Python: what the CPU,
+    another route, the stage clock and `dispatch_commit_phase`'s capture
+    run. On the kernel route the folds go through this module's `fold_c`
+    and `fold_l` (a caller may replace them); another route's `fold` is
+    called as it is."""
     log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
     device = words.device
     clock = clock or _Clock(device, None)
     circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
+    seed = seed_words(seed, device)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
         state = channel_ops.new_state(device)
         if seed is not None:
             with clock("transcript"):
-                route.transcript(state, mix_u64=int(seed))
+                route.transcript(state, mix_u64=seed)
 
         def commit_layer(g):
             with clock("lde_trees"):
@@ -416,7 +467,14 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     """`commit_phase` over the `elem` axis of mesh row `row` (this process's
     shards of it; `parallel/mesh.py`), the counterpart of `_fri_commit_fn`
     with a mesh (`frieda_tpu/core/fri.py:182-205`); the same roots, transcript
-    and outputs as on one device. `words` lie on the row's home device.
+    and outputs as on one device. `words` lie on the row's home device;
+    seed as for `commit_phase`.
+
+    This is the eager form: `dispatch_commit_phase` captures it as one CUDA
+    graph when every shard of the row is on one CUDA device and the carrier
+    is in-process. A process-group mesh always runs it eagerly, because its
+    point-to-point exchanges (`Mesh.swap`, `Mesh.all_gather`) are not
+    captured, and so does a row over several devices.
 
     Layers at least 2S wide stay element-sharded in the cyclic layout: the
     extension runs per shard (`parallel/fft_sharded.sharded_evaluate`), each
@@ -438,10 +496,11 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
 
     log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
     home, S = mesh.home(row), mesh.n_elem
+    seed = seed_words(seed, home)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
         state = channel_ops.new_state(home)
         if seed is not None:
-            channel_ops.transcript(state, mix_u64=int(seed))
+            channel_ops.transcript(state, mix_u64=seed)
         coeffs = ingest_ops.ingest(words, log_size)
         ys_inv, xs_invs = fold_tables(n, home)
         if 1 << n >= 2 * S:
@@ -472,6 +531,274 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     return committed
 
 
+# ---------------------------------------------------------------------------
+# The commit phase as one dispatch: a cached CUDA graph (`_fri_commit_fn`)
+# ---------------------------------------------------------------------------
+
+class _Instance:
+    """Lease bookkeeping of one instance of a cached commit phase. A run
+    writes the instance's outputs anew, so the instance is leased to the
+    `Committed` its last run produced (`lend`) until that `Committed` is
+    finished (`Committed.release`, from `finish_proof`) or collected (the
+    lease is a weak reference); only a free instance runs again."""
+
+    lease = None  # weak reference to the leased Committed, or None
+    nbytes = 0  # what the instance keeps on its device (`_GraphCache` sets it)
+
+    @property
+    def free(self) -> bool:
+        return self.lease is None or self.lease() is None
+
+    def lend(self, committed: Committed) -> None:
+        committed._lease = self
+        self.lease = weakref.ref(committed)
+
+    def give_back(self, committed: Committed) -> None:
+        if self.lease is not None and self.lease() is committed:
+            self.lease = None
+
+    def close(self) -> None:
+        """Free what the instance holds; its key was evicted."""
+
+
+class _CommitGraph(_Instance):
+    """One captured commit phase: the `torch.cuda.CUDAGraph` of `commit(words,
+    seed)`, in a memory pool of its own (a later capture cannot place its
+    tensors in this one's temporaries); its static inputs, `words` (the
+    `words_for(log_total)` int32 words) and `seed` ((2,) int32, or None for
+    a key without a seed); `committed`, the outputs each replay writes
+    (layers, pruned trees, `packed`); `tables`, every cached table the graph
+    reads, held so that clearing a cache cannot free them; and `launches`,
+    the kernel launches the capture recorded.
+
+    With `warm` (a key's first instance) one eager `commit` runs first, on a
+    side stream: it builds every table of the key (a mesh's block tables
+    too) and sets the kernels' one-time attributes, none of which may happen
+    inside a capture. A capture or replay error raises."""
+
+    def __init__(self, device: torch.device, n_words: int, has_seed: bool, commit, tables, warm: bool):
+        with torch.cuda.device(device):
+            self.words = torch.zeros(n_words, dtype=torch.int32, device=device)
+            self.seed = torch.zeros(2, dtype=torch.int32, device=device) if has_seed else None
+            if warm:
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    commit(self.words, self.seed)
+                torch.cuda.current_stream(device).wait_stream(side)
+            self.tables = tables()  # cached again here if a cache was cleared since the warm-up
+            before = ops.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.committed = commit(self.words, self.seed)
+            finally:
+                self.launches = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+                ops.add_launch_counts({k: -v for k, v in self.launches.items()})  # recorded, not run
+
+    def run(self, seed) -> Committed:
+        """Write the seed, replay the graph, count its launches; the new
+        `Committed` (over this instance's outputs) holds the lease."""
+        with torch.cuda.device(self.words.device), span("prove/device_dispatch(lde+merkle+transcript+grind)"):
+            if self.seed is not None:
+                write_seed(self.seed, seed)
+            self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        c = self.committed
+        out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries)
+        out.opening_cls = c.opening_cls
+        self.lend(out)
+        return out
+
+    def close(self) -> None:
+        self.graph.reset()
+        self.graph = self.committed = self.tables = self.words = self.seed = None
+
+
+class _GraphCache:
+    """Captured commit phases by key, at most `size` keys, the least recently
+    used first: the JAX package's `lru_cache(maxsize=8)` over its
+    `_fri_commit_fn`. A key holds as many instances as were leased at once.
+    A new key evicts the least recently used key that holds no live lease
+    (and closes its instances, which frees their pools), or none when every
+    key holds one.
+
+    The instances of one device also keep within `MEMORY_SHARE` of its
+    memory: before a capture of `nbytes` (plus `warm_bytes`, the eager
+    warm-up's peak, for a key's first instance) the free instances of other
+    keys on that device are closed, the least recently used key first (a
+    key left with none goes), until the bytes held fit. Leased instances
+    are never closed, so live `Committed`s can hold more, as they would
+    eagerly. Not thread-safe, as the prover is not."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self.keys: collections.OrderedDict = collections.OrderedDict()  # key -> (capture, [instances], device)
+        self.captures = 0
+
+    def instance(self, key, capture, device=None, nbytes: int = 0, warm_bytes: int = 0) -> _Instance:
+        """A free instance of `key`, which becomes the most recently used key:
+        one already captured, or a new one, `capture(warm)` with the capture
+        function of the key's first call (warm: the key has no instance
+        yet), after room is made for it on `device` (None: no budget)."""
+        if key not in self.keys:
+            self._evict()
+            self.keys[key] = (capture, [], device)
+        capture, insts, device = self.keys[key]
+        self.keys.move_to_end(key)
+        inst = next((i for i in insts if i.free), None)
+        if inst is None:
+            if device is not None:
+                budget = int(MEMORY_SHARE * device_memory_bytes(device))
+                self._make_room(key, device, budget - nbytes - (0 if insts else warm_bytes))
+            inst = capture(not insts)
+            inst.nbytes = nbytes
+            self.captures += 1
+            insts.append(inst)
+        return inst
+
+    def held_bytes(self, device, leased_only: bool = False) -> int:
+        """Bytes the instances on `device` keep (only the leased ones')."""
+        return sum(i.nbytes for _, insts, d in self.keys.values() if d == device
+                   for i in insts if not (leased_only and i.free))
+
+    def _make_room(self, key, device, limit: int) -> None:
+        excess = self.held_bytes(device) - limit
+        for k in [k for k, (_, _, d) in self.keys.items() if k != key and d == device]:
+            insts = self.keys[k][1]
+            for inst in [i for i in insts if i.free]:
+                if excess <= 0:
+                    return
+                insts.remove(inst)
+                inst.close()
+                excess -= inst.nbytes
+                if not insts:
+                    del self.keys[k]
+
+    def _evict(self) -> None:
+        if len(self.keys) >= self.size:
+            idle = next((k for k, (_, insts, _) in self.keys.items() if all(i.free for i in insts)), None)
+            if idle is not None:
+                self._drop(idle)
+
+    def _drop(self, key) -> None:
+        for inst in self.keys.pop(key)[1]:
+            inst.close()
+
+    def clear(self) -> None:
+        """Drop every key that holds no live lease."""
+        for key in [k for k, (_, insts, _) in self.keys.items() if all(i.free for i in insts)]:
+            self._drop(key)
+
+
+_GRAPHS = _GraphCache(8)
+
+
+def _fri_commit_fn(log_total: int, pcs_config: PcsConfig, has_seed: bool, device: torch.device,
+                   mesh=None, row: int = 0) -> _CommitGraph:
+    """A free captured commit phase of one configuration on one CUDA device:
+    the counterpart of the JAX package's `_fri_commit_fn`
+    (`frieda_tpu/core/fri.py:150-151`), cached by the same fields (log_size,
+    log_blowup, llb, n_queries, pow_bits, has_seed) and the device, and for
+    a mesh by its shape and row (`commit_phase_sharded`, whose shards all lie
+    on `device`)."""
+    fri_cfg = pcs_config.fri_config
+    log_size = log_total - 2
+    n = log_size + fri_cfg.log_blowup_factor
+    key = (log_size, fri_cfg.log_blowup_factor, fri_cfg.log_last_layer_degree_bound, fri_cfg.n_queries,
+           pcs_config.pow_bits, has_seed, device, None if mesh is None else (mesh.n_data, mesh.n_elem, row))
+
+    def commit(words, seed):
+        return _eager(words, log_total, seed, pcs_config, mesh, row)
+
+    def tables() -> list:
+        held = [fft.stage_twiddles(n, device), fold_tables(n, device)]
+        return held if mesh is None else held + [mesh]  # the mesh keeps its block tables (`Mesh.cached`)
+
+    return _GRAPHS.instance(key, lambda warm: _CommitGraph(device, words_for(log_total), has_seed, commit,
+                                                           tables, warm),
+                            device, RESIDENT_BYTES_PER_ELEMENT << n, ACTIVE_BYTES_PER_ELEMENT << n)
+
+
+def _eager(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig, mesh, row: int) -> Committed:
+    if mesh is None:
+        return commit_phase(words, log_total, seed, pcs_config)
+    return commit_phase_sharded(words, log_total, seed, pcs_config, mesh, row)
+
+
+def _card(device) -> torch.device:
+    """`device` with its index: a bare "cuda" names the current card, so
+    that "cuda" and "cuda:0" share one key of the graph cache."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _commit_graph(log_total: int, pcs_config: PcsConfig, seed, device, mesh=None, row: int = 0):
+    """The free captured commit phase that runs this proof on `device` (a
+    mesh row's home device), or None where the commit phase runs eagerly:
+    on the CPU, and for a mesh whose carrier is a process group or whose row
+    spans more than one device."""
+    _layer_sizes(log_total, pcs_config)  # ValueError before any capture
+    device = _card(device)
+    if device.type != "cuda":
+        return None
+    if mesh is not None and (mesh.group is not None
+                             or len({mesh.device(row, e) for e in mesh.local_elems(row)}) > 1):
+        return None
+    return _fri_commit_fn(log_total, pcs_config, seed is not None, device, mesh, row)
+
+
+def dispatch_commit_phase(words: torch.Tensor, log_total: int, seed,
+                          pcs_config: PcsConfig = DEFAULT_CONFIG, mesh=None, row: int = 0) -> Committed:
+    """The commit phase of a blob's `pad_to_words` words (int32, on the
+    device; on the home device of mesh row `row` for a mesh) as one
+    dispatch: on a CUDA device, one device-to-device copy of the words into
+    the static buffer of a free captured instance of this configuration
+    (`_fri_commit_fn`; captured on first use), the seed written as two
+    device words, one graph replay; nothing waits for the device. The
+    `Committed` holds the instance until `finish_proof` ends with it.
+    Counterpart of `fri.dispatch_commit_phase_staged`. The CPU and a mesh
+    that `_commit_graph` leaves eager run `commit_phase` /
+    `commit_phase_sharded`; the bytes are the same."""
+    graph = _commit_graph(log_total, pcs_config, seed, words.device, mesh, row)
+    if graph is None:
+        return _eager(words, log_total, seed, pcs_config, mesh, row)
+    if words.shape != graph.words.shape or words.dtype != torch.int32:
+        raise ValueError(f"words: expected {tuple(graph.words.shape)} int32 for log_total {log_total}, "
+                         f"got {tuple(words.shape)} {words.dtype}")
+    graph.words.copy_(words)
+    return graph.run(seed)
+
+
+def dispatch_blob(data: bytes, log_total: int, seed, pcs_config: PcsConfig, device,
+                  mesh=None, row: int = 0) -> Committed:
+    """`dispatch_commit_phase` of a blob on the host, for `device` (a mesh
+    row's home device): its words staged in page-locked memory and uploaded
+    straight into the captured instance's static buffer (or into a new
+    tensor where the commit phase runs eagerly); the host buffer stays with
+    the `Committed` until its fetch."""
+    graph = _commit_graph(log_total, pcs_config, seed, device, mesh, row)
+    with span("prove/ingest"):
+        host, words = upload_words([data], log_total, device, out=None if graph is None else graph.words[None])
+    committed = _eager(words[0], log_total, seed, pcs_config, mesh, row) if graph is None else graph.run(seed)
+    committed.staging = host  # the upload reads it asynchronously: kept until the fetch
+    return committed
+
+
+def commit_graphs() -> tuple:
+    """(captures so far, {key: instances}) of the captured commit phases, the
+    least recently used key first."""
+    return _GRAPHS.captures, {k: len(insts) for k, (_, insts, _) in _GRAPHS.keys.items()}
+
+
+def clear_commit_graphs() -> None:
+    """Drop every captured commit phase that no live `Committed` holds (and
+    free its memory pool)."""
+    _GRAPHS.clear()
+
+
 def plan_openings(layers: list, trees: list, queries, opening_cls=Opening) -> tuple:
     """(opening, slice of the evaluations, [(slice of the FRI witness, [slices
     of the Merkle witness per level]) per layer]): every value and node a
@@ -497,8 +824,16 @@ def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = D
     transcript's outputs (which raises AssertionError for a last layer above
     its degree bound), then the decommitment (every revealed value and node
     in one `merkle_open` launch and one fetch) and the proof objects.
-    Counterpart of `fri._finish_proof`."""
-    c = committed
+    Counterpart of `fri._finish_proof`. Ends the lease of a `Committed`
+    from `dispatch_commit_phase` (`Committed.release`), also when it
+    raises."""
+    try:
+        return _finish_proof(committed, log_total, pcs_config, route, clock)
+    finally:
+        committed.release()
+
+
+def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Route, clock):
     clock = clock or _Clock(c.layers[0].device, None)
     with clock("transcript"):
         c.fetch()
@@ -533,9 +868,14 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
                 pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                 stats: dict | None = None):
     """(commitment, Proof) for a blob given as its `pad_to_words(data,
-    log_total)` words, int32, on the device that runs the proof: `commit_phase`
-    then `finish_proof`. Counterpart of `fri.dispatch_commit_phase_staged` +
-    `fri.finish_proof`.
+    log_total)` words, int32, on the device that runs the proof: the commit
+    phase, then `finish_proof`. Counterpart of
+    `fri.dispatch_commit_phase_staged` + `fri.finish_proof`.
+
+    With no `stats` on the kernel route the commit phase is
+    `dispatch_commit_phase` (on the card one graph replay after a copy of
+    the words into its static buffer); another route, or `stats`, runs
+    `commit_phase` eagerly.
 
     stats, when a dict, receives the host wall time of each stage
     (synchronized at both ends, so the commit phase then waits for the
@@ -544,6 +884,8 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
     planning and registration), "decommit_open" (upload, `merkle_open`,
     fetch) and "decommit_assemble" (the proof objects)), each stage's kernel
     launches, and `open_launches`, the calls of the route's `open` step."""
+    if stats is None and route is KERNELS:
+        return finish_proof(dispatch_commit_phase(words, log_total, seed, pcs_config), log_total, pcs_config)
     clock = _Clock(words.device, stats)
     return finish_proof(commit_phase(words, log_total, seed, pcs_config, route, clock),
                         log_total, pcs_config, route, clock)
@@ -551,11 +893,9 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
 
 def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
     """(commitment, Proof) of a blob on `device` (reference:
-    src/proof.rs:32-77)."""
+    src/proof.rs:32-77): `dispatch_blob`, then `finish_proof`."""
     log_total = log_total_for(len(data))
-    with span("prove/ingest"):
-        words = upload_words([data], log_total, device)[1][0]
-    return prove_words(words, log_total, seed, pcs_config)
+    return finish_proof(dispatch_blob(data, log_total, seed, pcs_config, device), log_total, pcs_config)
 
 
 # ---------------------------------------------------------------------------
@@ -566,12 +906,19 @@ def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
 # for its size included: 10.069 GiB at a 2^26 domain (chip_smoke.py phase 9,
 # NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5).
 ACTIVE_BYTES_PER_ELEMENT = 162
-# Bytes per domain element that one finished commit phase (`Committed`: the
-# evaluations 16, the folded layers ~16, the pruned trees ~9) keeps on the
-# device until its decommitment: 41.49 at a 2^22 domain and 41.15 at 2^26,
-# `torch.cuda.memory_allocated` around `commit_phase` (chip_smoke.py phase 9,
-# NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6), rounded up.
-RESIDENT_BYTES_PER_ELEMENT = 42
+# Bytes per domain element that one proof in flight keeps on the device
+# until its decommitment: on the card a captured commit phase's private pool
+# (its outputs and, reused, its temporaries) and static words, 44.000 at a
+# 2^22 domain and 42.375 at 2^26 (`torch.cuda.memory_reserved` growth for a
+# second instance of a key, chip_smoke.py phase 13), which also covers an
+# eager `Committed` (the evaluations 16, the folded layers ~16, the pruned
+# trees ~9: 41.49 at 2^22 and 41.15 at 2^26, `torch.cuda.memory_allocated`
+# around `commit_phase`, phase 9); NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# sections 5 and 6; rounded up.
+RESIDENT_BYTES_PER_ELEMENT = 44
+# The share of the device's memory that prove_many's window and the graph
+# cache's instances keep within.
+MEMORY_SHARE = 0.6
 
 
 def device_memory_bytes(device: torch.device) -> int:
@@ -584,10 +931,14 @@ def device_memory_bytes(device: torch.device) -> int:
 
 def safe_in_flight(log_size: int, fri_cfg, device: torch.device) -> int:
     """Largest prove_many window for blobs of 2^log_size felts per column:
-    60% of the device's memory, less one proof's peak, over the resident
-    bytes of one `Committed`; at least 1."""
+    `MEMORY_SHARE` of the device's memory, less one proof's peak (the eager
+    warm-up of a new key) and the captured commit phases that live
+    `Committed`s hold on it (the cache closes the free ones to make room),
+    over one proof in flight's `RESIDENT_BYTES_PER_ELEMENT`; at least 1."""
     n = 1 << (log_size + fri_cfg.log_blowup_factor)
-    budget = int(0.6 * device_memory_bytes(device)) - ACTIVE_BYTES_PER_ELEMENT * n
+    device = _card(device)
+    budget = (int(MEMORY_SHARE * device_memory_bytes(device)) - ACTIVE_BYTES_PER_ELEMENT * n
+              - _GRAPHS.held_bytes(device, leased_only=True))
     return max(1, budget // (RESIDENT_BYTES_PER_ELEMENT * n))
 
 
@@ -595,7 +946,9 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
                max_in_flight: int | None = None, device: torch.device = torch.device("cuda")):
     """[(commitment, Proof)] of each blob under its seed, in input order, equal
     to a loop of `commit_and_generate_proof`: up to `max_in_flight` finished
-    commit phases stay on the device before the oldest is decommitted.
+    commit phases stay on the device before the oldest is decommitted. On
+    the card each is a graph replay (`dispatch_blob`), so a key holds at
+    most `max_in_flight` captured instances.
 
     None takes min(8, `safe_in_flight` of the largest blob); a larger request
     is clamped to the safe window with a warning. Counterpart of
@@ -623,11 +976,7 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
         if len(window) >= max_in_flight:
             out.append(finish_proof(*window.pop(0), pcs_config))
         log_total = log_total_for(len(data))
-        with span("prove/ingest"):
-            host, words = upload_words([data], log_total, device)
-        committed = commit_phase(words[0], log_total, seed, pcs_config)
-        committed.staging = host  # the upload reads it asynchronously: kept until the fetch
-        window.append((committed, log_total))
+        window.append((dispatch_blob(data, log_total, seed, pcs_config, device), log_total))
     out.extend(finish_proof(c, log_total, pcs_config) for c, log_total in window)
     return out
 

@@ -35,3 +35,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add {name: n} to the wrappers' counts: a replayed CUDA graph's
+    launches (`core/fri.py`), or the negated counts of a capture, whose
+    wrapper calls record launches without running them."""
+    wrappers = kernel_wrappers()
+    for name, n in counts.items():
+        wrappers[name].launches += n

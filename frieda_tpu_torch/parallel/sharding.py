@@ -26,7 +26,6 @@ import torch
 from ..config import PcsConfig
 from ..core import fft, fri, merkle
 from ..utils.packing import log_total_for, upload_words
-from ..utils.profiling import span
 from .fft_sharded import sharded_evaluate
 from .mesh import Mesh
 
@@ -118,13 +117,13 @@ def sharded_commit_and_prove(data: bytes, seed, pcs_config: PcsConfig, mesh: Mes
     """(commitment, Proof) of a blob, its commit phase element-sharded over
     this process's first mesh row (`core/fri.commit_phase_sharded`), its
     decommitment one `merkle_open` launch a device; bit-identical to the
-    single-device `commit_and_prove`."""
+    single-device `commit_and_prove`. When the row's shards all lie on one
+    CUDA device and the carrier is in-process, the commit phase is one
+    replay of its captured CUDA graph (`core/fri.dispatch_blob`); a
+    process-group mesh runs it eagerly."""
     row = mesh.rows()[0]
     log_total = log_total_for(len(data))
-    with span("prove/ingest"):
-        host, words = upload_words([data], log_total, mesh.home(row))
-    committed = fri.commit_phase_sharded(words[0], log_total, seed, pcs_config, mesh, row)
-    committed.staging = host
+    committed = fri.dispatch_blob(data, log_total, seed, pcs_config, mesh.home(row), mesh, row)
     return fri.finish_proof(committed, log_total, pcs_config)
 
 
@@ -133,7 +132,9 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     bit-identical to the single-device proofs: the blobs split over the
     mesh rows, each blob's commit phase element-sharded over its row with its
     own transcript; every commit phase is enqueued before the first
-    decommitment. Blobs must share a padded size, and seeds be all None or
+    decommitment (a graph replay each where `sharded_commit_and_prove`'s
+    is one, so a row's key holds as many captured instances as the row has
+    blobs). Blobs must share a padded size, and seeds be all None or
     all set (ValueError, as in the JAX package). A process-group mesh gives
     None for the blobs of rows this process holds no shard of."""
     datas, seeds = list(datas), list(seeds)
@@ -153,8 +154,6 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     for b, (data, seed) in enumerate(zip(datas, seeds)):
         row = _row_of(b, len(datas), mesh)
         if row in local:
-            host, words = upload_words([data], log_total, mesh.home(row))
-            pending[b] = fri.commit_phase_sharded(words[0], log_total, seed, pcs_config, mesh, row)
-            pending[b].staging = host
+            pending[b] = fri.dispatch_blob(data, log_total, seed, pcs_config, mesh.home(row), mesh, row)
     return [fri.finish_proof(pending[b], log_total, pcs_config) if b in pending else None
             for b in range(len(datas))]

@@ -42,14 +42,20 @@ def stack_words(datas, log_total: int, pin: bool = False) -> torch.Tensor:
     return host
 
 
-def upload_words(datas, log_total: int, device) -> tuple:
+def upload_words(datas, log_total: int, device, out: torch.Tensor | None = None) -> tuple:
     """(host buffer, words): `stack_words` of the blobs, page-locked for the
     card, and its (B, nw) copy on `device`, uploaded without waiting for the
     device. A page-locked block is not handed out again before its copy has
-    run (PyTorch's caching host allocator records the copy)."""
+    run (PyTorch's caching host allocator records the copy). `out`, a (B, nw)
+    int32 tensor on `device` (a captured commit phase's static input),
+    receives the copy in place of a new tensor."""
     device = torch.device(device)
     host = stack_words(datas, log_total, pin=device.type == "cuda")
-    return host, host.to(device, non_blocking=True)
+    if out is None:
+        return host, host.to(device, non_blocking=True)
+    if out.shape != host.shape or out.dtype != host.dtype:
+        raise ValueError(f"out: expected {tuple(host.shape)} int32, got {tuple(out.shape)} {out.dtype}")
+    return host, out.copy_(host, non_blocking=True)
 
 
 def pad_to_words(data: bytes, log_total: int) -> np.ndarray:
