@@ -15,7 +15,7 @@ Phases, each printed as it runs:
      butterfly and of one QM31 fold element, counted in the built SASS
      (cuobjdump), each beside the fixed per-unit floor of utils/profiling
      that the bounds use (a difference is printed, not a failure);
-  3. each of the nine kernels against its plain PyTorch version on the card,
+  3. each of the ten kernels against its plain PyTorch version on the card,
      at the shapes the commit and prove paths give it, bit-equal, with the
      least time the card could take for the same work (bound, from
      utils/profiling: the function's bytes and its units of work times the
@@ -36,8 +36,11 @@ Phases, each printed as it runs:
      the 2^24-felt proof's 22 trees give it (with their sum); `merkle_open`
      at the openings of a 2^20-felt / 64-query and a 2^24-felt / 20-query
      proof (their real layers, trees and queries, from `fri.commit_phase`
-     and `fri.plan_openings`), with the chain floor of one launch and three
-     dependent compressions; `fri_fold`, circle and line, at (4, 2^26), at
+     and `fri.plan_openings`: the sharded decommitment's job-table form),
+     with the chain floor of one launch and three dependent compressions;
+     `merkle_open_queries` at the same proofs' layers and trees over their
+     raw query words on the card and over a copy with repeated words (the
+     gathers that the commit phase packs); `fri_fold`, circle and line, at (4, 2^26), at
      the proof's first line fold (4, 2^25) and at (4, 2^7), under one block,
      and timed at each of the 2^24-felt proof's 22 folds (with their sum);
      `transcript`, every step (seed, root and alpha, last-layer felts, nonce
@@ -87,18 +90,21 @@ Phases, each printed as it runs:
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
      log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
      path's (the same prover on the plain versions); the median prove time
-     of three runs with the stage clock, each run's stage split (the decommitment as
-     plan, open and assemble), kernel launches per proof (`merkle_open` once,
-     no `merkle_level` in the decommitment; `fri_fold` once a layer,
-     `transcript` once a layer and three more, `grind` once) and peak device
+     of three runs with the stage clock, each run's stage split (the
+     decommitment as the gather inside the commit phase and the assembly
+     after the fetch), kernel launches per proof (`merkle_open_queries` once,
+     in the gather stage, `merkle_open` never, nothing in the assembly;
+     `fri_fold` once a layer, `transcript` once a layer and three more,
+     `grind` once) and peak device
      memory (allocated: everything live at the peak of a proof whose commit
      phase is a graph replay, its instance's outputs included; and the
      reserved bytes, the instances' pools included); a warm eager `fri.commit_phase` run under
      `torch.cuda.set_sync_debug_mode("error")` with FRIEDA_SPANS=1 (it
      synchronizes nowhere, and its span prints), its
-     host enqueue ms beside its device ms (CUDA events), and exactly one
-     synchronizing fetch (`Committed.fetch`, counted in "warn" mode) before
-     the decommitment, whose proof bytes equal the warm proof's; the
+     host enqueue ms beside its device ms (CUDA events), and a
+     `finish_proof` that makes exactly one synchronizing fetch (counted in
+     "warn" mode) and launches nothing, whose proof bytes equal the warm
+     proof's; the
      bytes one finished commit phase (`fri.Committed`) keeps on the card
      (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
      prove_many window that gives; `api.verify` accepts the proof and
@@ -112,8 +118,10 @@ Phases, each printed as it runs:
  10. every kernel's launch count over each path: the commit phases (4-5,
      checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
      `merkle_level` forms) and the prove phases (8-9): each must be > 0,
-     except `merkle_open`, `fri_fold`, `transcript` and `grind` outside a
-     proof and `merkle_collapse` in `commit_with_tree`;
+     except `merkle_open`, `merkle_open_queries`, `fri_fold`, `transcript`
+     and `grind` outside a proof, `merkle_open` (the sharded decommitment,
+     phase 12) in the single-device proofs and `merkle_collapse` in
+     `commit_with_tree`;
  11. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
      kernel launched (> 0) by its first run, whose peak device memory is
      printed; then a loop of `api.commit_and_prove` and `prove_many` in
@@ -137,7 +145,8 @@ Phases, each printed as it runs:
      `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
      Host (enqueue) and device ms of each beside the single-device path's, in
      turns in this phase, and the launches per kernel: every kernel of the
-     sharded path (all nine) launched in this phase. The sharded proofs'
+     sharded path (all but `merkle_open_queries`: the sharded decommitment
+     reads after the fetch, with `merkle_open`) launched in this phase. The sharded proofs'
      launches are read from a second call: the first runs the eager
      warm-up and the capture of the commit phase's graph (phase 13).
  13. the commit phase as one dispatch (`fri.dispatch_commit_phase`: a CUDA
@@ -150,8 +159,10 @@ Phases, each printed as it runs:
      instance captured: its `torch.cuda.memory_reserved` growth per domain
      element beside `fri.RESIDENT_BYTES_PER_ELEMENT`), finished in reverse
      order, each == eager; one capture per key over repeated calls; launches
-     per proof == eager's; the dispatch (copy, seed fill, replay) under sync
-     debug mode "error", then one synchronizing fetch; host enqueue, device
+     per proof == eager's, `merkle_open_queries` inside the graph (a
+     torch.profiler trace of one replay holds its node); the dispatch (copy,
+     seed fill, replay) under sync debug mode "error", then a `finish_proof`
+     with one synchronizing fetch and no launch; host enqueue, device
      and whole-prove ms of both, median of 5 in turns, and the words' copy.
      Then 9 keys (2^10 felts, 1-9 queries): the 9th evicts the least
      recently used, and the first is captured again; the cached tables
@@ -262,7 +273,7 @@ P = (1 << 31) - 1
 # from utils/profiling.
 EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, "merkle_level": 0.9046,
                   "merkle_collapse": 0.000118, "merkle_open": 0.000235, "fri_fold": 0.5208,
-                  "transcript": 5.8e-8, "grind": 0.0427}
+                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None}
 # SASS opcodes that are not integer work: memory, control, moves.
 SASS_SKIP = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
              "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
@@ -320,6 +331,8 @@ def plain_route():
             narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths)],
         open=lambda layers, trees, values, nodes: narrow(
             merkle_ops.merkle_open_plain(layers, trees, values, nodes)),
+        open_queries=lambda layers, trees, words, out: out.copy_(narrow(
+            merkle_ops.merkle_open_queries_plain(layers, trees, words))),
     )
 
 
@@ -751,7 +764,47 @@ def main() -> int:
                 replaces="frieda_tpu/ops/merkle_pallas.py:111 and :127 (in frieda_tpu/core/fri.py:68)",
                 max_abs_err=max_abs_err(got, want), ms=ms, call_ms=call, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by)
-        del committed, args, got, want, table
+        # the same proof's gathers over its raw query words on the card, and
+        # over a copy whose words repeat (draws of one position)
+        o = committed.layout.head["qpos"][0]
+        raw = committed.packed[o : o + nq]
+        repeated = raw.clone()
+        repeated[nq // 2 : nq // 2 + 3] = raw[:3]
+        repeated[-1] = raw[0]
+        err = 0
+        for words_ in (raw, repeated):
+            q_args = (committed.layers, committed.trees, words_)
+            got = merkle_ops.merkle_open_queries(*q_args)
+            want = narrow(merkle_ops.merkle_open_queries_plain(*q_args))
+            check(torch.equal(got, want), f"merkle_open_queries at the 2^{log_felts}-felt proof's "
+                  f"{'repeated ' if words_ is repeated else ''}query words differs from plain")
+            err = max(err, max_abs_err(got, want))
+        o_gather = committed.layout.pair_off[0]
+        check(torch.equal(merkle_ops.merkle_open_queries(committed.layers, committed.trees, raw),
+                          committed.packed[o_gather:]),
+              f"merkle_open_queries at 2^{log_felts} felts != the gathers the commit phase packed")
+        q_args = (committed.layers, committed.trees, raw)
+        ms = device_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
+        call = cuda_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
+        plain_ms = cuda_ms(lambda: merkle_ops.merkle_open_queries_plain(*q_args), reps=3)  # noqa: B023
+        compressions, read_bytes = merkle_ops.open_queries_work(committed.trees, to_numpy_u32(raw))
+        out_words = got.numel()
+        b_ms, b_by = profiling.merkle_open_queries_bound(nq, out_words, read_bytes, compressions)
+        node_reads = nq * sum(t.log_leaves for t in committed.trees)
+        say(f"[3] merkle_open_queries, 2^{log_felts}-felt / {nq}-query proof ({len(committed.layers)} layers, "
+            f"{2 * nq * len(committed.layers)} pair reads, {node_reads} node reads, {compressions} distinct "
+            f"compressions, "
+            f"{4 * out_words} bytes out, {read_bytes} distinct bytes read): bit-equal over the raw words "
+            f"and over a copy with 4 repeated words, == the commit phase's packed gathers; device {ms:.4f} ms, "
+            f"call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; share "
+            f"{b_ms / ms:.3f}); chain floor {gap_ms:.4f} + 3 x {level_ms:.4f} = {gap_ms + 3 * level_ms:.4f} ms")
+        if log_felts == 20:
+            kernels["merkle_open_queries"] = dict(
+                source="frieda_tpu_torch/csrc/merkle.cu",
+                replaces="frieda_tpu/core/fri.py:283-316 (the oblivious gathers of _fri_commit_fn.run; "
+                         ":68 _auth_sibling_nodes over frieda_tpu/ops/merkle_pallas.py:111 and :127)",
+                max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del committed, args, got, want, table, raw, repeated, q_args
         torch.cuda.empty_cache()
     # fri_fold: circle and line at (4, 2^26), the proof's first line fold
     # (4, 2^25) and a width under one block; then timed at each of the
@@ -1010,7 +1063,7 @@ def main() -> int:
     say(f"[5] 2^24-felt commit: kernel path root == plain path root {plain_root}")
     commit_counts = ops.launch_counts()
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
-    prove_only = {"merkle_open", "fri_fold", "transcript", "grind"}  # a proof's openings and commit phase
+    prove_only = {"merkle_open", "merkle_open_queries", "fri_fold", "transcript", "grind"}  # a proof's
     prove_only |= {"fft_exchange"}  # and the sharded path's exchange stages (phase 12)
     for name, count in commit_counts.items():
         check(count > 0 or name in prove_only, f"kernel {name} was never launched by the commit path")
@@ -1209,7 +1262,8 @@ def main() -> int:
         reserved = torch.cuda.memory_reserved(dev)
         layers = log_total - 2  # the proof's layers at llb 0: n - last_log
         check(per_proof["fri_fold"] == layers and per_proof["transcript"] == layers + 3
-              and per_proof["grind"] == 1, f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
+              and per_proof["grind"] == 1 and per_proof["merkle_open_queries"] == 1 and per_proof["merkle_open"] == 0,
+              f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
         # the warm commit phase waits for nothing; then one fetch
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1229,22 +1283,14 @@ def main() -> int:
               f"under FRIEDA_SPANS=1 printed {printed.getvalue()!r}")
         end.record()
         end.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                committed.fetch()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
-        check(syncs == 1, f"2^{log_felts}-felt commit phase: {syncs} synchronizing operations in its fetch")
-        check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire,
-              f"2^{log_felts}-felt proof after the sync-free commit phase differs")
+        syncs, finished, opened = finish_counted(fri, committed, log_total, cfg)
+        check(syncs == 1 and not opened, f"2^{log_felts}-felt finish_proof: {syncs} synchronizing operations, "
+              f"launches {opened}")
+        check(finished == wire, f"2^{log_felts}-felt proof after the sync-free commit phase differs")
         say(f"[9] 2^{log_felts}-felt commit phase under sync debug mode 'error' and FRIEDA_SPANS=1: no "
             f"synchronization ({printed.getvalue().strip()}); host enqueue {enqueue_ms:.3f} ms, device "
-            f"{start.elapsed_time(end):.3f} ms (CUDA events from before the first launch); then {syncs} "
-            f"synchronizing fetch of {committed.packed.numel()} words before the decommitment; proof bytes "
-            f"unchanged")
+            f"{start.elapsed_time(end):.3f} ms (CUDA events from before the first launch); then finish_proof: "
+            f"{syncs} synchronizing fetch of {committed.packed.numel()} words, no launch; proof bytes unchanged")
         del committed
         walls, splits = [], []
         for _ in range(3):
@@ -1256,13 +1302,16 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
             splits.append(" ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items()))
             check(proof.to_bytes() == wire, f"2^{log_felts}-felt proof changed between runs")
-            opened = stats["stage_launches"]["decommit_open"]
-            check(stats["open_launches"] == 1 and opened["merkle_open"] == 1 and opened["merkle_level"] == 0,
-                  f"2^{log_felts}-felt proof: the decommitment launched {opened}")
+            gathered = {k: v for k, v in stats["stage_launches"]["decommit_gather"].items() if v}
+            assembled = {k: v for k, v in stats["stage_launches"]["decommit_assemble"].items() if v}
+            check(gathered == {"merkle_open_queries": 1} and not assembled
+                  and "decommit_plan" not in stats["stage_s"] and "decommit_open" not in stats["stage_s"],
+                  f"2^{log_felts}-felt proof: the decommitment launched {gathered} in its gather, "
+                  f"{assembled} in its assembly; stages {sorted(stats['stage_s'])}")
         say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (stages synchronized): median "
             f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
-            f"kernel launches per proof {per_proof} (in the decommitment: merkle_open "
-            f"{opened['merkle_open']}, merkle_level rebuilds {opened['merkle_level']}); "
+            f"kernel launches per proof {per_proof} (the decommitment: merkle_open_queries "
+            f"{gathered['merkle_open_queries']} in the commit phase's gather stage, nothing in the assembly); "
             f"peak device memory allocated {peak} bytes = {peak / 2**30:.3f} GiB (everything live: the graph "
             f"instances' outputs, tables, words, the decommitment), reserved {reserved / 2**30:.3f} GiB (the "
             f"instances' pools of every key so far included); proof {wire_note(warm)}")
@@ -1324,7 +1373,7 @@ def main() -> int:
     say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}")
     for path, counts, unused in (("commit_many (6)", batch_counts, prove_only),
                                  ("commit_with_tree (7)", tree_counts, prove_only | {"merkle_collapse"}),
-                                 ("prove (8-9)", prove_counts, {"fft_exchange"})):
+                                 ("prove (8-9)", prove_counts, {"fft_exchange", "merkle_open"})):
         for name, count in counts.items():
             check(count > 0 or name in unused, f"kernel {name} was never launched by the {path} path")
     say(f"[10] every kernel of each path launched: commit_many {batch_counts}, commit_with_tree "
@@ -1347,7 +1396,8 @@ def main() -> int:
     many_counts = ops.launch_counts()
     many_peak = torch.cuda.max_memory_allocated(dev)
     for name, count in many_counts.items():
-        check(count > 0 or name == "fft_exchange", f"kernel {name} was never launched by prove_many")
+        check(count > 0 or name in ("fft_exchange", "merkle_open"), f"kernel {name} was never launched by "
+              "prove_many")
     walls = {"loop": [], "prove_many": []}
     for kind in ("loop", "prove_many", "prove_many", "loop"):  # in turns
         torch.cuda.synchronize()
@@ -1415,8 +1465,9 @@ def main() -> int:
     for name, k in kernels.items():
         share = k["bound_ms"] / k["ms"]
         check(0 < share <= 1, f"{name}: bound {k['bound_ms']} ms over device {k['ms']} ms = {share} outside (0, 1]")
+        earlier = EARLIER_BOUNDS[name] or "none (a newer kernel than that list)"
         say(f"[3] {name}: bound {k['bound_ms']:.6g} ms ({k['bound_by']}; utils/profiling), PERF.md section 6 "
-            f"before it: {EARLIER_BOUNDS[name]} ms; device {k['ms']:.4f} ms, share {share:.3f}")
+            f"before it: {earlier} ms; device {k['ms']:.4f} ms, share {share:.3f}")
     say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
@@ -1463,8 +1514,11 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         return out, used
 
     def launched_all_but_exchange(used: dict, what: str) -> None:
-        missing = [k for k in ops.kernel_wrappers() if k != "fft_exchange" and not used.get(k)]
-        check(not missing and not used.get("fft_exchange"), f"{what}: launches {used}; not launched: {missing}")
+        """Every kernel but `fft_exchange` (none at log_blowup 4) and
+        `merkle_open_queries` (the sharded decommitment is `merkle_open`)."""
+        off = ("fft_exchange", "merkle_open_queries")
+        missing = [k for k in ops.kernel_wrappers() if k not in off and not used.get(k)]
+        check(not missing and not any(used.get(k) for k in off), f"{what}: launches {used}; not launched: {missing}")
 
     def enqueue_and_device(fn, strict: bool = False) -> tuple:
         """(host ms to enqueue fn, device ms from before its first launch to
@@ -1634,8 +1688,10 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         f"{walls['commit_roots_batch']}; one profiled call each: commit_many {busy['commit_many']}, "
         f"commit_roots_batch {busy['commit_roots_batch']}")
     for name, count in sharded_counts.items():
-        check(count > 0, f"kernel {name} was never launched by the sharded calls (phase 12)")
-    say(f"[12] kernel launches of phase 12's sharded calls (the counted call of each; every kernel > 0): "
+        check(count > 0 or name == "merkle_open_queries", f"kernel {name} was never launched by the sharded "
+              "calls (phase 12)")
+    say(f"[12] kernel launches of phase 12's sharded calls (the counted call of each; every kernel but "
+        f"merkle_open_queries > 0): "
         f"{sharded_counts}")
     return sharded_counts
 
@@ -1750,16 +1806,12 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
             committed = graph()  # copy, seed fill, replay
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                committed.fetch()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
-        check(syncs == 1 and finish(committed) == want, f"{what}: {syncs} synchronizing operations in the "
-              "fetch after the dispatch, or its proof differs")
+        syncs, finished, opened = finish_counted(fri, committed, log_total, cfg)
+        if mesh is None:  # the sharded decommitment reads after the fetch: a job table, one merkle_open
+            check(syncs == 1 and not opened, f"{what}: finish_proof after the dispatch made {syncs} "
+                  f"synchronizing operations and launched {opened}")
+        check(finished == want and (mesh is None or opened == {"merkle_open": 1}),
+              f"{what}: the proof after the sync-free dispatch differs, or finish_proof launched {opened}")
         del committed
         rows = {"eager": [], "graph": []}
         for r in range(5):  # in turns
@@ -1775,7 +1827,8 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
             f"fri.RESIDENT_BYTES_PER_ELEMENT {fri.RESIDENT_BYTES_PER_ELEMENT}); both proofs == eager, finished in "
             f"reverse order; 3 repeated proofs: no capture, launches per proof == eager's {eager_counts}; a "
             f"torch.profiler trace of one replay holds each recorded launch: {traced}; "
-            f"the dispatch under sync debug mode 'error': no synchronization, then {syncs} synchronizing fetch")
+            f"the dispatch under sync debug mode 'error': no synchronization, then finish_proof: {syncs} "
+            f"synchronizing fetch{'es' if syncs > 1 else ''}, launches {opened or 'none'}")
         for kind, runs in rows.items():
             say(f"[13]   {what}, {kind} commit phase, 5 in turns: host enqueue ms "
                 f"{[round(x[0], 3) for x in runs]} (median {med[kind][0]:.3f}), device ms "
@@ -1913,9 +1966,31 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
     say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def finish_counted(fri, committed, log_total: int, cfg) -> tuple:
+    """(synchronizing operations, wire bytes, {kernel: launches}) of one
+    `fri.finish_proof` after a commit phase enqueued on the card: the
+    synchronizations counted under sync debug mode "warn", the launches
+    with every count set to 0 just before it."""
+    import torch
+
+    from frieda_tpu_torch import ops
+
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            wire = fri.finish_proof(committed, log_total, cfg)[1].to_bytes()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    return syncs, wire, {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+
+
 # A kernel's name in a trace -> the wrapper that counts its launches.
 KERNEL_OF_WRAPPER = re.compile(
-    r"\b(ingest|fft_pass|fft_exchange|merkle_level|merkle_collapse|merkle_open|fri_fold|transcript|grind)"
+    r"\b(ingest|fft_pass|fft_exchange|merkle_level|merkle_collapse|merkle_open_queries|merkle_open|fri_fold|"
+    r"transcript|grind)"
     r"(?:_element|_tile)?_kernel\b")
 
 

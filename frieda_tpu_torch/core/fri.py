@@ -15,18 +15,22 @@ Folds (stwo convention, no division by 2), on natural-order halves:
 
 Architecture, as the JAX package's `_fri_commit_fn`: the commit phase
 (`commit_phase`) enqueues all of its work on the device's stream, from the
-staged words to the raw query words, and waits for nothing. The Fiat-Shamir
-channel lives in device memory (`core/device_channel.py`, the `transcript`
-and `grind` kernels of `ops/channel.py`): each layer's root is mixed from
-its tree's device tensor, alpha is drawn where the next `fri_fold` reads it,
-and the grind searches on the card. `finish_proof` then makes ONE fetch of
-the transcript's outputs (the layer roots, the last-layer coefficients, a
-degree flag, the nonce and the raw query words; the head of the JAX
-package's packed vector, `_packed_layout`), deduplicates the queries on the
-host and decommits: `merkle.Opening` reads exactly the values and nodes the
-query set needs (`plan_openings`), in one `merkle_open` launch and one
-fetch, where the JAX package gathers every raw query's full authentication
-path into its packed vector.
+staged words to the decommitment's gathers, and waits for nothing. The
+Fiat-Shamir channel lives in device memory (`core/device_channel.py`, the
+`transcript` and `grind` kernels of `ops/channel.py`): each layer's root is
+mixed from its tree's device tensor, alpha is drawn where the next
+`fri_fold` reads it, and the grind searches on the card. Once the query
+words are drawn, one `merkle_open_queries` launch gathers every raw query's
+pair and authentication path in each layer on the card, as the JAX
+package's oblivious gathers do. The transcript's outputs (the layer roots,
+the last-layer coefficients, a degree flag, the nonce and the raw query
+words) and those gathers make one packed vector in a fixed layout
+(`_packed_layout`). `finish_proof` then makes ONE fetch of it, launches
+nothing, and assembles the proof on the host in numpy: the queries
+deduplicated, the first draw of each kept, the witness planned from the
+known nodes of each level (`_known_levels`) and picked from the gathers.
+The sharded commit phase packs the transcript's outputs alone and decommits
+after the fetch (`plan_openings`, one `merkle_open` launch a device).
 
 The pipeline's device steps come in a `Route`: the kernel wrappers
 (`KERNELS`) for callers, and any other route of the same signatures (the
@@ -60,7 +64,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import os
+import struct
 import time
 import warnings
 import weakref
@@ -96,15 +102,16 @@ class Route(NamedTuple):
     evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (4, 2^n) evaluations
     level: Callable  # (x, leaf, fused) -> Merkle level
     collapse: Callable  # (level, out_widths) -> [levels]
-    open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening
+    open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening (sharded)
+    open_queries: Callable  # (layers, trees, query_words, out) -> out: the gathers of `_packed_layout`
     fold: Callable  # (values (4, M), alpha (4,), inv (M/2,)) -> (4, M/2)
     transcript: Callable  # (state, mix_u64=, mix_digest=, mix_felts=, draw_felt=, queries=) -> (alpha, words)
     grind: Callable  # (state, pow_bits) -> (2,) nonce words (lo, hi)
 
 
 KERNELS = Route(ingest_ops.ingest, fft.evaluate_auto, merkle_ops.merkle_level,
-                merkle_ops.merkle_collapse, merkle_ops.merkle_open, fri_ops.fri_fold,
-                channel_ops.transcript, channel_ops.grind)
+                merkle_ops.merkle_collapse, merkle_ops.merkle_open, merkle_ops.merkle_open_queries,
+                fri_ops.fri_fold, channel_ops.transcript, channel_ops.grind)
 
 
 # ---------------------------------------------------------------------------
@@ -185,48 +192,55 @@ def _device_ifft_line(values: torch.Tensor, xs_invs, depth: int) -> torch.Tensor
 # Pair grouping / witness planning (host index math, value-independent)
 # ---------------------------------------------------------------------------
 
-def _pair_groups(positions):
-    """positions: sorted unique. Yields (pair_index, pos_in_set, lone) where
-    lone is None if both elements of the pair are in the set, else the lone
-    position present."""
-    i = 0
-    while i < len(positions):
-        p = positions[i]
-        if p % 2 == 0 and i + 1 < len(positions) and positions[i + 1] == p + 1:
-            yield (p >> 1, (p, p + 1), None)
-            i += 2
-        else:
-            yield (p >> 1, (p,), p)
-            i += 1
+def _unique_sorted(x: np.ndarray) -> np.ndarray:
+    """The distinct values of a sorted array."""
+    return x[np.r_[True, x[1:] != x[:-1]]] if x.size else x
 
 
-def _all_leaf_indices(positions):
-    out = []
-    for k, _, _ in _pair_groups(positions):
-        out.extend((2 * k, 2 * k + 1))
-    return out
+def _known_levels(positions, levels: int) -> tuple:
+    """The known nodes of levels 0 .. levels - 1 above leaf positions (any
+    order, duplicates allowed): at level d the distinct positions >> d.
+    Returns (level, node, first, lone), one entry a known node, sorted by
+    (level, node): `first` is the index in `positions` of the first position
+    under it, and `lone` says that its sibling node ^ 1 is not known (the
+    verifier's `_pairs` over every level at once: a level's nodes sit below
+    2^40, so no pair spans two levels). This is the witness planner: a lone
+    node's sibling is a hash (or, at the leaves, a value) the proof
+    reveals."""
+    q = np.asarray(positions, np.int64).reshape(-1)
+    d = np.arange(levels, dtype=np.int64)
+    keys, first = np.unique((d[:, None] << 40 | q[None, :] >> d[:, None]).reshape(-1), return_index=True)
+    lone, _ = _pairs(keys)
+    return keys >> 40, keys & ((1 << 40) - 1), first % max(q.size, 1), lone
 
 
-def _merkle_witness_plans(log_n: int, known_leaves):
-    """Per-level sibling-hash indices needed for a multi-opening, walking
-    bottom-up exactly like the verifier's Merkle check."""
-    plans = []
-    known = list(known_leaves)
-    for _ in range(log_n):
-        sibs = []
-        nxt = []
-        i = 0
-        while i < len(known):
-            idx = known[i]
-            if i + 1 < len(known) and known[i + 1] == (idx ^ 1):
-                i += 2
-            else:
-                sibs.append(idx ^ 1)
-                i += 1
-            nxt.append(idx >> 1)
-        plans.append(sibs)
-        known = nxt
-    return plans
+def _pair_groups(positions) -> tuple:
+    """(pair indices, lone): sorted unique positions grouped into the pairs
+    (2k, 2k + 1) they touch, in order; lone[i] is the one position present
+    of pair i, or -1 when both are. The JAX package's generator
+    (`frieda_tpu/core/fri.py`) in numpy."""
+    pos = np.asarray(positions, np.int64).reshape(-1)
+    lone, keep = _pairs(pos)
+    return pos[keep] >> 1, np.where(lone[keep], pos[keep], -1)
+
+
+def _all_leaf_indices(positions) -> np.ndarray:
+    """Both leaves 2k, 2k + 1 of every pair k that sorted unique positions
+    touch, in order."""
+    ks, _ = _pair_groups(positions)
+    return (2 * ks[:, None] + np.arange(2)).reshape(-1)
+
+
+def _merkle_witness_plans(log_n: int, known_leaves) -> list:
+    """Per-level sibling indices (int64 arrays) a multi-opening of sorted
+    unique leaves needs, bottom-up as the verifier's Merkle check consumes
+    them: at each level the siblings of the lone known nodes
+    (`_known_levels`)."""
+    if log_n == 0:
+        return []
+    level, node, _, lone = _known_levels(known_leaves, log_n)
+    counts = np.bincount(level[lone], minlength=log_n)
+    return np.split(node[lone] ^ 1, np.cumsum(counts)[:-1])
 
 
 # ---------------------------------------------------------------------------
@@ -274,24 +288,30 @@ def _qm31s(cols: np.ndarray, sl: slice) -> list:
 
 class Committed:
     """What the commit phase of one proof leaves for its decommitment: the
-    layers and their trees on the device, and `packed`, the transcript's
-    outputs on the device (int32: the layer roots (8 words each), the last
+    layers and their trees on the device, and `packed`, its outputs on the
+    device (int32, `layout`: the layer roots (8 words each), the last
     layer's coefficients (4 words each), the degree flag, the nonce (lo,
-    hi) and the raw query words). `roots`, `last_layer_poly`, `nonce` and
+    hi), the raw query words, then the gathers of every raw query's pairs
+    and authentication paths). `roots`, `last_layer_poly`, `nonce` and
     `queries` make the one fetch of `packed` on first use (`fetch`) and
     keep it; `staging` holds the host buffer the words were uploaded from
-    until then."""
+    until then. A sharded commit phase packs the head alone (a layout with
+    no gathers) and names the class that reads its decommitment after the
+    fetch (`opening_cls`, `merkle.ShardedOpening`)."""
 
-    opening_cls = Opening  # the decommitment's reads (`merkle.ShardedOpening` for a sharded commit phase)
+    opening_cls = None
 
-    def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int):
+    def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int,
+                 layout: PackedLayout | None = None):
         self.layers = layers  # (4, N_t) int32 evaluations of each FRI layer, on the device (or `Sharded`)
         self.trees = trees  # their pruned trees (or `merkle.ShardedTree`)
         self.packed = packed
         self.bound = bound  # coefficients of the last layer
         self.n_queries = n_queries
+        self.layout = layout
         self.staging = None
         self._host = None
+        self._words = None  # the fetched vector
         self._lease = None  # the captured commit phase whose outputs these are (`_Instance.lend`)
 
     def release(self) -> None:
@@ -310,17 +330,15 @@ class Committed:
             return
         with span("prove/fetch_packed"):
             words = to_numpy_u32(self.packed)
-        t, b = len(self.trees), self.bound
-        roots = [words[8 * i : 8 * (i + 1)].astype("<u4").tobytes() for i in range(t)]
-        o = 8 * t
-        last = words[o : o + 4 * b].reshape(b, 4)
-        o += 4 * b
-        if not words[o]:
+        head = {key: words[o : o + count] for key, (o, count) in self.layout.head.items()}
+        if not head["degree_ok"][0]:
             raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
-        nonce = int(words[o + 1]) | int(words[o + 2]) << 32
-        raw = words[o + 3 : o + 3 + self.n_queries]
-        self._host = (roots, [tuple(int(v) for v in row) for row in last], nonce,
-                      sorted(set(int(q) for q in raw)), raw)
+        lo, hi = head["nonce"]
+        raw = head["qpos"]
+        self._host = ([root.astype("<u4").tobytes() for root in head["roots"].reshape(-1, 8)],
+                      [tuple(int(v) for v in row) for row in head["last"].reshape(-1, 4)],
+                      int(lo) | int(hi) << 32, sorted(set(int(q) for q in raw)), raw)
+        self._words = words
         self.staging = None
 
     @property
@@ -367,6 +385,43 @@ def _layer_sizes(log_total: int, pcs_config: PcsConfig) -> tuple:
             f"config unsatisfiable: log_last_layer_degree_bound "
             f"{fri_cfg.log_last_layer_degree_bound} >= poly log size {log_size}")
     return log_size, n, n_inner
+
+
+class PackedLayout(NamedTuple):
+    """Offsets (int32 words) of the commit phase's packed vector."""
+
+    head: dict  # name -> (offset, count): roots, last, degree_ok, nonce (lo, hi), qpos
+    pair_off: list  # per layer: (4, nq, 2) values of each raw query's pair ([]: no gathers)
+    auth_off: list  # per layer, per level k < log_leaves: (8, nq) sibling nodes
+    total: int
+    sizes: list  # log_leaves of each layer
+
+    @property
+    def head_words(self) -> int:
+        o, count = self.head["qpos"]
+        return o + count
+
+
+@functools.lru_cache(maxsize=32)
+def _packed_layout(n: int, n_inner: int, bound: int, nq: int, gather: bool = True) -> PackedLayout:
+    """The fixed layout of `Committed.packed` for one configuration: the
+    transcript's outputs, then (with `gather`) `merkle_open_queries`'
+    gathers. Counterpart of `frieda_tpu/core/fri.py:_packed_layout`, whose
+    pair and auth sections these are; the head differs (a 64-bit nonce, no
+    separate evaluations: layer 0's pairs hold them)."""
+    sizes = [n] + [n - 1 - l for l in range(n_inner)]
+    head, o = {}, 0
+    for key, count in (("roots", 8 * len(sizes)), ("last", 4 * bound), ("degree_ok", 1), ("nonce", 2),
+                       ("qpos", nq)):
+        head[key] = (o, count)
+        o += count
+    pair_off, auth_off = [], []
+    for log_leaves in sizes if gather else ():
+        pair_off.append(o)
+        o += 8 * nq
+        auth_off.append([o + 8 * nq * k for k in range(log_leaves)])
+        o += 8 * nq * log_leaves
+    return PackedLayout(head, pair_off, auth_off, o, sizes)
 
 
 _M64 = (1 << 64) - 1
@@ -441,10 +496,13 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
         return _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock)
 
 
-def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock) -> Committed:
+def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock,
+                      gather: bool = True) -> Committed:
     """The end of a commit phase after the last fold: the last layer's
     coefficients and degree check, its transcript step, the grind and the
-    query draws, and the transcript's outputs packed for the one fetch."""
+    query draws, then (with `gather`) the decommitment's gathers read with
+    the query words on the device (`route.open_queries`), all packed for
+    the one fetch (`_packed_layout`)."""
     fri_cfg = pcs_config.fri_config
     bound = 1 << fri_cfg.log_last_layer_degree_bound
     with clock("folds"):
@@ -457,9 +515,14 @@ def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, 
         nonce = route.grind(state, pcs_config.pow_bits)
     with clock("transcript"):
         _, query_words = route.transcript(state, mix_u64=nonce, queries=(fri_cfg.n_queries, n))
-        packed = torch.cat([t.root.reshape(8) for t in trees]
-                           + [last_poly.reshape(-1), degree_ok, nonce, query_words])
-    return Committed(layers, trees, packed, bound, fri_cfg.n_queries)
+        head = [t.root.reshape(8) for t in trees] + [last_poly.reshape(-1), degree_ok, nonce, query_words]
+        layout = _packed_layout(n, n_inner, bound, fri_cfg.n_queries, gather)
+        packed = torch.empty(layout.total, dtype=torch.int32, device=query_words.device)
+        torch.cat(head, out=packed[: layout.head_words])
+    if gather:
+        with clock("decommit_gather"):
+            route.open_queries(layers, trees, query_words, packed[layout.head_words :])
+    return Committed(layers, trees, packed, bound, fri_cfg.n_queries, layout)
 
 
 def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig,
@@ -526,7 +589,7 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
         if isinstance(g, Sharded):
             g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
         committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
-                                      _Clock(home, None))
+                                      _Clock(home, None), gather=False)
     committed.opening_cls = ShardedOpening
     return committed
 
@@ -605,7 +668,7 @@ class _CommitGraph(_Instance):
             self.graph.replay()
         ops.add_launch_counts(self.launches)
         c = self.committed
-        out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries)
+        out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries, c.layout)
         out.opening_cls = c.opening_cls
         self.lend(out)
         return out
@@ -803,27 +866,29 @@ def plan_openings(layers: list, trees: list, queries, opening_cls=Opening) -> tu
     """(opening, slice of the evaluations, [(slice of the FRI witness, [slices
     of the Merkle witness per level]) per layer]): every value and node a
     proof reveals, registered on one `Opening` (or `opening_cls`: the
-    sharded commit phase's `merkle.ShardedOpening`)."""
+    sharded commit phase's `merkle.ShardedOpening`), for a decommitment read
+    after the fetch."""
     opening = opening_cls(layers, trees)
-    eval_sl = opening.values(0, np.array(queries, np.int64))
+    pos = np.asarray(queries, np.int64)
+    eval_sl = opening.values(0, pos)
     plan = []
-    pos = list(queries)
     for t, tree in enumerate(trees):
-        sibs = [lone ^ 1 for _, _, lone in _pair_groups(pos) if lone is not None]
-        wit_sl = opening.values(t, np.array(sibs, np.int64))
+        _, lone = _pair_groups(pos)
+        wit_sl = opening.values(t, lone[lone >= 0] ^ 1)
         plans = _merkle_witness_plans(tree.log_leaves, _all_leaf_indices(pos))
-        node_sls = [opening.nodes(t, k, np.array(s, np.int64)) for k, s in enumerate(plans) if s]
+        node_sls = [opening.nodes(t, k, sibs) for k, sibs in enumerate(plans) if sibs.size]
         plan.append((wit_sl, node_sls))
-        pos = sorted({p >> 1 for p in pos})
+        pos = _unique_sorted(pos >> 1)
     return opening, eval_sl, plan
 
 
 def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = DEFAULT_CONFIG,
                  route: Route = KERNELS, clock: _Clock | None = None):
-    """(commitment, Proof) of a commit phase: the one fetch of its
-    transcript's outputs (which raises AssertionError for a last layer above
-    its degree bound), then the decommitment (every revealed value and node
-    in one `merkle_open` launch and one fetch) and the proof objects.
+    """(commitment, Proof) of a commit phase: the one fetch of its packed
+    outputs (which raises AssertionError for a last layer above its degree
+    bound), then the proof assembled on the host from the gathers in it; no
+    launch. A sharded commit phase's decommitment is read after the fetch
+    (`plan_openings`: one `route.open` a device and one fetch each).
     Counterpart of `fri._finish_proof`. Ends the lease of a `Committed`
     from `dispatch_commit_phase` (`Committed.release`), also when it
     raises."""
@@ -837,31 +902,72 @@ def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Ro
     clock = clock or _Clock(c.layers[0].device, None)
     with clock("transcript"):
         c.fetch()
-    with clock("decommit_plan"):
-        opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
-    with clock("decommit_open"):
-        vals, nodes = opening.run(route.open)
+    gathered = bool(c.layout.pair_off)
+    if not gathered:
+        with clock("decommit_plan"):
+            opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
+        with clock("decommit_open"):
+            vals, nodes = opening.run(route.open)
     with clock("decommit_assemble"), span("prove/assemble"):
-        node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
+        if not gathered:
+            node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
+            evaluations = _qm31s(vals, eval_sl)
+            layers = [(_qm31s(vals, wit_sl),
+                       [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)])
+                      for wit_sl, node_sls in plan]
+        else:
+            evaluations, layers = _assemble(c._words, c.query_words, c.layout)
         layer_proofs = [
-            FriLayerProof(
-                fri_witness=_qm31s(vals, wit_sl),
-                decommitment=MerkleDecommitment(
-                    [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)]),
-                commitment=c.roots[t],
-            )
-            for t, (wit_sl, node_sls) in enumerate(plan)
+            FriLayerProof(fri_witness=wit, decommitment=MerkleDecommitment(hashes), commitment=c.roots[t])
+            for t, (wit, hashes) in enumerate(layers)
         ]
         proof = Proof(
             proof=FriProof(layer_proofs[0], layer_proofs[1:], c.last_layer_poly),
             proof_of_work=c.nonce,
             pcs_config=pcs_config,
             log_size_bound=log_total - 2,
-            evaluations=_qm31s(vals, eval_sl),
+            evaluations=evaluations,
         )
-    if clock.stats is not None:
-        clock.stats["open_launches"] = opening.open_calls
     return c.roots[0], proof
+
+
+def _assemble(words: np.ndarray, raw: np.ndarray, layout: PackedLayout) -> tuple:
+    """(evaluations, [(FRI witness, hash witness) per layer]) of the
+    deduplicated proof encoding, selected from the packed vector `words`
+    (uint32, `layout`) of the raw query words `raw`. A known node x of
+    level d above layer 0 stands for the distinct positions raw >> d; the
+    first raw query under it (its slot) gathered its pair and path, so a
+    lone position of layer t (d = t) reveals its sibling's value from the
+    slot's pair, and a lone node at level k of layer t (d = t + k, k >= 1)
+    reveals its sibling's hash from the slot's level-k auth node. The
+    evaluations are layer 0's positions' own values. Counterpart of the
+    selection in `frieda_tpu/core/fri.py:_finish_proof`."""
+    nq, sizes = raw.size, layout.sizes
+    T = len(sizes)
+    level, node, slot, lone = _known_levels(raw, sizes[0])
+    pair_off = np.asarray(layout.pair_off, np.int64)
+    cols = 2 * nq * np.arange(4)
+
+    def values(sel, flip):  # (m, 4) values of the entries sel, or of their siblings
+        at = pair_off[level[sel]] + 2 * slot[sel] + ((node[sel] & 1) ^ flip)
+        return words[at[:, None] + cols].tolist()
+
+    evaluations = [tuple(v) for v in values(level == 0, 0)]
+    wit_sel = lone & (level < T)
+    witness = [tuple(v) for v in values(wit_sel, 1)]
+    wit_cut = np.r_[0, np.cumsum(np.bincount(level[wit_sel], minlength=T))]
+    # hash witness: layer t takes the lone nodes of the levels d > t, in (d, node) order
+    auth = np.zeros((T, sizes[0]), np.int64)
+    for t, offs in enumerate(layout.auth_off):
+        auth[t, : len(offs)] = offs
+    e_level, e_slot = level[lone], slot[lone]
+    t_idx, e_idx = np.nonzero(e_level[None, :] > np.arange(T)[:, None])
+    at = auth[t_idx, e_level[e_idx] - t_idx] + e_slot[e_idx]
+    blob = words[at[:, None] + nq * np.arange(8)].astype("<u4").tobytes()
+    hashes = struct.unpack("32s" * at.size, blob)  # one 32-byte node a row, cut in C
+    hash_cut = np.r_[0, np.cumsum(np.bincount(t_idx, minlength=T))]
+    layers = [(witness[wit_cut[t] : wit_cut[t + 1]], list(hashes[hash_cut[t] : hash_cut[t + 1]])) for t in range(T)]
+    return evaluations, layers
 
 
 def prove_words(words: torch.Tensor, log_total: int, seed,

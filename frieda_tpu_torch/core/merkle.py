@@ -22,10 +22,13 @@ the device (one-level `merkle_level` launches) down to width 2^HOST_CUTOFF_LOG,
 stored index (counterparts of `frieda_tpu/core/merkle.py:45-79, 221-274`).
 
 The prover's half: `build_pruned` keeps every third level of a tree (the
-counterpart of `device_levels_pruned`), and `Opening` reads the values and
-nodes a proof reveals from the layers and their trees, rebuilding the two
-missing levels of each group from the level below, in one `merkle_open`
-launch. `MerkleDecommitment` is the proof's hash witness.
+counterpart of `device_levels_pruned`), whose two missing levels of each
+group the decommitment rebuilds from the level below: inside the commit
+phase on one device (`ops.merkle.merkle_open_queries`, over the query
+words on the card), and after the fetch for a sharded commit phase, where
+`Opening` / `ShardedOpening` read the values and nodes a proof reveals in
+one `merkle_open` launch a device. `MerkleDecommitment` is the proof's hash
+witness.
 
 The verifier's half is host code over numpy rows, as in the JAX package
 (`frieda_tpu/core/merkle.py:297-410`): `compress_rows_host` hashes leaves and
@@ -256,7 +259,7 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> Prun
     one-level leaf pass when N < 8), fused inner passes while the width is
     above `ops.merkle.COLLAPSE_MAX`, each stored, then ONE `merkle_collapse`
     that writes the tail widths m/8^j and the root. Every multiple-of-3 level
-    and the root are stored, which is what `Opening` relies on. The grouping
+    and the root are stored, which the decommitment's reads rely on. The grouping
     differs from the JAX package's BLOCK-based rule only at level 0: the JAX
     package stores the leaf hashes when N is not a multiple of 8 * 4096, this
     build only when N < 8; every other stored level is the same.

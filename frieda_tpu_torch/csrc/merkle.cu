@@ -83,6 +83,23 @@
 // and lane u stores its words 2u and 2u + 1. Every lane of a warp reaches
 // both shuffle rounds: quads past the last read repeat it and store nothing.
 // Indices are bit-reversed on the card; addresses are 64-bit.
+//
+// merkle_open_queries is the same per-read body driven by the query words
+// on the card instead of a host job table: the oblivious gathers of
+// frieda_tpu/core/fri.py:_fri_commit_fn.run, for every raw query in draw
+// order, so that a CUDA graph of the commit phase captures them after the
+// transcript draws the words. Per layer t (pos = q >> t for each of the nq
+// words q), 2 nq pair reads, then nq node reads per level k < log_leaves:
+// read j of a layer is pair element e = j & 1 of query j >> 1, stored index
+// (pos & ~1) | e, written as (4, nq, 2); then the sibling ((pos >> k) ^ 1)
+// of level k, query j mod nq, written as (8, nq). A quad derives its layer
+// from its index (a layer has nq (2 + log_leaves) reads and 8 nq (1 +
+// log_leaves) output words), so the grid is fixed by the configuration. The
+// layers come by value in the kernel's parameters (OpenLayers: the columns'
+// and the tree's pointers, log_leaves and a mask of the stored levels, whose
+// offsets in the flat tree follow from the mask: level k at 8 x the widths
+// of the stored levels below it), so a captured launch holds its instance's
+// own pointers and nothing is uploaded.
 
 #include <cooperative_groups.h>
 
@@ -99,12 +116,22 @@ constexpr uint32_t kBlockNodesMax = 512;  // input nodes a collapse block takes
 constexpr long long kCollapseMax = 4096;
 constexpr int kMaxOuts = 13;  // distinct powers of two <= kCollapseMax
 constexpr int kOpenThreads = 128;  // 32 reads a block, a quad of lanes each
-constexpr int kOpenLevels = 32;    // level offsets a layer descriptor holds
+constexpr int kOpenLevels = 32;    // levels of a layer, and layers of merkle_open_queries, at most
 constexpr int kLayerWords = 3 + kOpenLevels;
 
 struct CollapseOuts {
   uint32_t* ptr[kMaxOuts];
   uint32_t width[kMaxOuts];  // descending
+  int count;
+};
+
+// The layers of merkle_open_queries, by value (776 bytes of the 4 KB of
+// kernel parameters).
+struct OpenLayers {
+  const uint32_t* cols[kOpenLevels];  // (4, 2^log_leaves) columns of layer t
+  const uint32_t* flat[kOpenLevels];  // its pruned tree's stored levels, ascending
+  int log_leaves[kOpenLevels];
+  uint32_t stored[kOpenLevels];  // bit k: level k is stored
   int count;
 };
 
@@ -260,6 +287,37 @@ __device__ __forceinline__ uint32_t bitrev(uint32_t x, int bits) {
   return bits == 0 ? 0u : __brev(x) >> (32 - bits);
 }
 
+// Lane u's part of a node read: child u mod 2^r of the node's 2^r
+// descendants r levels down at level `base`, whose stored level is `level`
+// (8 rows of 2^(L - base) words), or with no stored level (nullptr; base 0)
+// the leaf hash of the child's columns.
+__device__ __forceinline__ void rebuild_lane(const uint32_t* cols, const uint32_t* level, int L, int base,
+                                             uint32_t s, int r, uint32_t u, uint32_t (&h)[8]) {
+  const uint32_t child = (s << r) | (u & ((1u << r) - 1));
+  if (level != nullptr) {
+    load_node<false>(level, size_t(1) << (L - base), bitrev(child, L - base), h);
+  } else {
+    load_node<true>(cols, size_t(1) << L, bitrev(child, L), h);
+  }
+}
+
+// The quad's r rounds of stored-order pairs H(2s, 2s + 1), the even lane on
+// the left; every lane of the warp shuffles, whatever its r.
+__device__ __forceinline__ void combine_quad(uint32_t (&h)[8], int r, uint32_t u) {
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    uint32_t o[8], a[8], b[8];
+    const bool right = (u >> l) & 1;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      o[w] = __shfl_xor_sync(0xffffffffu, h[w], 1 << l);
+      a[w] = right ? o[w] : h[w];
+      b[w] = right ? h[w] : o[w];
+    }
+    if (l < r) frieda::blake2s_hash_pair(a, b, h);
+  }
+}
+
 __global__ void __launch_bounds__(kOpenThreads)
 merkle_open_kernel(const long long* __restrict__ table, int n_layers, long long n_values,
                    long long n_nodes, uint32_t* __restrict__ out) {
@@ -283,30 +341,65 @@ merkle_open_kernel(const long long* __restrict__ table, int n_layers, long long 
   } else {
     const int base = off[k] >= 0 ? k : 3 * (k / 3);
     r = k - base;
-    const uint32_t child = (s << r) | (u & ((1u << r) - 1));
-    if (off[base] >= 0) {
-      load_node<false>(flat + off[base], size_t(1) << (L - base), bitrev(child, L - base), h);
-    } else {  // base 0 and the leaf level not stored: hash the leaf
-      load_node<true>(cols, size_t(1) << L, bitrev(child, L), h);
-    }
+    rebuild_lane(cols, off[base] >= 0 ? flat + off[base] : nullptr, L, base, s, r, u, h);
   }
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {  // every lane of the warp shuffles, whatever its r
-    uint32_t o[8], a[8], b[8];
-    const bool right = (u >> l) & 1;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      o[w] = __shfl_xor_sync(0xffffffffu, h[w], 1 << l);
-      a[w] = right ? o[w] : h[w];
-      b[w] = right ? h[w] : o[w];
-    }
-    if (l < r) frieda::blake2s_hash_pair(a, b, h);
-  }
+  combine_quad(h, r, u);
   if (k >= 0 && j < n_jobs) {
     uint32_t* node = out + 4 * n_values + (j - n_values);  // word w at node[w * n_nodes]
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
       if ((w >> 1) == static_cast<int>(u)) node[w * n_nodes] = h[w];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kOpenThreads)
+merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__ queries, uint32_t nq,
+                           long long n_reads, uint32_t* __restrict__ out) {
+  const long long g = (static_cast<long long>(blockIdx.x) * kOpenThreads + threadIdx.x) >> 2;
+  const uint32_t u = threadIdx.x & 3;
+  long long j = g < n_reads ? g : n_reads - 1;  // then the read's index in its layer
+  int t = 0;
+  size_t dst = 0;  // layer t's first output word
+  for (; t + 1 < layers.count; ++t) {
+    const long long reads = static_cast<long long>(nq) * (2 + layers.log_leaves[t]);
+    if (j < reads) break;
+    j -= reads;
+    dst += size_t(8) * nq * (1 + layers.log_leaves[t]);
+  }
+  const int L = layers.log_leaves[t];
+  const uint32_t* cols = layers.cols[t];
+  // The words are the transcript's draws, below 2^n; the mask only keeps a
+  // bad word inside its layer.
+  const uint32_t in_layer = (1u << L) - 1;
+  const bool pair = j < 2ll * nq;
+  const long long jn = j - 2ll * nq;
+  const int k = pair ? 0 : static_cast<int>(jn / nq);
+  const uint32_t qi = pair ? static_cast<uint32_t>(j >> 1) : static_cast<uint32_t>(jn % nq);
+  const uint32_t pos = (queries[qi] >> t) & in_layer;
+  uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int r = 0;
+  if (pair) {  // lane u reads column u of element j & 1 of the queried pair
+    const uint32_t s = (pos & ~1u) | static_cast<uint32_t>(j & 1);
+    if (g < n_reads) out[dst + size_t(u) * 2 * nq + j] = cols[(size_t(u) << L) + bitrev(s, L)];
+  } else {
+    const uint32_t stored = layers.stored[t];
+    const int base = (stored >> k) & 1 ? k : 3 * (k / 3);
+    r = k - base;
+    const uint32_t* level = nullptr;
+    if ((stored >> base) & 1) {
+      size_t off = 0;  // the stored levels below base, each (8, 2^(L - level))
+      for (uint32_t m = stored & ((1u << base) - 1); m; m &= m - 1) off += size_t(8) << (L - (__ffs(m) - 1));
+      level = layers.flat[t] + off;
+    }
+    rebuild_lane(cols, level, L, base, (pos >> k) ^ 1u, r, u, h);
+  }
+  combine_quad(h, r, u);
+  if (!pair && g < n_reads) {
+    uint32_t* node = out + dst + size_t(8) * nq * (1 + k) + qi;  // word w at node[w * nq]
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      if ((w >> 1) == static_cast<int>(u)) node[size_t(w) * nq] = h[w];
     }
   }
 }
@@ -415,5 +508,36 @@ extern "C" int frieda_merkle_open(const void* table, int n_layers, long long n_v
   merkle_open_kernel<<<dim3(static_cast<unsigned>(blocks)), kOpenThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(table), n_layers, n_values, n_nodes, static_cast<uint32_t*>(out));
+  FRIEDA_LAUNCH_RESULT();
+}
+
+// cols[t], flats[t]: the (4, 2^log_leaves[t]) int32 columns and the pruned
+// tree of layer t, 1 <= n_layers <= 32, log_leaves < 32; stored[t]: bit k
+// set for each level k the tree stores, at ascending offsets in its flat
+// tensor; queries: nq >= 1 int32 words on the card (below 2^log_leaves[0]);
+// out: sum over t of 8 nq (1 + log_leaves[t]) int32 words, per layer the
+// (4, nq, 2) pairs, then (8, nq) for each level. The caller checks that
+// each level k < log_leaves is stored or has its base 3 (k / 3) stored, or
+// k <= 2.
+extern "C" int frieda_merkle_open_queries(const void* const* cols, const void* const* flats,
+                                          const int* log_leaves, const unsigned* stored, int n_layers,
+                                          const void* queries, int nq, void* out, void* stream) {
+  if (n_layers < 1 || n_layers > kOpenLevels || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  OpenLayers layers{};
+  long long n_reads = 0;
+  for (int t = 0; t < n_layers; ++t) {
+    if (log_leaves[t] < 0 || log_leaves[t] >= kOpenLevels) return static_cast<int>(cudaErrorInvalidValue);
+    layers.cols[t] = static_cast<const uint32_t*>(cols[t]);
+    layers.flat[t] = static_cast<const uint32_t*>(flats[t]);
+    layers.log_leaves[t] = log_leaves[t];
+    layers.stored[t] = stored[t];
+    n_reads += static_cast<long long>(nq) * (2 + log_leaves[t]);
+  }
+  layers.count = n_layers;
+  const long long blocks = (4 * n_reads + kOpenThreads - 1) / kOpenThreads;
+  merkle_open_queries_kernel<<<dim3(static_cast<unsigned>(blocks)), kOpenThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      layers, static_cast<const uint32_t*>(queries), static_cast<uint32_t>(nq), n_reads,
+      static_cast<uint32_t*>(out));
   FRIEDA_LAUNCH_RESULT();
 }

@@ -13,7 +13,7 @@ def kernel_wrappers() -> dict:
     from .fft import fft_exchange, fft_pass
     from .fri import fri_fold
     from .ingest import ingest
-    from .merkle import merkle_collapse, merkle_level, merkle_open
+    from .merkle import merkle_collapse, merkle_level, merkle_open, merkle_open_queries
 
     return {
         "ingest": ingest,
@@ -21,6 +21,7 @@ def kernel_wrappers() -> dict:
         "merkle_level": merkle_level,
         "merkle_collapse": merkle_collapse,
         "merkle_open": merkle_open,
+        "merkle_open_queries": merkle_open_queries,
         "fri_fold": fri_fold,
         "transcript": transcript,
         "grind": grind,

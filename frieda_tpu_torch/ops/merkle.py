@@ -15,7 +15,12 @@ root only, the prover's pruned trees for every third level of the tail).
 `merkle_open` does the device work of `frieda_tpu/core/fri.py`'s
 `_auth_sibling_nodes` and value gathers for every read of one proof in one
 launch, a quad of lanes per read (`leaf_level` / `inner_level` are that
-function's one-level steps in the JAX package).
+function's one-level steps in the JAX package), from a job table built on
+the host (the sharded decommitment's form). `merkle_open_queries` is the
+same per-read body driven by the query words on the card: the oblivious
+gathers of the JAX package's `_fri_commit_fn.run`, every raw query's pair
+and authentication path in each layer, in a grid fixed by the
+configuration, so that a CUDA graph of the commit phase holds it.
 Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
@@ -29,7 +34,7 @@ import torch
 from ..core.blake2s import compress_rows
 from ..core.circle import bitrev_array
 from ..core.merkle import hash_leaves, hash_parents
-from ..utils.convert import narrow, widen
+from ..utils.convert import narrow, to_numpy_u32, widen
 from . import _build
 
 CLUSTER_MAX = 16  # the largest cluster a Hopper card runs (non-portable above 8)
@@ -266,3 +271,136 @@ def merkle_open(columns, trees, values, nodes, table=None) -> torch.Tensor:
 
 
 merkle_open.launches = 0
+
+
+def open_queries_words(log_leaves, nq: int) -> int:
+    """Output words of `merkle_open_queries` over layers of these log sizes
+    and nq query words: per layer the (4, nq, 2) pairs, then an (8, nq)
+    block a level."""
+    return sum(8 * nq * (1 + int(L)) for L in log_leaves)
+
+
+def query_reads(trees, query_words) -> tuple:
+    """(values (V, 2), nodes (R, 3)): `merkle_open_queries`' reads as the job
+    rows of `merkle_open`, in the order of its output. Per layer t, with pos
+    = q >> t for each word q in draw order: the two elements (pos & ~1) | e
+    of each query's pair, then for each level k < log_leaves the sibling
+    (pos >> k) ^ 1 of each query's ancestor. The gathers of
+    `frieda_tpu/core/fri.py:_fri_commit_fn.run` (`_dbitrev` pairs,
+    `_auth_sibling_nodes`)."""
+    q = np.asarray(query_words).astype(np.int64).reshape(-1) & 0xFFFFFFFF
+    values, nodes = [], []
+    for t, tree in enumerate(trees):
+        pos = q >> t
+        s = ((pos & ~1)[:, None] | np.arange(2)).reshape(-1)
+        values.append(np.stack([np.full_like(s, t), s], 1))
+        k = np.repeat(np.arange(tree.log_leaves), q.size)
+        nodes.append(np.stack([np.full_like(k, t), k, (np.tile(pos, tree.log_leaves) >> k) ^ 1], 1))
+    return np.concatenate(values), np.concatenate(nodes)
+
+
+def merkle_open_queries_plain(columns, trees, query_words) -> torch.Tensor:
+    """Plain version, int64 (`open_queries_words`,): for each layer the
+    (4, nq, 2) values of the queried pairs, then an (8, nq) block of sibling
+    nodes a level (`query_reads`), read by `merkle_open_plain`. The query
+    words are read on the host (a tensor is fetched)."""
+    words = to_numpy_u32(query_words) if isinstance(query_words, torch.Tensor) else np.asarray(query_words)
+    values, nodes = query_reads(trees, words)
+    flat = merkle_open_plain(columns, trees, values, nodes)
+    nq = words.size
+    vals = flat[: 4 * len(values)].reshape(4, len(trees), 2 * nq)
+    found = flat[4 * len(values):].reshape(8, -1)
+    out, r0 = [], 0
+    for t, tree in enumerate(trees):
+        L = tree.log_leaves
+        out += [vals[:, t].reshape(-1), found[:, r0 : r0 + L * nq].reshape(8, L, nq).transpose(0, 1).reshape(-1)]
+        r0 += L * nq
+    return torch.cat(out)
+
+
+def stored_mask(tree) -> int:
+    """Bit k set for each level k the pruned tree stores, which is what
+    `merkle_open_queries` reads a layer's levels by. Raises ValueError
+    unless the stored levels lie in its flat tensor in ascending order with
+    no gap (the kernel derives their offsets from the mask) and every level
+    below log_leaves is stored, has its base 3 * (k // 3) stored, or is
+    rebuilt from the leaves (k <= 2)."""
+    mask, off = 0, 0
+    for k in sorted(tree.offsets):
+        at, m = tree.offsets[k]
+        if at != off:
+            raise ValueError(f"stored level {k} at offset {at}, not {off}: levels must be packed ascending")
+        off += 8 * m
+        mask |= 1 << k
+    for k in range(tree.log_leaves):
+        if not (mask >> k & 1 or mask >> (3 * (k // 3)) & 1 or k <= 2):
+            raise ValueError(f"level {k} is neither stored nor rebuilt from a stored level")
+    return mask
+
+
+def merkle_open_queries(columns, trees, query_words: torch.Tensor, out: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """int32 form of `merkle_open_queries_plain` over int32 layers
+    (`columns[t]`, (4, 2^L) each), their pruned trees and the (nq,) int32
+    query words on the same device, into `out` (`open_queries_words`
+    int32 words, or a new tensor). One launch on CUDA tensors: the layers go
+    by value in the kernel's parameters and the words are read on the card,
+    so nothing is uploaded or fetched and a CUDA graph captures the launch.
+    The plain version on CPU tensors."""
+    _check_layers(columns, trees)
+    if len(trees) > OPEN_LEVELS or any(tree.log_leaves >= OPEN_LEVELS for tree in trees):
+        raise ValueError(f"at most {OPEN_LEVELS} layers of fewer than 2^{OPEN_LEVELS} leaves")
+    nq = query_words.numel()
+    if not nq:
+        raise ValueError("no query words")
+    _build.check_u32(query_words, "query_words", (nq,))
+    masks = [stored_mask(tree) for tree in trees]
+    n_words = open_queries_words([tree.log_leaves for tree in trees], nq)
+    if out is None:
+        out = torch.empty(n_words, dtype=torch.int32, device=query_words.device)
+    _build.check_u32(out, "out", (n_words,))
+    _build.check_same_device(columns[0], query_words, out)
+    if not query_words.is_cuda:
+        return out.copy_(narrow(merkle_open_queries_plain(columns, trees, query_words)))
+    T = len(trees)
+    _build.check_launch(_build.library().frieda_merkle_open_queries(
+        (ctypes.c_void_p * T)(*[c.data_ptr() for c in columns]),
+        (ctypes.c_void_p * T)(*[tree.flat.data_ptr() for tree in trees]),
+        (ctypes.c_int * T)(*[tree.log_leaves for tree in trees]), (ctypes.c_uint * T)(*masks),
+        T, query_words.data_ptr(), nq, out.data_ptr(), _build.stream_of(out)))
+    merkle_open_queries.launches += 1
+    return out
+
+
+merkle_open_queries.launches = 0
+
+
+def open_queries_work(trees, query_words) -> tuple:
+    """(compressions, read_bytes) that one `merkle_open_queries` needs: the
+    distinct hashes computed to rebuild its distinct node reads (`open_plan`:
+    each from 2^depth descendants at its stored base, or from the leaves'
+    columns), a hash shared by several rebuilds counted once; and the bytes
+    of the distinct column entries (16) and stored nodes (32) its reads
+    touch, each counted once. For `utils/profiling.merkle_open_queries_bound`."""
+    values, nodes = query_reads(trees, query_words)
+    nodes = np.unique(nodes, axis=0)
+    _, _, base, r, leaf, _ = open_plan(trees, values, nodes)
+    width = 1 << r
+    owner = np.repeat(np.arange(len(nodes)), width)
+    u = np.arange(width.sum()) - np.repeat(np.cumsum(width) - width, width)
+    child = (nodes[owner, 2] << r[owner]) | u
+    level = np.where(leaf[owner], -1, base[owner])  # -1: a column entry
+    reads = np.concatenate([np.stack([values[:, 0], np.full(len(values), -1), values[:, 1]], 1),
+                            np.stack([nodes[owner, 0], level, child], 1)])
+    distinct = np.unique(reads, axis=0)
+    n_cols = int((distinct[:, 1] == -1).sum())
+    # the hashes of a rebuild: its levels k - d for d < depth (d <= depth
+    # from the leaves, whose level 0 hashes the columns), 2^d nodes each
+    t, k, s = nodes.T
+    hashes = []
+    for d in range(int(r.max(initial=0)) + 1):
+        m = d < r + leaf
+        hashes.append(np.stack([np.repeat(t[m], 1 << d), np.repeat(k[m] - d, 1 << d),
+                                ((s[m] << d)[:, None] | np.arange(1 << d)).reshape(-1)], 1))
+    compressions = len(np.unique(np.concatenate(hashes), axis=0))
+    return compressions, 16 * n_cols + 32 * (len(distinct) - n_cols)

@@ -252,6 +252,15 @@ def merkle_open_bound(n_values: int, leaf, depth, card: str | None = None) -> tu
     return least_ms(n_bytes, compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
+def merkle_open_queries_bound(nq: int, out_words: int, read_bytes: int, compressions: int,
+                              card: str | None = None) -> tuple | None:
+    """`merkle_open_queries` of one proof (`ops/merkle.open_queries_work`):
+    the nq query words read, the distinct column entries and stored nodes
+    its reads touch (`read_bytes`, each once) and its out_words written;
+    `compressions`, the distinct hashes its distinct node reads need."""
+    return least_ms(4 * nq + read_bytes + 4 * out_words, compressions * BLAKE2S_COMPRESS_INSTR, card)
+
+
 def fri_fold_bound(half: int, card: str | None = None) -> tuple | None:
     """`fri_fold` of (4, 2 half) QM31 values to (4, half): the values, `half`
     inverses and alpha read, the fold written."""

@@ -15,6 +15,8 @@ import hashlib  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
 from frieda_tpu.core import channel as jch  # noqa: E402
 from frieda_tpu.core import circle as jcircle  # noqa: E402
@@ -377,11 +379,59 @@ def test_folds_match_spec():
     assert [col(got2, j) for j in range(half // 2)] == want2
 
 
+def _planners_match_jax(pos: list, log_n: int) -> None:
+    """The port's numpy planners over sorted unique positions of a layer of
+    2^log_n leaves against the JAX package's loops: the pair groups (pair
+    index, lone position or -1), every touched pair's leaves, the Merkle
+    witness plan per level, and the known nodes of every level with their
+    lone flags (`_known_levels`, the proof assembly's planner)."""
+    ks, lone = tfri._pair_groups(pos)
+    want = list(jfri._pair_groups(pos))
+    assert ks.tolist() == [k for k, _, _ in want]
+    assert lone.tolist() == [-1 if one is None else one for _, _, one in want]
+    leaves = tfri._all_leaf_indices(pos)
+    assert leaves.tolist() == jfri._all_leaf_indices(pos)
+    plans = tfri._merkle_witness_plans(log_n, leaves)
+    assert [p.tolist() for p in plans] == jfri._merkle_witness_plans(log_n, leaves.tolist())
+    level, node, _, lone_k = tfri._known_levels(leaves, log_n)
+    for k, sibs in enumerate(jfri._merkle_witness_plans(log_n, leaves.tolist())):
+        assert (node[(level == k) & lone_k] ^ 1).tolist() == sibs
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_witness_planning_matches_jax(seed):
     rng = np.random.default_rng(seed)
     pos = sorted(set(int(p) for p in rng.integers(0, 256, 30)))
-    assert list(tfri._pair_groups(pos)) == list(jfri._pair_groups(pos))
-    leaves = tfri._all_leaf_indices(pos)
-    assert leaves == jfri._all_leaf_indices(pos)
-    assert tfri._merkle_witness_plans(8, leaves) == jfri._merkle_witness_plans(8, leaves)
+    _planners_match_jax(pos, 8)
+
+
+@settings(max_examples=150, deadline=None, derandomize=True, database=None)
+@given(st.integers(1, 12).flatmap(lambda log_n: st.tuples(
+    st.just(log_n),
+    st.sampled_from(["any", "paired", "lone"]),
+    st.lists(st.integers(0, (1 << log_n) - 1), max_size=64))))
+def test_witness_planning_property(case):
+    """Random position sets at log sizes 1-12: drawn with duplicates
+    (collapsed to sorted unique positions), made all-paired (each with its
+    sibling) or all-lone (one of each pair, siblings removed)."""
+    log_n, form, drawn = case
+    if form == "paired":
+        drawn = [p ^ b for p in drawn for b in (0, 1)]
+    elif form == "lone":
+        drawn = list({p >> 1: p for p in drawn}.values())
+    _planners_match_jax(sorted(set(drawn)), log_n)
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(st.integers(1, 12).flatmap(lambda n: st.lists(st.integers(0, (1 << n) - 1), min_size=1, max_size=48)
+                                  .map(lambda words: (n, words))))
+def test_known_levels_first_slots(case):
+    """`_known_levels` over raw draws (duplicates, any order): each level's
+    nodes are the distinct words >> level, sorted, and the first slot of each
+    is the first draw under it."""
+    n, words = case
+    level, node, first, _ = tfri._known_levels(words, n)
+    for d in range(n):
+        want = sorted({w >> d for w in words})
+        assert node[level == d].tolist() == want
+        assert first[level == d].tolist() == [next(i for i, w in enumerate(words) if w >> d == x) for x in want]

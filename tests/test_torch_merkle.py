@@ -249,6 +249,83 @@ def test_open_quad_mirror_matches_plain(case):
     assert torch.equal(got, merkle_ops.merkle_open_plain(columns, trees, values, nodes))
 
 
+def _open_query_quads(columns, trees, words: np.ndarray) -> torch.Tensor:
+    """Mirror of `merkle_open_queries_kernel`, lane by lane over the whole
+    grid (128 threads a block), from the layer descriptors alone (pointers,
+    log_leaves, `stored_mask`): quad g takes read min(g, n - 1), finds its
+    layer by subtracting each layer's nq (2 + L) reads (and adding its 8 nq
+    (1 + L) output words), then reads pair element j & 1 of query j >> 1,
+    or the sibling at level (j - 2 nq) // nq of query (j - 2 nq) mod nq,
+    a stored level's offset summed from the mask; the same two exchange
+    rounds as `merkle_open_kernel`."""
+    nq, Ls = len(words), [tree.log_leaves for tree in trees]
+    masks = [merkle_ops.stored_mask(tree) for tree in trees]
+    n_reads = sum(nq * (2 + L) for L in Ls)
+    lanes = np.arange(-(-4 * n_reads // 128) * 128)
+    out = torch.full((merkle_ops.open_queries_words(Ls, nq),), -1, dtype=torch.int64)
+    h = torch.zeros((8, lanes.size), dtype=torch.int64)
+    r = np.zeros(lanes.size, np.int64)
+    leaf_lanes, leaf_cols, targets = [], [], {}
+    for lane in lanes:
+        g, u = lane >> 2, lane & 3
+        j, t, dst = min(g, n_reads - 1), 0, 0
+        while t + 1 < len(trees) and j >= nq * (2 + Ls[t]):
+            j, dst, t = j - nq * (2 + Ls[t]), dst + 8 * nq * (1 + Ls[t]), t + 1
+        L, stored = Ls[t], masks[t]
+        cols, flat = widen(columns[t]).reshape(-1), widen(trees[t].flat)
+        pair = j < 2 * nq
+        k = 0 if pair else (j - 2 * nq) // nq
+        qi = j >> 1 if pair else (j - 2 * nq) % nq
+        pos = (int(words[qi]) >> t) & ((1 << L) - 1)
+        if pair:
+            if g < n_reads:
+                out[dst + u * 2 * nq + j] = cols[(u << L) + _brev((pos & ~1) | (j & 1), L)]
+            continue
+        base = k if stored >> k & 1 else 3 * (k // 3)
+        r[lane] = k - base
+        child = (((pos >> k) ^ 1) << int(r[lane])) | (u & ((1 << int(r[lane])) - 1))
+        if stored >> base & 1:
+            off = sum(8 << (L - b) for b in range(base) if stored >> b & 1)
+            h[:, lane] = flat[off + (torch.arange(8) << (L - base)) + _brev(child, L - base)]
+        else:
+            leaf_lanes.append(lane)
+            leaf_cols.append(cols[(torch.arange(4) << L) + _brev(child, L)])
+        if g < n_reads:
+            targets[lane] = dst + 8 * nq * (1 + k) + qi
+    if leaf_lanes:
+        h[:, leaf_lanes] = tm.hash_leaves(torch.stack(leaf_cols, 1))
+    for rnd in range(2):
+        other = h[:, lanes ^ (1 << rnd)]
+        right = torch.from_numpy((lanes >> rnd) & 1 == 1)
+        parent = compress_rows(torch.cat([torch.where(right, other, h), torch.where(right, h, other)]))
+        h = torch.where(torch.from_numpy(rnd < r), parent, h)
+    for lane, at in targets.items():
+        for w in range(8):
+            if w // 2 == lane & 3:
+                out[at + w * nq] = h[w, lane]
+    return out
+
+
+@pytest.mark.parametrize("case", ["port_trees", "leaf_levels"])
+def test_open_query_quad_mirror_matches_plain(case):
+    """Layers of 2^8 ... 2^5 leaves (a proof's layer sizes), 11 raw query
+    words with repeats: every output word is written, and the mirror equals
+    `merkle_open_queries_plain` (pairs, stored gathers, rebuilds from stored
+    levels and from leaves, quads past the last read)."""
+    rng = np.random.default_rng(len(case))
+    columns, trees = [], []
+    for L in (8, 7, 6, 5):
+        cols = from_numpy_u32(rng.integers(0, P, (4, 1 << L), dtype=np.uint32), "cpu")
+        tree = tm.build_pruned(cols)
+        columns.append(cols)
+        trees.append(_tree_with_leaf_level(cols, tree) if case == "leaf_levels" else tree)
+    words = rng.integers(0, 1 << 8, 11, dtype=np.uint32)
+    words[5] = words[2]
+    got = _open_query_quads(columns, trees, words)
+    assert (got >= 0).all()
+    assert torch.equal(got, merkle_ops.merkle_open_queries_plain(columns, trees, words))
+
+
 def test_root_bytes_little_endian():
     top = from_numpy_u32(np.array([[0x04030201], [0], [0], [0], [0], [0], [0], [0xFFFFFFFF]],
                                   np.uint32), "cpu")

@@ -37,7 +37,7 @@ H100 = "NVIDIA H100 80GB HBM3"
 # The one name of the JAX package's that the port leaves out: it ends the
 # tree on the card (ROADMAP C, deliberate differences).
 NOT_PORTED = ["commit/host_tree_top"]
-STAGES = {"lde_trees", "folds", "transcript", "grind", "decommit_plan", "decommit_open", "decommit_assemble"}
+STAGES = {"lde_trees", "folds", "transcript", "grind", "decommit_gather", "decommit_assemble"}
 
 
 def span_names(capsys) -> list:

@@ -89,9 +89,9 @@ def test_plain_route_gives_the_same_proof_and_stage_stats():
     _, proof = fri.prove_words(words, log_total, case["seed"],
                                PcsConfig.from_dict(case["config"]), route=plain_route(), stats=stats)
     assert proof.to_bytes().hex() == case["wire_hex"]
-    assert set(stats["stage_s"]) == {"lde_trees", "transcript", "folds", "grind", "decommit_plan",
-                                     "decommit_open", "decommit_assemble"}
-    assert stats["open_launches"] == 1
+    assert set(stats["stage_s"]) == {"lde_trees", "transcript", "folds", "grind", "decommit_gather",
+                                     "decommit_assemble"}
+    assert not any(stats["stage_launches"]["decommit_assemble"].values())
 
 
 def test_proof_bytes_round_trip_through_both_packages():

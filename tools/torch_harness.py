@@ -112,15 +112,26 @@ def host_ms(fn, reps: int = 9) -> float:
 
 
 def device_busy_us(prof) -> tuple:
-    """(us, records): the summed durations of the device's own records
-    (kernels, copies, fills) in a finished `torch.profiler.profile`, in one
-    pass over the trace (`key_averages()` takes tens of seconds over the
-    ~10^5 records of a batch of proofs)."""
+    """(us, records): the time the device's own records (kernels, copies,
+    fills) cover in a finished `torch.profiler.profile`, the union of their
+    intervals, and how many records there are, in one pass over the trace
+    (`key_averages()` takes tens of seconds over the ~10^5 records of a batch
+    of proofs). Overlapping records count once: the records of back-to-back
+    kernels of graph replays can overlap, and their summed durations came
+    out above the wall of a run that kept the card busy (`prove_many`)."""
     import torch
 
-    device_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return sum(device_ns) / 1e3, len(device_ns)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for start, stop in spans:
+        if end is None or start >= end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3, len(spans)
 
 
 def proof_collapse_widths(collapse_max: int = 4096) -> list:

@@ -17,13 +17,16 @@ Parts, one line each shape:
   over the proof's 22 trees, the commit's 2048 -> 1; `merkle_level` leaf
   2^12 and inner 2^13 (the one-level modes), fused leaf 2^24 and inner
   2^23;
-- `open`: the decommitment at the openings of a 2^20-felt / 64-query and a
-  2^24-felt / 20-query proof (the `Opening` that `fri.prove_words` runs):
-  `merkle_open`'s device and call time, or, in a checkout without it, the
-  device work of the one-level route it replaced (its gathers and
-  `merkle_level` launches, captured with the upload served from a tensor
-  uploaded before and the fetch left out); and `Opening.run`'s wall time
-  (`torch_harness.host_ms`), upload and fetch included;
+- `open`: the decommitment of a 2^20-felt / 64-query and a 2^24-felt /
+  20-query proof (layers, trees and query words from `fri.commit_phase`):
+  `merkle_open_queries`' device and call time over the raw query words on
+  the card, where the checkout has it; the job-table `Opening` of the
+  deduplicated reads (`fri.plan_openings`): `merkle_open`'s device and call
+  time, or, in a checkout without it, the device work of the one-level
+  route it replaced (its gathers and `merkle_level` launches, captured with
+  the upload served from a tensor uploaded before and the fetch left out);
+  and `Opening.run`'s wall time (`torch_harness.host_ms`), upload and fetch
+  included;
 - `commit`: `api.commit_root_pipeline` on device-resident words of the
   synthetic 2^22- and 2^24-felt blobs (log_blowup 4), its root checked
   against `api.commit`'s;
@@ -213,28 +216,6 @@ def time_merkle(rand_u32) -> None:
               f"device {ms:.4f} ms; {graded(ms, profiling().merkle_level_bound(width, leaf, fused))}", flush=True)
 
 
-def _proof_opening(fri, words, log_total: int, cfg):
-    """The `Opening` whose `run` one `fri.prove_words` call makes (the class
-    a `Committed` names, or before it the module's `Opening`)."""
-    seen = []
-
-    class Recorded(fri.Opening):
-        def run(self, *args):
-            seen.append(self)
-            return super().run(*args)
-
-    owner, name = getattr(fri, "Committed", None), "opening_cls"
-    if not hasattr(owner, name):
-        owner, name = fri, "Opening"
-    real = getattr(owner, name)
-    setattr(owner, name, Recorded)
-    try:
-        fri.prove_words(words, log_total, 7, cfg)
-    finally:
-        setattr(owner, name, real)
-    return seen[0]
-
-
 @contextlib.contextmanager
 def _device_work_only():
     """`Opening.run` of the one-level route with its one upload served from
@@ -274,7 +255,23 @@ def time_open(dev) -> None:
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(4, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
         log_total = log_total_for(len(data))
-        opening = _proof_opening(fri, from_numpy_u32(pad_to_words(data, log_total), dev), log_total, cfg)
+        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev), log_total, 7, cfg)
+        if hasattr(merkle_ops, "merkle_open_queries"):
+            o = committed.layout.head["qpos"][0]
+            args = (committed.layers, committed.trees, committed.packed[o : o + nq])
+            if not torch.equal(merkle_ops.merkle_open_queries(*args),
+                               narrow(merkle_ops.merkle_open_queries_plain(*args))):
+                raise SystemExit(f"torch_kernel_times: merkle_open_queries at 2^{log_felts} felts differs "
+                                 "from plain")
+            ms = device_ms(lambda: merkle_ops.merkle_open_queries(*args))  # noqa: B023
+            call = cuda_ms(lambda: merkle_ops.merkle_open_queries(*args))  # noqa: B023
+            compressions, read_bytes = merkle_ops.open_queries_work(committed.trees, args[2].cpu().numpy())
+            out_words = merkle_ops.open_queries_words([t.log_leaves for t in committed.trees], nq)
+            print(f"[times] merkle_open_queries, 2^{log_felts}-felt / {nq}-query proof ({compressions} distinct "
+                  f"compressions): bit-equal; device {ms:.4f} ms, call {call:.4f} ms; "
+                  f"{graded(ms, profiling().merkle_open_queries_bound(nq, out_words, read_bytes, compressions))}",
+                  flush=True)
+        opening = fri.plan_openings(committed.layers, committed.trees, committed.queries)[0]
         wall = host_ms(opening.run)
         if hasattr(merkle_ops, "merkle_open"):
             args = (opening.columns, opening.trees, *opening.jobs())
@@ -293,7 +290,7 @@ def time_open(dev) -> None:
                     f"device {ms:.4f} ms")
         print(f"[times] opening of the 2^{log_felts}-felt / {nq}-query proof: {what}; Opening.run "
               f"{wall:.4f} ms", flush=True)
-        del opening
+        del opening, committed
         torch.cuda.empty_cache()
 
 
