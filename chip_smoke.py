@@ -40,7 +40,11 @@ Phases, each printed as it runs:
      with the chain floor of one launch and three dependent compressions;
      `merkle_open_queries` at the same proofs' layers and trees over their
      raw query words on the card and over a copy with repeated words (the
-     gathers that the commit phase packs); `fri_fold`, circle and line, at (4, 2^26), at
+     gathers that the commit phase packs), and its sharded form over the
+     same words at the same proofs' layers element-sharded over one mesh
+     row on the card (2^24 / 20 q over S = 8, 2^20 / 64 q on row 1 of a
+     (2, 4) mesh; the sharded commit phase's packed vector == one device's,
+     its gathers == plain and == one device's); `fri_fold`, circle and line, at (4, 2^26), at
      the proof's first line fold (4, 2^25) and at (4, 2^7), under one block,
      and timed at each of the 2^24-felt proof's 22 folds (with their sum);
      `transcript`, every step (seed, root and alpha, last-layer felts, nonce
@@ -140,14 +144,19 @@ Phases, each printed as it runs:
      two `fft_exchange` stages; root == `api.commit` at that blowup);
      `sharded_commit_and_prove` at 2^24 felts / 20 queries over S = 8 (bytes
      == phase 9's proof, verify True, tampered copy False), its commit phase
-     under sync debug mode "error"; `prove_many_sharded` on phase 11's 8 x
-     2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's proofs) and
+     under sync debug mode "error", its `finish_proof` after a graph replay
+     with one synchronizing fetch and no launch, and the same commit phase
+     decommitted as a row of several blocks (`merkle.ShardedOpening` after
+     the fetch: one `merkle_open`, the same bytes); `prove_many_sharded` on
+     phase 11's 8 x 2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's
+     proofs; a blob's `finish_proof` one fetch, no launch) and
      `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
      Host (enqueue) and device ms of each beside the single-device path's, in
-     turns in this phase, and the launches per kernel: every kernel of the
-     sharded path (all but `merkle_open_queries`: the sharded decommitment
-     reads after the fetch, with `merkle_open`) launched in this phase. The sharded proofs'
-     launches are read from a second call: the first runs the eager
+     turns in this phase (the sharded proof eager and as a graph replay), and
+     the launches per kernel: every kernel launched in this phase, the sharded
+     proofs' decommitment `merkle_open_queries` in their commit phases,
+     `merkle_open` only in the decommitment of several blocks. The sharded
+     proofs' launches are read from a second call: the first runs the eager
      warm-up and the capture of the commit phase's graph (phase 13).
  13. the commit phase as one dispatch (`fri.dispatch_commit_phase`: a CUDA
      graph captured once per configuration and replayed; phases 8, 9, 11
@@ -155,7 +164,7 @@ Phases, each printed as it runs:
      at 2^20 felts / 64 queries, 2^24 felts / 20 queries and the 2^24 / 20 q
      proof over 8 virtual shards: proof bytes == eager's == the anchor
      (2^20), phase 9's (2^24, itself == the plain route) and the single
-     device's (sharded); two `Committed` of one key alive at once (a second
+     device's (sharded: its decommitment in the graph too); two `Committed` of one key alive at once (a second
      instance captured: its `torch.cuda.memory_reserved` growth per domain
      element beside `fri.RESIDENT_BYTES_PER_ELEMENT`), finished in reverse
      order, each == eager; one capture per key over repeated calls; launches
@@ -486,6 +495,7 @@ def main() -> int:
     from frieda_tpu_torch.ops import ingest as ingest_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.core.circle import bitrev_array
+    from frieda_tpu_torch.parallel import sharding
     from frieda_tpu_torch.utils import profiling
     from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words, words_for
@@ -804,7 +814,40 @@ def main() -> int:
                 replaces="frieda_tpu/core/fri.py:283-316 (the oblivious gathers of _fri_commit_fn.run; "
                          ":68 _auth_sibling_nodes over frieda_tpu/ops/merkle_pallas.py:111 and :127)",
                 max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        del committed, args, got, want, table, raw, repeated, q_args
+        # its sharded form: the same proof's layers over one mesh row whose shards all lie on the
+        # card (2^24 / 20 q over S = 8; 2^20 / 64 q on row 1 of a (2, 4) mesh), the packed vector
+        # and the gathers == one device's
+        n_data, S, row = (1, 8, 0) if log_felts == 24 else (2, 4, 1)
+        mesh = sharding.make_mesh(n_data, S, devices=[dev] * (n_data * S))
+        sharded = fri.commit_phase_sharded(from_numpy_u32(pad_to_words(data, log_total), dev), log_total, 7, cfg,
+                                           mesh, row)
+        check(sharded.opening_cls is None and torch.equal(sharded.packed, committed.packed),
+              f"the sharded commit phase at 2^{log_felts} felts over ({n_data}, {S}) row {row}: its packed "
+              "vector != one device's")
+        for words_ in (raw, repeated):
+            s_args = (sharded.layers, sharded.trees, words_)
+            got = merkle_ops.merkle_open_queries(*s_args)
+            want = narrow(merkle_ops.merkle_open_queries_plain(*s_args))
+            check(torch.equal(got, want) and torch.equal(got, merkle_ops.merkle_open_queries(
+                committed.layers, committed.trees, words_)), f"sharded merkle_open_queries at 2^{log_felts} "
+                  f"felts over S = {S}{' (repeated words)' if words_ is repeated else ''}: != plain or != one "
+                  "device's")
+            kernels["merkle_open_queries"]["max_abs_err"] = max(kernels["merkle_open_queries"]["max_abs_err"],
+                                                                max_abs_err(got, want))
+        s_args = (sharded.layers, sharded.trees, raw)
+        ms = device_ms(lambda: merkle_ops.merkle_open_queries(*s_args))  # noqa: B023
+        call = cuda_ms(lambda: merkle_ops.merkle_open_queries(*s_args))  # noqa: B023
+        plain_ms = cuda_ms(lambda: merkle_ops.merkle_open_queries_plain(*s_args), reps=3)  # noqa: B023
+        compressions, read_bytes = merkle_ops.open_queries_work(sharded.trees, to_numpy_u32(raw))
+        b_ms, b_by = profiling.merkle_open_queries_bound(nq, out_words, read_bytes, compressions)
+        n_sharded = sum(isinstance(t, merkle.ShardedTree) for t in sharded.trees)
+        say(f"[3] merkle_open_queries, sharded form: 2^{log_felts}-felt / {nq}-query proof over S = {S} "
+            f"(row {row} of ({n_data}, {S}); {n_sharded} of {len(sharded.layers)} layers sharded, the levels "
+            f"narrower than {S} read from the top trees; {compressions} distinct compressions, {read_bytes} "
+            f"distinct bytes read): bit-equal to plain over the raw words and the copy with repeats, == one "
+            f"device's gathers; device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}; share {b_ms / ms:.3f})")
+        del committed, args, got, want, table, raw, repeated, q_args, s_args, sharded, mesh
         torch.cuda.empty_cache()
     # fri_fold: circle and line at (4, 2^26), the proof's first line fold
     # (4, 2^25) and a width under one block; then timed at each of the
@@ -1515,8 +1558,9 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
 
     def launched_all_but_exchange(used: dict, what: str) -> None:
         """Every kernel but `fft_exchange` (none at log_blowup 4) and
-        `merkle_open_queries` (the sharded decommitment is `merkle_open`)."""
-        off = ("fft_exchange", "merkle_open_queries")
+        `merkle_open` (a one-block row decommits in its commit phase, with
+        `merkle_open_queries`)."""
+        off = ("fft_exchange", "merkle_open")
         missing = [k for k in ops.kernel_wrappers() if k not in off and not used.get(k)]
         check(not missing and not any(used.get(k) for k in off), f"{what}: launches {used}; not launched: {missing}")
 
@@ -1594,9 +1638,14 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     folds = log_total - 2
     launched_all_but_exchange(used, "sharded_commit_and_prove 2^24 felts over S = 8")
     check(used["fri_fold"] == 8 * folds and used["transcript"] == folds + 3 and used["grind"] == 1
-          and used["merkle_open"] == 1 and used["ingest"] == 1,
+          and used["merkle_open_queries"] == 1 and used["ingest"] == 1,
           f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {8 * folds}, "
-          f"transcript {folds + 3}, grind, merkle_open and ingest 1")
+          f"transcript {folds + 3}, grind, merkle_open_queries and ingest 1")
+    syncs, finished, opened = finish_counted(fri, fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8),
+                                             log_total, cfg)
+    check(syncs == 1 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
+          f"graph replay: {syncs} synchronizing operations, launches {opened}, bytes == phase 9's "
+          f"{finished == wire24}")
     again = fri.finish_proof(fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0), log_total, cfg)[1]
     check(again.to_bytes() == wire24, "sharded staged proof differs from phase 9's")
     host, dev_ms, committed = enqueue_and_device(
@@ -1612,16 +1661,29 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     check(syncs == 1, f"sharded commit phase: {syncs} synchronizing operations in its fetch")
     check(fri.finish_proof(committed, log_total, cfg)[1].to_bytes() == wire24,
           "sharded proof after the sync-free commit phase differs")
+    # the decommitment of a row of several blocks (shards on several cards, or split over processes):
+    # `merkle.ShardedOpening` after the fetch, one `merkle_open` a device; here set on this row's
+    # `Committed`, its gathers then unread
+    committed = fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0)
+    committed.opening_cls = merkle.ShardedOpening
+    (_, opened_proof), opened = launched(lambda: fri.finish_proof(committed, log_total, cfg))
+    check(opened_proof.to_bytes() == wire24 and opened == {"merkle_open": 1},
+          f"the sharded proof through merkle.ShardedOpening: launches {opened}, bytes == phase 9's "
+          f"{opened_proof.to_bytes() == wire24}")
     say(f"[12] sharded_commit_and_prove 2^24 felts / 20 queries / pow 20 over S = 8: commitment and wire "
         f"bytes == phase 9's proof; verify True, tampered copy False (first call, with the shard tables, "
         f"the warm-up and the capture: {first:.3f} s); eager commit phase under sync debug mode 'error': "
         f"no synchronization (host enqueue "
-        f"{host:.3f} ms, device {dev_ms:.3f} ms), then {syncs} synchronizing fetch; launches per proof {used}")
+        f"{host:.3f} ms, device {dev_ms:.3f} ms), then {syncs} synchronizing fetch; launches per proof {used}; "
+        f"finish_proof after a graph replay: 1 synchronizing fetch, no launch; the same commit phase "
+        f"decommitted as a row of several blocks (merkle.ShardedOpening after the fetch): bytes == phase 9's, "
+        f"launches {opened}")
     del committed
-    rows = {"single": [], "sharded": []}
+    rows = {"single": [], "sharded": [], "sharded graph": []}
     commit = {"single": lambda: fri.commit_phase(words, log_total, 7, cfg),
-              "sharded": lambda: fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0)}
-    for kind in ("single", "sharded", "sharded", "single"):  # in turns
+              "sharded": lambda: fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0),
+              "sharded graph": lambda: fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8)}
+    for kind in ("single", "sharded", "sharded graph", "sharded graph", "sharded", "single"):  # in turns
         t0 = time.perf_counter()
         host, dev_ms, committed = enqueue_and_device(commit[kind])
         wire = fri.finish_proof(committed, log_total, cfg)[1].to_bytes()
@@ -1647,9 +1709,14 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     folds = log_total_for(len(datas[0])) - 2  # as above: one fri_fold a shard a fold, 4 shards a blob
     launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
     check(used["fri_fold"] == len(datas) * 4 * folds and used["grind"] == len(datas)
-          and used["merkle_open"] == len(datas),
+          and used["merkle_open_queries"] == len(datas),
           f"prove_many_sharded: launches {used}, want fri_fold {len(datas) * 4 * folds}, grind and "
-          f"merkle_open {len(datas)}")
+          f"merkle_open_queries {len(datas)}")
+    log_total20 = log_total_for(len(datas[1]))
+    syncs, finished, opened = finish_counted(
+        fri, fri.dispatch_blob(datas[1], log_total20, seeds[1], cfg64, dev, mesh24, 0), log_total20, cfg64)
+    check(syncs == 1 and not opened and finished == many_out[1][1], f"a prove_many_sharded blob's finish_proof: "
+          f"{syncs} synchronizing operations, launches {opened}, bytes == phase 11's {finished == many_out[1][1]}")
     blobs = [synthetic_data(felt_bytes(20), k) for k in range(16)]
     roots, used_roots = launched(lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24))
     check(roots == roots20, "commit_roots_batch 16 x 2^20 felts over (2, 4) differs from api.commit_many")
@@ -1680,7 +1747,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
               f"us of {wall_us:.0f} us")
         busy[kind] = f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}"
     say(f"[12] prove_many_sharded 8 x 2^20 felts / 64 queries over a (2, 4) mesh: every commitment and wire "
-        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used}; walls in "
+        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used}; a blob's "
+        f"finish_proof after its graph replay: 1 synchronizing fetch, no launch; walls in "
         f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']}; one "
         f"profiled call each: prove_many {busy['prove_many']}, prove_many_sharded {busy['prove_many_sharded']}")
     say(f"[12] commit_roots_batch 16 x 2^20 felts over a (2, 4) mesh: every root == api.commit_many's; "
@@ -1688,11 +1756,9 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         f"{walls['commit_roots_batch']}; one profiled call each: commit_many {busy['commit_many']}, "
         f"commit_roots_batch {busy['commit_roots_batch']}")
     for name, count in sharded_counts.items():
-        check(count > 0 or name == "merkle_open_queries", f"kernel {name} was never launched by the sharded "
-              "calls (phase 12)")
-    say(f"[12] kernel launches of phase 12's sharded calls (the counted call of each; every kernel but "
-        f"merkle_open_queries > 0): "
-        f"{sharded_counts}")
+        check(count > 0, f"kernel {name} was never launched by the sharded calls (phase 12)")
+    say(f"[12] kernel launches of phase 12's sharded calls (the counted call of each; every kernel > 0, "
+        f"merkle_open in the decommitment of a row of several blocks only): {sharded_counts}")
     return sharded_counts
 
 
@@ -1796,9 +1862,9 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
             torch.cuda.synchronize()
         traced = traced_launches(prof)
         recorded = committed._lease.launches
-        check(traced == recorded and recorded == {k: v for k, v in eager_counts.items() if k != "merkle_open"},
+        check(traced == recorded and recorded == eager_counts,
               f"{what}: kernels in a torch.profiler trace of one replay {traced}, recorded at its capture "
-              f"{recorded}, eager commit phase {eager_counts} (less merkle_open)")
+              f"{recorded}, eager commit phase {eager_counts}")
         check(finish(committed) == want, f"{what}: the traced replay's proof differs")
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1807,11 +1873,8 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
         finally:
             torch.cuda.set_sync_debug_mode(0)
         syncs, finished, opened = finish_counted(fri, committed, log_total, cfg)
-        if mesh is None:  # the sharded decommitment reads after the fetch: a job table, one merkle_open
-            check(syncs == 1 and not opened, f"{what}: finish_proof after the dispatch made {syncs} "
-                  f"synchronizing operations and launched {opened}")
-        check(finished == want and (mesh is None or opened == {"merkle_open": 1}),
-              f"{what}: the proof after the sync-free dispatch differs, or finish_proof launched {opened}")
+        check(syncs == 1 and not opened and finished == want, f"{what}: finish_proof after the dispatch made "
+              f"{syncs} synchronizing operations and launched {opened}, or its proof differs")
         del committed
         rows = {"eager": [], "graph": []}
         for r in range(5):  # in turns

@@ -29,8 +29,12 @@ words) and those gathers make one packed vector in a fixed layout
 nothing, and assembles the proof on the host in numpy: the queries
 deduplicated, the first draw of each kept, the witness planned from the
 known nodes of each level (`_known_levels`) and picked from the gathers.
-The sharded commit phase packs the transcript's outputs alone and decommits
-after the fetch (`plan_openings`, one `merkle_open` launch a device).
+The sharded commit phase does the same for a mesh row whose shards all lie
+in one block (every row on one card): the same launch reads its shards'
+trees and top trees, and the packed vector is one device's, word for word.
+A row over several devices or processes packs the transcript's outputs
+alone and decommits after the fetch (`plan_openings`, one `merkle_open`
+launch a device).
 
 The pipeline's device steps come in a `Route`: the kernel wrappers
 (`KERNELS`) for callers, and any other route of the same signatures (the
@@ -295,9 +299,12 @@ class Committed:
     and authentication paths). `roots`, `last_layer_poly`, `nonce` and
     `queries` make the one fetch of `packed` on first use (`fetch`) and
     keep it; `staging` holds the host buffer the words were uploaded from
-    until then. A sharded commit phase packs the head alone (a layout with
-    no gathers) and names the class that reads its decommitment after the
-    fetch (`opening_cls`, `merkle.ShardedOpening`)."""
+    until then. The commit phase of a mesh row of several blocks packs the
+    head alone (a layout with no gathers) and names the class that reads its
+    decommitment after the fetch (`opening_cls`, `merkle.ShardedOpening`);
+    set on a `Committed` with gathers, the same class reads it after the
+    fetch instead of the gathers (the tests and chip_smoke.py hold the two
+    routes to the same bytes)."""
 
     opening_cls = None
 
@@ -551,8 +558,19 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     carrier, and one in each process of a process-group mesh, each the same
     (the JAX package's replicated channel). On one device nothing here waits
     for the device. The layers of the returned `Committed` are `Sharded` or
-    tensors, its trees `ShardedTree` or `PrunedTree`, and its
-    decommitment runs through `merkle.ShardedOpening`."""
+    tensors, its trees `ShardedTree` or `PrunedTree`.
+
+    The decommitment: when this process holds every shard of the row in one
+    block (`Mesh.blocks`: one device, so every row on one card, and a row
+    of one shard in a process group), the query words read the shards'
+    trees and the top trees on the device, in the commit phase, into the
+    packed vector at one device's layout (`ops.merkle.merkle_open_queries`),
+    as the JAX package's mesh `_fri_commit_fn` does; `finish_proof` then
+    fetches once and launches nothing. A row of several blocks (shards on
+    several devices, or split over a process group) packs the head alone and
+    decommits after the fetch through `merkle.ShardedOpening` (one
+    `merkle_open` a device, the answers gathered over the row): by design,
+    since those rows run eagerly and their reads cross devices."""
     from ..parallel.fft_sharded import sharded_evaluate
     from ..parallel.mesh import Sharded, new_sharded
     from .merkle import ShardedOpening, build_sharded_tree
@@ -588,9 +606,11 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
             g = out if out.width >= 2 * S else out.gather()
         if isinstance(g, Sharded):
             g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
+        one_block = [k for _, k, _ in mesh.blocks(row)] == [S]
         committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
-                                      _Clock(home, None), gather=False)
-    committed.opening_cls = ShardedOpening
+                                      _Clock(home, None), gather=one_block)
+    if not one_block:
+        committed.opening_cls = ShardedOpening
     return committed
 
 
@@ -887,7 +907,8 @@ def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = D
     """(commitment, Proof) of a commit phase: the one fetch of its packed
     outputs (which raises AssertionError for a last layer above its degree
     bound), then the proof assembled on the host from the gathers in it; no
-    launch. A sharded commit phase's decommitment is read after the fetch
+    launch. A `Committed` that names an `opening_cls` (the commit phase of
+    a mesh row of several blocks) has its decommitment read after the fetch
     (`plan_openings`: one `route.open` a device and one fetch each).
     Counterpart of `fri._finish_proof`. Ends the lease of a `Committed`
     from `dispatch_commit_phase` (`Committed.release`), also when it
@@ -902,7 +923,7 @@ def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Ro
     clock = clock or _Clock(c.layers[0].device, None)
     with clock("transcript"):
         c.fetch()
-    gathered = bool(c.layout.pair_off)
+    gathered = c.opening_cls is None
     if not gathered:
         with clock("decommit_plan"):
             opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
@@ -986,10 +1007,9 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
     stats, when a dict, receives the host wall time of each stage
     (synchronized at both ends, so the commit phase then waits for the
     device at every stage: "lde_trees", "folds", "transcript" (with the one
-    fetch), "grind", and the decommitment's "decommit_plan" (witness
-    planning and registration), "decommit_open" (upload, `merkle_open`,
-    fetch) and "decommit_assemble" (the proof objects)), each stage's kernel
-    launches, and `open_launches`, the calls of the route's `open` step."""
+    fetch), "grind", and the decommitment's "decommit_gather" (the
+    route's `open_queries`, in the commit phase) and "decommit_assemble"
+    (the proof objects)), and each stage's kernel launches."""
     if stats is None and route is KERNELS:
         return finish_proof(dispatch_commit_phase(words, log_total, seed, pcs_config), log_total, pcs_config)
     clock = _Clock(words.device, stats)

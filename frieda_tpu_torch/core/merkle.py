@@ -24,11 +24,12 @@ stored index (counterparts of `frieda_tpu/core/merkle.py:45-79, 221-274`).
 The prover's half: `build_pruned` keeps every third level of a tree (the
 counterpart of `device_levels_pruned`), whose two missing levels of each
 group the decommitment rebuilds from the level below: inside the commit
-phase on one device (`ops.merkle.merkle_open_queries`, over the query
-words on the card), and after the fetch for a sharded commit phase, where
-`Opening` / `ShardedOpening` read the values and nodes a proof reveals in
-one `merkle_open` launch a device. `MerkleDecommitment` is the proof's hash
-witness.
+phase (`ops.merkle.merkle_open_queries`, over the query words on the card),
+on one device and for a mesh row whose shards all lie in one block (the
+shards' trees of a `ShardedTree` are rows of one tensor there), and after
+the fetch for a row of several blocks, where `ShardedOpening` (an
+`Opening`) reads the values and nodes a proof reveals in one `merkle_open`
+launch a device. `MerkleDecommitment` is the proof's hash witness.
 
 The verifier's half is host code over numpy rows, as in the JAX package
 (`frieda_tpu/core/merkle.py:297-410`): `compress_rows_host` hashes leaves and
@@ -424,7 +425,9 @@ class ShardedOpening(Opening):
     Every (layer, shard) is its own table entry: one launch for each device
     that holds an entry. In a process-group mesh each process opens its own
     shards and the replicated entries, and the shards' answers are gathered
-    over the row (`Mesh.all_gather`)."""
+    over the row (`Mesh.all_gather`). The decommitment of a row of several
+    blocks; a row in one block reads the same mapping on the card, in its
+    commit phase (`ops.merkle.merkle_open_queries`)."""
 
     def __init__(self, columns: list, trees: list):
         from ..parallel.mesh import Sharded

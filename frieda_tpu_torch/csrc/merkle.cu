@@ -100,6 +100,19 @@
 // offsets in the flat tree follow from the mask: level k at 8 x the widths
 // of the stored levels below it), so a captured launch holds its instance's
 // own pointers and nothing is uploaded.
+//
+// Its sharded form reads the layers of a mesh row whose S = 2^log_shards
+// shards all lie in one block on this device (the cyclic layout of
+// parallel/mesh.py: natural column x on shard x mod S), the output the same
+// words at the same offsets as on one device. A read at level k of an L-leaf
+// sharded layer, stored index s, takes natural x = bitrev(s, L - k): while
+// the level is at least S wide it is node x / S of shard x mod S, read from
+// that shard's part and tree at local stored index bitrev(x >> log_shards,
+// L - log_shards - k) by the same body (a node's descendants stay on its
+// shard, so a rebuild reads the shard's own base level or leaves); a
+// narrower level is level k - (L - log_shards) of the top tree at s, every
+// level of which is stored. This is core/merkle.py's ShardedOpening._locate
+// on the card.
 
 #include <cooperative_groups.h>
 
@@ -125,13 +138,21 @@ struct CollapseOuts {
   int count;
 };
 
-// The layers of merkle_open_queries, by value (776 bytes of the 4 KB of
-// kernel parameters).
+// The layers of merkle_open_queries, by value (1,032 bytes of the 4 KB of
+// kernel parameters). A layer is whole on this device (top[t] == nullptr), or
+// element-sharded over the 2^log_shards shards of one mesh row, every shard
+// here: then cols[t] is the (S, 4, 2^log_leaves / S) block of its parts,
+// flat[t] the (S, words) block of its shards' pruned trees (one stored mask,
+// `stored`, over the local levels; a row is as many words as the mask's
+// levels hold), and top[t] the top tree: every level from width S (level 0,
+// the shards' roots) to the root, all stored.
 struct OpenLayers {
-  const uint32_t* cols[kOpenLevels];  // (4, 2^log_leaves) columns of layer t
-  const uint32_t* flat[kOpenLevels];  // its pruned tree's stored levels, ascending
-  int log_leaves[kOpenLevels];
-  uint32_t stored[kOpenLevels];  // bit k: level k is stored
+  const uint32_t* cols[kOpenLevels];  // (4, 2^log_leaves) columns of layer t, or the (S, 4, ...) block
+  const uint32_t* flat[kOpenLevels];  // its pruned tree's stored levels, ascending, or the (S, words) block
+  const uint32_t* top[kOpenLevels];   // a sharded layer's top tree, else nullptr
+  int log_leaves[kOpenLevels];        // of the whole layer
+  uint32_t stored[kOpenLevels];  // bit k: level k is stored (in each shard's tree)
+  int log_shards;
   int count;
 };
 
@@ -367,32 +388,53 @@ merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__
     j -= reads;
     dst += size_t(8) * nq * (1 + layers.log_leaves[t]);
   }
-  const int L = layers.log_leaves[t];
+  int L = layers.log_leaves[t];
   const uint32_t* cols = layers.cols[t];
+  const uint32_t* flat = layers.flat[t];
+  uint32_t stored = layers.stored[t];
   // The words are the transcript's draws, below 2^n; the mask only keeps a
   // bad word inside its layer.
   const uint32_t in_layer = (1u << L) - 1;
   const bool pair = j < 2ll * nq;
   const long long jn = j - 2ll * nq;
-  const int k = pair ? 0 : static_cast<int>(jn / nq);
+  const int k = pair ? 0 : static_cast<int>(jn / nq);  // the level read, and its output block
   const uint32_t qi = pair ? static_cast<uint32_t>(j >> 1) : static_cast<uint32_t>(jn % nq);
   const uint32_t pos = (queries[qi] >> t) & in_layer;
+  // stored index s at level kl of the tree that holds the read
+  uint32_t s = pair ? (pos & ~1u) | static_cast<uint32_t>(j & 1) : (pos >> k) ^ 1u;
+  int kl = k;
+  if (layers.top[t] != nullptr) {
+    const int ls = layers.log_shards;
+    if (L - k >= ls) {  // natural node x of a level at least S wide: node x / S of shard x mod S
+      const uint32_t x = bitrev(s, L - k);
+      const int local = L - ls;
+      size_t row = 0;  // a shard's tree words
+      for (uint32_t m = stored; m; m &= m - 1) row += size_t(8) << (local - (__ffs(m) - 1));
+      cols += (x & ((1u << ls) - 1)) * (size_t(4) << local);
+      flat += (x & ((1u << ls) - 1)) * row;
+      s = bitrev(x >> ls, local - k);
+      L = local;
+    } else {  // a narrower level: level k - (L - ls) of the top tree, every level stored
+      flat = layers.top[t];
+      kl = k - (L - ls);
+      L = ls;
+      stored = (2u << ls) - 1;
+    }
+  }
   uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int r = 0;
   if (pair) {  // lane u reads column u of element j & 1 of the queried pair
-    const uint32_t s = (pos & ~1u) | static_cast<uint32_t>(j & 1);
     if (g < n_reads) out[dst + size_t(u) * 2 * nq + j] = cols[(size_t(u) << L) + bitrev(s, L)];
   } else {
-    const uint32_t stored = layers.stored[t];
-    const int base = (stored >> k) & 1 ? k : 3 * (k / 3);
-    r = k - base;
+    const int base = (stored >> kl) & 1 ? kl : 3 * (kl / 3);
+    r = kl - base;
     const uint32_t* level = nullptr;
     if ((stored >> base) & 1) {
       size_t off = 0;  // the stored levels below base, each (8, 2^(L - level))
       for (uint32_t m = stored & ((1u << base) - 1); m; m &= m - 1) off += size_t(8) << (L - (__ffs(m) - 1));
-      level = layers.flat[t] + off;
+      level = flat + off;
     }
-    rebuild_lane(cols, level, L, base, (pos >> k) ^ 1u, r, u, h);
+    rebuild_lane(cols, level, L, base, s, r, u, h);
   }
   combine_quad(h, r, u);
   if (!pair && g < n_reads) {
@@ -514,25 +556,37 @@ extern "C" int frieda_merkle_open(const void* table, int n_layers, long long n_v
 // cols[t], flats[t]: the (4, 2^log_leaves[t]) int32 columns and the pruned
 // tree of layer t, 1 <= n_layers <= 32, log_leaves < 32; stored[t]: bit k
 // set for each level k the tree stores, at ascending offsets in its flat
-// tensor; queries: nq >= 1 int32 words on the card (below 2^log_leaves[0]);
-// out: sum over t of 8 nq (1 + log_leaves[t]) int32 words, per layer the
-// (4, nq, 2) pairs, then (8, nq) for each level. The caller checks that
-// each level k < log_leaves is stored or has its base 3 (k / 3) stored, or
-// k <= 2.
+// tensor; tops[t]: nullptr, or for a layer element-sharded over 2^log_shards
+// shards (log_leaves[t] > log_shards >= 1) its top tree, cols[t] and
+// flats[t] then the blocks of its shards' parts and trees (OpenLayers) and
+// stored[t] the shards' mask over their local levels; queries: nq >= 1 int32
+// words on the card (below 2^log_leaves[0]); out: sum over t of 8 nq (1 +
+// log_leaves[t]) int32 words, per layer the (4, nq, 2) pairs, then (8, nq)
+// for each level. The caller checks that each level k below a tree's leaf
+// count is stored or has its base 3 (k / 3) stored, or k <= 2, and that a
+// sharded layer's parts are the rows of its blocks.
 extern "C" int frieda_merkle_open_queries(const void* const* cols, const void* const* flats,
-                                          const int* log_leaves, const unsigned* stored, int n_layers,
+                                          const void* const* tops, const int* log_leaves,
+                                          const unsigned* stored, int n_layers, int log_shards,
                                           const void* queries, int nq, void* out, void* stream) {
-  if (n_layers < 1 || n_layers > kOpenLevels || nq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_layers < 1 || n_layers > kOpenLevels || nq < 1 || log_shards < 0 || log_shards >= kOpenLevels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   OpenLayers layers{};
   long long n_reads = 0;
   for (int t = 0; t < n_layers; ++t) {
-    if (log_leaves[t] < 0 || log_leaves[t] >= kOpenLevels) return static_cast<int>(cudaErrorInvalidValue);
+    if (log_leaves[t] < 0 || log_leaves[t] >= kOpenLevels ||
+        (tops[t] != nullptr && (log_shards < 1 || log_leaves[t] <= log_shards))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     layers.cols[t] = static_cast<const uint32_t*>(cols[t]);
     layers.flat[t] = static_cast<const uint32_t*>(flats[t]);
+    layers.top[t] = static_cast<const uint32_t*>(tops[t]);
     layers.log_leaves[t] = log_leaves[t];
     layers.stored[t] = stored[t];
     n_reads += static_cast<long long>(nq) * (2 + log_leaves[t]);
   }
+  layers.log_shards = log_shards;
   layers.count = n_layers;
   const long long blocks = (4 * n_reads + kOpenThreads - 1) / kOpenThreads;
   merkle_open_queries_kernel<<<dim3(static_cast<unsigned>(blocks)), kOpenThreads, 0,

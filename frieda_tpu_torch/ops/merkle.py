@@ -16,24 +16,29 @@ root only, the prover's pruned trees for every third level of the tail).
 `_auth_sibling_nodes` and value gathers for every read of one proof in one
 launch, a quad of lanes per read (`leaf_level` / `inner_level` are that
 function's one-level steps in the JAX package), from a job table built on
-the host (the sharded decommitment's form). `merkle_open_queries` is the
-same per-read body driven by the query words on the card: the oblivious
-gathers of the JAX package's `_fri_commit_fn.run`, every raw query's pair
-and authentication path in each layer, in a grid fixed by the
-configuration, so that a CUDA graph of the commit phase holds it.
+the host (the decommitment of a mesh row of several blocks).
+`merkle_open_queries` is the same per-read body driven by the query words
+on the card: the oblivious gathers of the JAX package's
+`_fri_commit_fn.run`, every raw query's pair and authentication path in
+each layer, in a grid fixed by the configuration, so that a CUDA graph of
+the commit phase holds it; a layer may be element-sharded over a mesh row
+whose shards all lie in one block here, each read then mapped to its shard's
+part and tree or to the top tree on the card (`open_queries_layers`).
 Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.blake2s import compress_rows
 from ..core.circle import bitrev_array
-from ..core.merkle import hash_leaves, hash_parents
+from ..core.merkle import PrunedTree, ShardedTree, hash_leaves, hash_parents
+from ..parallel.mesh import Sharded
 from ..utils.convert import narrow, to_numpy_u32, widen
 from . import _build
 
@@ -230,17 +235,22 @@ def merkle_open_plain(columns, trees, values, nodes) -> torch.Tensor:
     return torch.cat([vals.reshape(-1), out.reshape(-1)])
 
 
+def _check_layer(what: str, cols: torch.Tensor, tree) -> None:
+    L, n = tree.log_leaves, tree.flat.numel()
+    _build.check_u32(cols, f"{what} columns", (4, 1 << L))
+    _build.check_u32(tree.flat, f"{what} tree", (n,))
+    _build.check_same_device(cols, tree.flat)
+    if any(not 0 <= k <= L or m != 1 << (L - k) or off < 0 or off + 8 * m > n
+           for k, (off, m) in tree.offsets.items()):
+        raise ValueError(f"{what}: a stored level does not fit its tree")
+
+
 def _check_layers(columns, trees) -> None:
     if not columns or len(columns) != len(trees):
         raise ValueError(f"{len(columns)} column sets for {len(trees)} trees")
     for t, (cols, tree) in enumerate(zip(columns, trees)):
-        L, n = tree.log_leaves, tree.flat.numel()
-        _build.check_u32(cols, f"columns[{t}]", (4, 1 << L))
-        _build.check_u32(tree.flat, f"trees[{t}].flat", (n,))
-        _build.check_same_device(columns[0], cols, tree.flat)
-        if any(not 0 <= k <= L or m != 1 << (L - k) or off < 0 or off + 8 * m > n
-               for k, (off, m) in tree.offsets.items()):
-            raise ValueError(f"trees[{t}]: a stored level does not fit its tree")
+        _check_layer(f"layer {t}", cols, tree)
+    _build.check_same_device(*columns)
 
 
 def merkle_open(columns, trees, values, nodes, table=None) -> torch.Tensor:
@@ -299,11 +309,52 @@ def query_reads(trees, query_words) -> tuple:
     return np.concatenate(values), np.concatenate(nodes)
 
 
+def whole_tree(tree: ShardedTree) -> PrunedTree:
+    """The pruned tree of a sharded layer (`core.merkle.ShardedTree`) as one
+    device's tree over the whole layer, in natural order: its levels at
+    least S wide are the shards' stored levels, natural node j of one being
+    node j // S of shard j mod S, and its narrower levels are the top tree's
+    (all stored). What the plain version and the bound read a sharded layer
+    by, independent of the kernel's address mapping."""
+    L = tree.log_leaves
+    ls = 0 if tree.top is None else tree.top.log_leaves
+    ks = sorted(set(tree.shards[0].offsets) | {L - ls + k for k in (tree.top.offsets if ls else ())})
+    offsets, off = {}, 0
+    for k in ks:
+        offsets[k] = (off, 1 << (L - k))
+        off += 8 << (L - k)
+
+    def level(k):
+        if L - k >= ls:
+            return torch.stack([tree.shards[e].level(k) for e in range(1 << ls)], -1).reshape(8, -1)
+        return tree.top.level(k - (L - ls))
+
+    return PrunedTree(L, torch.cat([level(k).reshape(-1) for k in ks]), offsets)
+
+
+def _whole(columns, trees) -> tuple:
+    """(columns, trees) with each sharded layer reassembled on one device:
+    its parts' columns in natural order (column j is column j // S of part
+    j mod S) and `whole_tree`."""
+    cols, out = [], []
+    for x, tree in zip(columns, trees):
+        if isinstance(tree, ShardedTree):
+            parts = x.parts
+            x = torch.stack([parts[e] for e in range(len(parts))], -1).reshape(4, -1)
+            tree = whole_tree(tree)
+        cols.append(x)
+        out.append(tree)
+    return cols, out
+
+
 def merkle_open_queries_plain(columns, trees, query_words) -> torch.Tensor:
     """Plain version, int64 (`open_queries_words`,): for each layer the
     (4, nq, 2) values of the queried pairs, then an (8, nq) block of sibling
-    nodes a level (`query_reads`), read by `merkle_open_plain`. The query
-    words are read on the host (a tensor is fetched)."""
+    nodes a level (`query_reads`), read by `merkle_open_plain`. A sharded
+    layer (`parallel.mesh.Sharded`, `core.merkle.ShardedTree`) is read from
+    its reassembled columns and `whole_tree`. The query words are read on
+    the host (a tensor is fetched)."""
+    columns, trees = _whole(columns, trees)
     words = to_numpy_u32(query_words) if isinstance(query_words, torch.Tensor) else np.asarray(query_words)
     values, nodes = query_reads(trees, words)
     flat = merkle_open_plain(columns, trees, values, nodes)
@@ -338,36 +389,107 @@ def stored_mask(tree) -> int:
     return mask
 
 
+class OpenLayer(NamedTuple):
+    """A layer as `merkle_open_queries` reads it (an entry of `OpenLayers`
+    in csrc/merkle.cu). Whole: its (4, 2^L) columns, its pruned tree's flat
+    tensor, no top. Element-sharded over the S > 1 shards of one mesh row,
+    all in one block here: shard 0's part and tree (shard e's lie e parts and
+    e trees further on), and the top tree's flat tensor."""
+
+    cols: torch.Tensor
+    flat: torch.Tensor
+    top: torch.Tensor | None
+    log_leaves: int  # of the whole layer
+    stored: int  # `stored_mask` of its tree (of each shard's tree)
+
+
+def open_queries_layers(columns, trees) -> tuple:
+    """(layers, log_shards): the `OpenLayer` of each layer, checked, and
+    log2 S of the sharded ones (0 with none). A layer is a (4, 2^L) tensor
+    with a `PrunedTree`, or a `parallel.mesh.Sharded` with a
+    `ShardedTree`; one over a single shard is read as a whole layer. Raises
+    ValueError for layers of several shard counts, a shard not held here,
+    shards whose parts or trees are not the rows of one tensor in shard
+    order (the kernel finds shard e's at e rows from shard 0's), unequal
+    shard trees, or a top tree that does not store every level."""
+    if not columns or len(columns) != len(trees):
+        raise ValueError(f"{len(columns)} column sets for {len(trees)} trees")
+    if len(trees) > OPEN_LEVELS:
+        raise ValueError(f"at most {OPEN_LEVELS} layers")
+    layers, shard_logs = [], set()
+    for t, (x, tree) in enumerate(zip(columns, trees)):
+        if not isinstance(tree, ShardedTree):
+            _check_layer(f"layer {t}", x, tree)
+            layers.append(OpenLayer(x, tree.flat, None, tree.log_leaves, stored_mask(tree)))
+            continue
+        ls = 0 if tree.top is None else tree.top.log_leaves
+        S, L = 1 << ls, tree.log_leaves
+        parts = x.parts if isinstance(x, Sharded) else {}
+        if sorted(parts) != list(range(S)) or sorted(tree.shards) != list(range(S)):
+            raise ValueError(f"layer {t}: its {S} shards are not all held here")
+        shards = [tree.shards[e] for e in range(S)]
+        for e, shard in enumerate(shards):
+            _check_layer(f"layer {t}, shard {e}", parts[e], shard)
+        first = shards[0]
+        if first.log_leaves != L - ls or any(shard.offsets != first.offsets for shard in shards):
+            raise ValueError(f"layer {t}: its shards' trees differ, or do not hold 2^{L - ls} leaves each")
+        mask = stored_mask(first)
+        if S == 1:
+            layers.append(OpenLayer(parts[0], first.flat, None, L, mask))
+            continue
+        _build.check_u32(tree.top.flat, f"layer {t} top tree", (tree.top.flat.numel(),))
+        _build.check_same_device(parts[0], tree.top.flat)
+        if stored_mask(tree.top) != (2 << ls) - 1:
+            raise ValueError(f"layer {t}: the top tree must store every level")
+        if first.flat.numel() != sum(8 * m for _, m in first.offsets.values()):
+            raise ValueError(f"layer {t}: a shard's tree holds words past its stored levels")
+        for what, rows in (("parts", [parts[e] for e in range(S)]), ("trees", [shard.flat for shard in shards])):
+            step = 4 * rows[0].numel()
+            if any(row.data_ptr() != rows[0].data_ptr() + e * step for e, row in enumerate(rows)):
+                raise ValueError(f"layer {t}: its shards' {what} are not the rows of one tensor in shard order")
+        shard_logs.add(ls)
+        layers.append(OpenLayer(parts[0], first.flat, tree.top.flat, L, mask))
+    if len(shard_logs) > 1:
+        raise ValueError(f"sharded layers over {sorted(1 << ls for ls in shard_logs)} shards: one row has one count")
+    if any(layer.log_leaves >= OPEN_LEVELS for layer in layers):
+        raise ValueError(f"at most {OPEN_LEVELS} layers of fewer than 2^{OPEN_LEVELS} leaves")
+    _build.check_same_device(*[layer.cols for layer in layers])
+    return layers, shard_logs.pop() if shard_logs else 0
+
+
 def merkle_open_queries(columns, trees, query_words: torch.Tensor, out: torch.Tensor | None = None
                         ) -> torch.Tensor:
-    """int32 form of `merkle_open_queries_plain` over int32 layers
-    (`columns[t]`, (4, 2^L) each), their pruned trees and the (nq,) int32
-    query words on the same device, into `out` (`open_queries_words`
-    int32 words, or a new tensor). One launch on CUDA tensors: the layers go
-    by value in the kernel's parameters and the words are read on the card,
-    so nothing is uploaded or fetched and a CUDA graph captures the launch.
-    The plain version on CPU tensors."""
-    _check_layers(columns, trees)
-    if len(trees) > OPEN_LEVELS or any(tree.log_leaves >= OPEN_LEVELS for tree in trees):
-        raise ValueError(f"at most {OPEN_LEVELS} layers of fewer than 2^{OPEN_LEVELS} leaves")
+    """int32 form of `merkle_open_queries_plain` over int32 layers (whole:
+    (4, 2^L) columns and their pruned trees; or element-sharded over one
+    mesh row with every shard in one block here, `open_queries_layers`) and
+    the (nq,) int32 query words on the same device, into `out`
+    (`open_queries_words` int32 words, or a new tensor): the same words at
+    the same offsets whatever the layers' form. One launch on CUDA tensors:
+    the layers go by value in the kernel's parameters and the words are read
+    on the card, so nothing is uploaded or fetched and a CUDA graph captures
+    the launch. The plain version on CPU tensors."""
+    layers, log_shards = open_queries_layers(columns, trees)
     nq = query_words.numel()
     if not nq:
         raise ValueError("no query words")
     _build.check_u32(query_words, "query_words", (nq,))
-    masks = [stored_mask(tree) for tree in trees]
-    n_words = open_queries_words([tree.log_leaves for tree in trees], nq)
+    n_words = open_queries_words([layer.log_leaves for layer in layers], nq)
     if out is None:
         out = torch.empty(n_words, dtype=torch.int32, device=query_words.device)
     _build.check_u32(out, "out", (n_words,))
-    _build.check_same_device(columns[0], query_words, out)
+    _build.check_same_device(layers[0].cols, query_words, out)
     if not query_words.is_cuda:
         return out.copy_(narrow(merkle_open_queries_plain(columns, trees, query_words)))
-    T = len(trees)
+    T = len(layers)
+
+    def pointers(ts):
+        return (ctypes.c_void_p * T)(*[None if x is None else x.data_ptr() for x in ts])
+
     _build.check_launch(_build.library().frieda_merkle_open_queries(
-        (ctypes.c_void_p * T)(*[c.data_ptr() for c in columns]),
-        (ctypes.c_void_p * T)(*[tree.flat.data_ptr() for tree in trees]),
-        (ctypes.c_int * T)(*[tree.log_leaves for tree in trees]), (ctypes.c_uint * T)(*masks),
-        T, query_words.data_ptr(), nq, out.data_ptr(), _build.stream_of(out)))
+        pointers([layer.cols for layer in layers]), pointers([layer.flat for layer in layers]),
+        pointers([layer.top for layer in layers]), (ctypes.c_int * T)(*[layer.log_leaves for layer in layers]),
+        (ctypes.c_uint * T)(*[layer.stored for layer in layers]), T, log_shards, query_words.data_ptr(), nq,
+        out.data_ptr(), _build.stream_of(out)))
     merkle_open_queries.launches += 1
     return out
 
@@ -381,7 +503,10 @@ def open_queries_work(trees, query_words) -> tuple:
     each from 2^depth descendants at its stored base, or from the leaves'
     columns), a hash shared by several rebuilds counted once; and the bytes
     of the distinct column entries (16) and stored nodes (32) its reads
-    touch, each counted once. For `utils/profiling.merkle_open_queries_bound`."""
+    touch, each counted once. For `utils/profiling.merkle_open_queries_bound`.
+    A sharded layer counts as its `whole_tree`, whose levels narrower than S
+    are all stored: their nodes are read, not rebuilt."""
+    trees = [whole_tree(tree) if isinstance(tree, ShardedTree) else tree for tree in trees]
     values, nodes = query_reads(trees, query_words)
     nodes = np.unique(nodes, axis=0)
     _, _, base, r, leaf, _ = open_plan(trees, values, nodes)

@@ -115,12 +115,14 @@ def commit_roots_batch(datas, log_blowup_factor: int, mesh: Mesh) -> list:
 
 def sharded_commit_and_prove(data: bytes, seed, pcs_config: PcsConfig, mesh: Mesh):
     """(commitment, Proof) of a blob, its commit phase element-sharded over
-    this process's first mesh row (`core/fri.commit_phase_sharded`), its
-    decommitment one `merkle_open` launch a device; bit-identical to the
-    single-device `commit_and_prove`. When the row's shards all lie on one
-    CUDA device and the carrier is in-process, the commit phase is one
-    replay of its captured CUDA graph (`core/fri.dispatch_blob`); a
-    process-group mesh runs it eagerly."""
+    this process's first mesh row (`core/fri.commit_phase_sharded`);
+    bit-identical to the single-device `commit_and_prove`. When the row's
+    shards all lie on one CUDA device and the carrier is in-process, the
+    commit phase is one replay of its captured CUDA graph
+    (`core/fri.dispatch_blob`), the decommitment's gathers inside it, and
+    `finish_proof` fetches once and launches nothing; a process-group mesh
+    runs it eagerly, and a row over several devices or processes decommits
+    after the fetch (one `merkle_open` launch a device)."""
     row = mesh.rows()[0]
     log_total = log_total_for(len(data))
     committed = fri.dispatch_blob(data, log_total, seed, pcs_config, mesh.home(row), mesh, row)
