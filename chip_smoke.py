@@ -33,7 +33,14 @@ Phases, each printed as it runs:
      TB/s, threads and dynamic shared memory a block); `merkle_collapse` at
      every width m = 2^0 ... 2^12 with width 1 and the prover's tail widths,
      so at every cluster size its plan picks (1 ... 16), timed at the widths
-     the 2^24-felt proof's 22 trees give it (with their sum); `merkle_open`
+     the 2^24-felt proof's 22 trees give it (with their sum); the collapse
+     with the channel step of a prover's tree (seed, root, alpha: the
+     outputs, the state and alpha bit-equal to the plain collapse followed
+     by `transcript_plain` at every width, with and without the seed, and
+     with `DRAW_BOUND` lowered so that the draw retries on the card), timed
+     with and without the step at the proof's widths, and the proof's
+     channel in all (2 transcript launches and the steps' added time);
+     `merkle_open`
      at the openings of a 2^20-felt / 64-query and a 2^24-felt / 20-query
      proof (their real layers, trees and queries, from `fri.commit_phase`
      and `fri.plan_openings`: the sharded decommitment's job-table form),
@@ -98,8 +105,9 @@ Phases, each printed as it runs:
      decommitment as the gather inside the commit phase and the assembly
      after the fetch), kernel launches per proof (`merkle_open_queries` once,
      in the gather stage, `merkle_open` never, nothing in the assembly;
-     `fri_fold` once a layer, `transcript` once a layer and three more,
-     `grind` once) and peak device
+     `fri_fold` once a layer, `transcript` twice, a channel step in each
+     layer's collapse (`merkle_collapse.steps` == layers), `grind` once) and
+     peak device
      memory (allocated: everything live at the peak of a proof whose commit
      phase is a graph replay, its instance's outputs included; and the
      reserved bytes, the instances' pools included); a warm eager `fri.commit_phase` run under
@@ -130,7 +138,8 @@ Phases, each printed as it runs:
      kernel launched (> 0) by its first run, whose peak device memory is
      printed; then a loop of `api.commit_and_prove` and `prove_many` in
      turns (loop, prove_many, prove_many, loop), every commitment and wire
-     byte equal to the first run's, with each wall and proofs/s; the
+     byte equal to the first run's, with each wall and proofs/s (a later
+     `prove_many`: 16 transcript launches, 8 x 20 channel steps); the
      window, and the card's idle share over one more `prove_many`
      (torch.profiler); `api.verify_many` on those 8, 2 tampered copies and 1
      under a wrong seed, with the phase 8 proofs (mixed shapes) equal to a
@@ -181,7 +190,9 @@ Phases, each printed as it runs:
      share, peak allocated and reserved memory.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
-`{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON.
+`{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON,
+the collapse with the channel step as its own entry (`merkle_collapse+step`,
+its launches the main path's `merkle_collapse.steps`).
 Without CUDA the script exits nonzero before printing any result.
 
     python3 chip_smoke.py --prove-fit 26
@@ -282,7 +293,11 @@ P = (1 << 31) - 1
 # from utils/profiling.
 EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, "merkle_level": 0.9046,
                   "merkle_collapse": 0.000118, "merkle_open": 0.000235, "fri_fold": 0.5208,
-                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None}
+                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None, "merkle_collapse+step": None}
+# The kernels line's entry for merkle_collapse launches that carry a layer's
+# channel step; its launches are `merkle_collapse.steps` on the main path.
+STEP_FORM = "merkle_collapse+step"
+STEPS = "merkle_collapse.steps"  # the key of the steps in a phase's counts
 # SASS opcodes that are not integer work: memory, control, moves.
 SASS_SKIP = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
              "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
@@ -336,8 +351,8 @@ def plain_route():
         ingest=lambda w, log_size: narrow(ingest_ops.ingest_plain(widen(w), log_size)),
         evaluate=lambda c, tw: narrow(fft.evaluate(widen(c), tw)),
         level=lambda x, leaf, fused: narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused)),
-        collapse=lambda lvl, widths: [
-            narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths)],
+        collapse=lambda lvl, widths, step=None: [
+            narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths, step)],
         open=lambda layers, trees, values, nodes: narrow(
             merkle_ops.merkle_open_plain(layers, trees, values, nodes)),
         open_queries=lambda layers, trees, words, out: out.copy_(narrow(
@@ -485,6 +500,7 @@ def main() -> int:
 
     from frieda_tpu_torch import api, ops
     from frieda_tpu_torch.config import FriConfig, PcsConfig
+    from frieda_tpu_torch.core import device_channel as dc
     from frieda_tpu_torch.core import fft, fri, merkle
     from frieda_tpu_torch.core import grind
     from frieda_tpu_torch.core.channel import Blake2sChannel
@@ -512,6 +528,11 @@ def main() -> int:
 
     def max_abs_err(a, b) -> int:
         return int((widen(a) - widen(b)).abs().max().item())
+
+    def collapse_steps() -> int:
+        """The merkle_collapse launches that carried a channel step since the
+        counts were last set to 0."""
+        return merkle_ops.merkle_collapse.steps
 
     fit = sys.argv[sys.argv.index("--prove-fit") + 1] if "--prove-fit" in sys.argv else None
     split = "--commit-split" in sys.argv
@@ -963,8 +984,73 @@ def main() -> int:
                 max_abs_err=t_err, ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     per_proof = step_ms["seed"] + 22 * step_ms["layer: root + alpha"] + step_ms["last-layer felts, k = 1"] \
         + step_ms["nonce + 20 queries"]
-    say(f"[3] transcript over the 2^24-felt / 20-query proof's 25 launches: device {per_proof:.4f} ms; "
-        f"launch floor 25 x {gap_ms:.4f} = {25 * gap_ms:.4f} ms")
+    say(f"[3] transcript as 25 launches of the 2^24-felt / 20-query proof (before the channel step rode on "
+        f"the collapse): device {per_proof:.4f} ms; launch floor 25 x {gap_ms:.4f} = {25 * gap_ms:.4f} ms")
+
+    # merkle_collapse with the channel step (seed, root, alpha) of a prover's
+    # tree: the outputs, the state and alpha bit-equal to the plain collapse
+    # followed by transcript_plain, at every width (every cluster size), with
+    # and without the seed, and with the draw's retry forced on the card
+    def step_case(m: int, widths: tuple, with_seed: bool) -> tuple:
+        level, state = rand_u32((8, m)), rand_u32((9,))
+        seed = rand_u32((2,)) if with_seed else None
+        kernel, plain = (channel_ops.ChannelStep(state.clone(), seed, torch.zeros(4, dtype=torch.int32, device=dev))
+                         for _ in range(2))
+        got = merkle_ops.merkle_collapse(level, widths, step=kernel)
+        want = [narrow(w) for w in merkle_ops.merkle_collapse_plain(widen(level), widths, plain)]
+        check(len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+              and torch.equal(kernel.state, plain.state) and torch.equal(kernel.alpha, plain.alpha),
+              f"merkle_collapse {m} -> {widths} with the channel step (seed {with_seed}) differs from plain")
+        err = max([max_abs_err(g, w) for g, w in zip(got, want)]
+                  + [max_abs_err(kernel.state, plain.state), max_abs_err(kernel.alpha, plain.alpha)])
+        return level, kernel, err
+
+    step_err = 0
+    for log_m in range(1, 13):
+        m = 1 << log_m
+        for widths in {(1,), merkle.tail_widths(m)}:
+            for with_seed in (False, True):
+                step_err = max(step_err, step_case(m, widths, with_seed)[2])
+    bound0, n_sent = dc.DRAW_BOUND, []
+    dc.DRAW_BOUND = 3 << 30  # an attempt passes with probability (3/4)^8, about 0.1
+    try:
+        for m in (2, 256, 512, 4096):
+            n_sent.append(int(step_case(m, merkle.tail_widths(m), True)[1].state[8].item()))
+    finally:
+        dc.DRAW_BOUND = bound0
+    check(max(n_sent) > 1, f"the lowered DRAW_BOUND forced no retry: n_sent {n_sent}")
+    say("[3] merkle_collapse with the channel step, m = 2^1 ... 2^12 -> 1 and -> m/8^j, 1, with and without "
+        "the seed: outputs, state and alpha bit-equal to the plain collapse + transcript_plain; with "
+        f"DRAW_BOUND 3 x 2^30 at m = 2, 256, 512, 4096 (retries on the card, n_sent {n_sent}): bit-equal")
+    step_dev = {}
+    for m in sorted(set(shapes), reverse=True):
+        widths = merkle.tail_widths(m)
+        level = rand_u32((8, m))
+        st = channel_ops.ChannelStep(channel_ops.new_state(dev), None, torch.zeros(4, dtype=torch.int32, device=dev))
+        step_dev[m] = device_ms(lambda: merkle_ops.merkle_collapse(level, widths, step=st))  # noqa: B023
+        say(f"[3] merkle_collapse m={m} -> {widths}: device {step_dev[m]:.4f} ms with the channel step, "
+            f"{collapse_dev[m]:.4f} ms without ({step_dev[m] - collapse_dev[m]:+.4f} ms)")
+        if m == 4096:
+            seeded = st._replace(seed=rand_u32((2,)))
+            seed_ms = device_ms(lambda: merkle_ops.merkle_collapse(level, widths, step=seeded))  # noqa: B023
+            call = cuda_ms(lambda: merkle_ops.merkle_collapse(level, widths, step=st))  # noqa: B023
+            l64 = widen(level)
+            plain_ms = cuda_ms(lambda: merkle_ops.merkle_collapse_plain(l64, widths, st), reps=3)  # noqa: B023
+            b_ms, b_by = profiling.merkle_collapse_bound(4096, widths, step=True)
+            kernels[STEP_FORM] = dict(
+                source="frieda_tpu_torch/csrc/merkle.cu",
+                replaces="frieda_tpu/ops/merkle_pallas.py:240 (collapse_multi) with "
+                         "frieda_tpu/core/device_channel.py:76-126 (dc_mix_digest, dc_draw_felt; XLA)",
+                max_abs_err=step_err, ms=step_dev[m], call_ms=call, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+            say(f"[3] merkle_collapse 4096 -> {widths} with the channel step: with the seed (layer 0) device "
+                f"{seed_ms:.4f} ms; call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); "
+                f"the step's chain floor, no launch: 2 x {level_ms:.4f} = {2 * level_ms:.4f} ms")
+    added = sum(step_dev[m] - collapse_dev[m] for m in shapes)
+    closing = step_ms["last-layer felts, k = 1"] + step_ms["nonce + 20 queries"]
+    say(f"[3] the 2^24-felt / 20-query proof's channel: 2 transcript launches (last-layer felts, nonce + 20 "
+        f"queries) {closing:.4f} ms + the 22 steps' added device time in their collapses {added:.4f} ms = "
+        f"{closing + added:.4f} ms (25 transcript launches before: {per_proof:.4f} ms)")
 
     # grind: the minimum nonce at pow_bits 8, 16 and 20
     for pow_bits in (8, 16, 20):
@@ -1105,7 +1191,8 @@ def main() -> int:
           f"2^24-felt commit: kernel root {results[24]['root']} != plain root {plain_root}")
     say(f"[5] 2^24-felt commit: kernel path root == plain path root {plain_root}")
     commit_counts = ops.launch_counts()
-    say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}")
+    check(collapse_steps() == 0, f"the commit phases 4-5 ran {collapse_steps()} channel steps")
+    say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}; channel steps 0")
     prove_only = {"merkle_open", "merkle_open_queries", "fri_fold", "transcript", "grind"}  # a proof's
     prove_only |= {"fft_exchange"}  # and the sharded path's exchange stages (phase 12)
     for name, count in commit_counts.items():
@@ -1117,6 +1204,7 @@ def main() -> int:
     ops.reset_launch_counts()
     roots16 = api.commit_many(blobs16, LOG_BLOWUP, device=dev)
     batch_counts = ops.launch_counts()
+    check(collapse_steps() == 0, f"commit_many ran {collapse_steps()} channel steps")
     ops.reset_launch_counts()
     api.commit(blobs16[0], LOG_BLOWUP, device=dev)
     check(ops.launch_counts() == batch_counts,
@@ -1222,6 +1310,7 @@ def main() -> int:
     ops.reset_launch_counts()
     root, evals, tree, n = api.commit_with_tree(data, LOG_BLOWUP, device=dev)
     tree_counts = ops.launch_counts()
+    check(collapse_steps() == 0, f"commit_with_tree ran {collapse_steps()} channel steps")
     levels = tree.n_device_levels
     # One merkle_level launch a stored level, each level half as wide as the
     # one below: the first launch is the one-level leaf form, the rest the
@@ -1297,14 +1386,17 @@ def main() -> int:
         staged_wires[log_felts] = wire  # phase 12's sharded proof
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        before = ops.launch_counts()
+        before, steps0 = ops.launch_counts(), collapse_steps()
         api.commit_and_prove_staged(words, log_total, 7, cfg)  # a replay of the graph the warm-up captured
         per_proof = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        per_proof[STEPS] = collapse_steps() - steps0
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         reserved = torch.cuda.memory_reserved(dev)
         layers = log_total - 2  # the proof's layers at llb 0: n - last_log
-        check(per_proof["fri_fold"] == layers and per_proof["transcript"] == layers + 3
+        # every tree (2^5 leaves and more) ends in a collapse, which carries
+        # its layer's channel step: 2 transcript launches close the proof
+        check(per_proof["fri_fold"] == layers and per_proof["transcript"] == 2 and per_proof[STEPS] == layers
               and per_proof["grind"] == 1 and per_proof["merkle_open_queries"] == 1 and per_proof["merkle_open"] == 0,
               f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
         # the warm commit phase waits for nothing; then one fetch
@@ -1413,7 +1505,9 @@ def main() -> int:
 
     # -- 10. launch counts of the commit_many, commit_with_tree and prove phases
     prove_counts = ops.launch_counts()
-    say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}")
+    prove_steps = collapse_steps()
+    check(prove_steps > 0, "the prove phases 8-9 ran no channel step in a collapse")
+    say(f"[10] kernel launches in the prove phases 8-9: {prove_counts}; channel steps in collapses {prove_steps}")
     for path, counts, unused in (("commit_many (6)", batch_counts, prove_only),
                                  ("commit_with_tree (7)", tree_counts, prove_only | {"merkle_collapse"}),
                                  ("prove (8-9)", prove_counts, {"fft_exchange", "merkle_open"})):
@@ -1437,12 +1531,14 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_wall = time.perf_counter() - t0  # its window's memory is new to the allocator
     many_counts = ops.launch_counts()
+    many_steps = collapse_steps()
     many_peak = torch.cuda.max_memory_allocated(dev)
     for name, count in many_counts.items():
         check(count > 0 or name in ("fft_exchange", "merkle_open"), f"kernel {name} was never launched by "
               "prove_many")
     walls = {"loop": [], "prove_many": []}
     for kind in ("loop", "prove_many", "prove_many", "loop"):  # in turns
+        ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if kind == "loop":
@@ -1451,6 +1547,11 @@ def main() -> int:
             out = api.prove_many(datas, seeds, cfg, device=dev)
         torch.cuda.synchronize()
         walls[kind].append(time.perf_counter() - t0)
+        if kind == "prove_many":  # its instances captured: replays only
+            turn = {"transcript": ops.launch_counts()["transcript"], STEPS: collapse_steps()}
+            check(turn == {"transcript": 2 * len(datas), STEPS: len(datas) * log_size},
+                  f"prove_many 8 x 2^20 felts: transcript launches and channel steps {turn}, want "
+                  f"{2 * len(datas)} and {len(datas) * log_size}")
         for k, ((com, proof), (b_com, b_proof)) in enumerate(zip(out, batch)):
             check(com == b_com and proof.to_bytes() == b_proof.to_bytes(),
                   f"{kind} proof {k} differs from the first prove_many's")
@@ -1474,7 +1575,8 @@ def main() -> int:
         f"{rate['loop']:.3f} proofs/s (first prove_many, allocator cold: {cold_wall * 1e3:.3f} ms); peak "
         f"device memory {many_peak} bytes = {many_peak / 2**30:.3f} GiB; idle share "
         f"{1 - busy_us / prof_us:.3f} (device busy {busy_us:.0f} us in {records} records, of "
-        f"{prof_us:.0f} us of one profiled prove_many); kernel launches {many_counts}")
+        f"{prof_us:.0f} us of one profiled prove_many); kernel launches {many_counts}, channel steps "
+        f"{many_steps}; in a later run transcript {turn['transcript']}, channel steps {turn[STEPS]}")
     proofs = [p for _, p in batch] + [tampered(batch[0][1]), tampered(batch[1][1]), batch[2][1]]
     vseeds = seeds + [seeds[0], seeds[1], seeds[2] + 100]
     verdicts = [api.verify(p, s) for p, s in zip(proofs, vseeds)]
@@ -1504,7 +1606,7 @@ def main() -> int:
     del many_out
     say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
 
-    check(set(kernels) == set(ops.kernel_wrappers()), f"kernels measured {sorted(kernels)}")
+    check(set(kernels) == {*ops.kernel_wrappers(), STEP_FORM}, f"kernels measured {sorted(kernels)}")
     for name, k in kernels.items():
         share = k["bound_ms"] / k["ms"]
         check(0 < share <= 1, f"{name}: bound {k['bound_ms']} ms over device {k['ms']} ms = {share} outside (0, 1]")
@@ -1514,8 +1616,9 @@ def main() -> int:
     say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts,
-                                            many_counts, sharded_counts)),
+         "launches": prove_steps + many_steps + sharded_counts[STEPS] if name == STEP_FORM else
+                     sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts, many_counts,
+                                           sharded_counts)),
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "ms_is": "device time: CUDA events around a replayed CUDA graph of the calls, per call",
          "call_ms": k["call_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1544,14 +1647,17 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     from frieda_tpu_torch.utils.convert import from_numpy_u32
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
 
-    sharded_counts = dict.fromkeys(ops.kernel_wrappers(), 0)  # the sharded calls' launches, summed
+    from frieda_tpu_torch.ops import merkle as merkle_ops
+
+    sharded_counts = dict.fromkeys([*ops.kernel_wrappers(), STEPS], 0)  # the sharded calls' launches, summed
 
     def launched(fn) -> tuple:
-        """(fn(), {kernel: launches} of that call): every count set to 0 just
-        before the call and read just after; added to `sharded_counts`."""
+        """(fn(), {kernel: launches} of that call, and STEPS: the collapses
+        that carried a channel step): every count set to 0 just before the
+        call and read just after; added to `sharded_counts`."""
         ops.reset_launch_counts()
         out = fn()
-        used = {k: v for k, v in ops.launch_counts().items() if v}
+        used = {k: v for k, v in {**ops.launch_counts(), STEPS: merkle_ops.merkle_collapse.steps}.items() if v}
         for k, v in used.items():
             sharded_counts[k] += v
         return out, used
@@ -1637,10 +1743,11 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     # layer at least 2S = 16 wide, so one fri_fold launch a shard a fold
     folds = log_total - 2
     launched_all_but_exchange(used, "sharded_commit_and_prove 2^24 felts over S = 8")
-    check(used["fri_fold"] == 8 * folds and used["transcript"] == folds + 3 and used["grind"] == 1
+    check(used["fri_fold"] == 8 * folds and used["transcript"] == 2 and used.get(STEPS) == folds and used["grind"] == 1
           and used["merkle_open_queries"] == 1 and used["ingest"] == 1,
           f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {8 * folds}, "
-          f"transcript {folds + 3}, grind, merkle_open_queries and ingest 1")
+          f"transcript 2, channel steps {folds} (every layer's on its top tree's collapse), grind, "
+          "merkle_open_queries and ingest 1")
     syncs, finished, opened = finish_counted(fri, fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8),
                                              log_total, cfg)
     check(syncs == 1 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
@@ -1709,9 +1816,10 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     folds = log_total_for(len(datas[0])) - 2  # as above: one fri_fold a shard a fold, 4 shards a blob
     launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
     check(used["fri_fold"] == len(datas) * 4 * folds and used["grind"] == len(datas)
-          and used["merkle_open_queries"] == len(datas),
+          and used["merkle_open_queries"] == len(datas) and used["transcript"] == 2 * len(datas)
+          and used.get(STEPS) == len(datas) * folds,
           f"prove_many_sharded: launches {used}, want fri_fold {len(datas) * 4 * folds}, grind and "
-          f"merkle_open_queries {len(datas)}")
+          f"merkle_open_queries {len(datas)}, transcript {2 * len(datas)}, channel steps {len(datas) * folds}")
     log_total20 = log_total_for(len(datas[1]))
     syncs, finished, opened = finish_counted(
         fri, fri.dispatch_blob(datas[1], log_total20, seeds[1], cfg64, dev, mesh24, 0), log_total20, cfg64)
@@ -1720,8 +1828,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     blobs = [synthetic_data(felt_bytes(20), k) for k in range(16)]
     roots, used_roots = launched(lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24))
     check(roots == roots20, "commit_roots_batch 16 x 2^20 felts over (2, 4) differs from api.commit_many")
-    check(all(used_roots.get(k) for k in ("ingest", "fft_pass", "merkle_level", "merkle_collapse")),
-          f"commit_roots_batch: launches {used_roots}")
+    check(all(used_roots.get(k) for k in ("ingest", "fft_pass", "merkle_level", "merkle_collapse"))
+          and STEPS not in used_roots, f"commit_roots_batch: launches {used_roots}")
     walls = {k: [] for k in ("prove_many", "prove_many_sharded", "commit_many", "commit_roots_batch")}
     calls = {"prove_many": lambda: api.prove_many(datas, seeds, cfg64, device=dev),
              "prove_many_sharded": lambda: sharding.prove_many_sharded(datas, seeds, cfg64, mesh24),
@@ -1776,6 +1884,7 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
     from frieda_tpu_torch import api, ops
     from frieda_tpu_torch.config import FriConfig, PcsConfig
     from frieda_tpu_torch.core import fft, fri
+    from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.parallel import sharding
     from frieda_tpu_torch.utils.convert import from_numpy_u32
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
@@ -1790,9 +1899,11 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
         return fri.commit_graphs()[0]
 
     def counted(fn) -> tuple:
+        """(fn(), its kernel launches and STEPS, the collapses that carried a
+        channel step)."""
         ops.reset_launch_counts()
         out = fn()
-        return out, {k: v for k, v in ops.launch_counts().items() if v}
+        return out, {k: v for k, v in {**ops.launch_counts(), STEPS: merkle_ops.merkle_collapse.steps}.items() if v}
 
     def clocked(fn, finish) -> tuple:
         """(host enqueue ms, device ms from before the first launch to after
@@ -1858,14 +1969,24 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
               f"{what}: launches of 3 graph proofs {graph_counts}, eager proof {eager_counts}")
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lead_in()
             committed = graph()
             torch.cuda.synchronize()
         traced = traced_launches(prof)
         recorded = committed._lease.launches
-        check(traced == recorded and recorded == eager_counts,
+        check(traced == recorded and {**recorded, STEPS: committed._lease.steps} == eager_counts,
               f"{what}: kernels in a torch.profiler trace of one replay {traced}, recorded at its capture "
-              f"{recorded}, eager commit phase {eager_counts}")
+              f"{recorded} and {committed._lease.steps} channel steps, eager commit phase {eager_counts}")
         check(finish(committed) == want, f"{what}: the traced replay's proof differs")
+        port, plain, copies, windows = replay_device_ms(prof)
+        say(f"[13]   {what}: one replay's device records (torch.profiler, [records, summed ms, summed ms of "
+            f"the gaps after them]): the port's kernels "
+            f"{({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in port.items()})}; plain PyTorch "
+            f"{sum(v[0] for v in plain.values())} kernels, {sum(v[1] for v in plain.values()):.4f} ms "
+            f"({({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in plain.items()})}); copies and "
+            f"fills {copies[0]}, {copies[1]:.4f} ms; the close's plain PyTorch ([records, summed ms, device ms "
+            f"between the neighbouring kernels]): "
+            f"{({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in windows.items()})}")
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2069,6 +2190,65 @@ def traced_launches(prof) -> dict:
         if m:
             out[m.group(1)] = out.get(m.group(1), 0) + 1
     return out
+
+
+LEAD_IN = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def lead_in() -> None:
+    """A short device wait before the work a trace is for, inside its
+    `torch.profiler.profile`, left out of the counts (`LEAD_IN`): a trace
+    has lost the first kernel records of a graph replay that began as the
+    profiler started (`ingest`, the replay's first kernel, in one run)."""
+    import torch
+
+    torch.cuda._sleep(200_000)
+    torch.cuda.synchronize()
+
+
+def replay_device_ms(prof) -> tuple:
+    """({port kernel: [records, summed device ms, summed ms of the idle gaps
+    after them]}, {PyTorch kernel, short name: [the same]}, [copies and
+    fills: the same], {window: [records, summed ms, device ms from the
+    record before it to the record after it]}) of the device records of one
+    commit phase's replay in a finished
+    `torch.profiler.profile`. PyTorch's own kernels there: the trees'
+    `torch.cat` (`core/merkle._flatten`), the channel state's zero fill and
+    the close. The windows are the close's two stretches of plain PyTorch:
+    "last layer" from the last `fri_fold` to the next `transcript`
+    (`fri._device_ifft_line`, the coefficients' cast, the degree check),
+    "head" from the last `transcript` to `merkle_open_queries` (the packed
+    head's `torch.cat`)."""
+    import torch
+
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name()),
+                    key=lambda e: e.start_ns())
+    kinds = []
+    port, plain, copies = {}, {}, [0, 0.0, 0.0]
+    for i, e in enumerate(events):
+        m = KERNEL_OF_WRAPPER.search(e.name())
+        kinds.append(m.group(1) if m else None)
+        if m:
+            into = port.setdefault(m.group(1), [0, 0.0, 0.0])
+        elif e.name().startswith(("Memcpy", "Memset")):
+            into = copies
+        else:
+            name = re.sub(r"\((?!anonymous).*$", "", re.sub(r"^void ", "", e.name()).split("<")[0])
+            into = plain.setdefault(name.split("::")[-1], [0, 0.0, 0.0])
+        into[0] += 1
+        into[1] += e.duration_ns() / 1e6
+        if i + 1 < len(events):
+            into[2] += (events[i + 1].start_ns() - e.start_ns() - e.duration_ns()) / 1e6
+    windows = {}
+    for what, first, last in (("last layer", "fri_fold", "transcript"), ("head", "transcript", "merkle_open_queries")):
+        lo = max((i for i, k in enumerate(kinds) if k == first), default=None)
+        hi = next((i for i in range(lo + 1, len(kinds)) if kinds[i] == last), None) if lo is not None else None
+        if hi is not None:
+            inside = events[lo + 1 : hi]
+            gap = (events[hi].start_ns() - events[lo].start_ns() - events[lo].duration_ns()) / 1e6
+            windows[what] = [len(inside), sum(e.duration_ns() for e in inside) / 1e6, gap]
+    return port, plain, copies, windows
 
 
 @contextlib.contextmanager

@@ -18,8 +18,11 @@ Architecture, as the JAX package's `_fri_commit_fn`: the commit phase
 staged words to the decommitment's gathers, and waits for nothing. The
 Fiat-Shamir channel lives in device memory (`core/device_channel.py`, the
 `transcript` and `grind` kernels of `ops/channel.py`): each layer's root is
-mixed from its tree's device tensor, alpha is drawn where the next
-`fri_fold` reads it, and the grind searches on the card. Once the query
+mixed and its alpha drawn (with the seed mixed first for layer 0) at the end
+of the `merkle_collapse` launch that ends the layer's tree, where the next
+`fri_fold` reads alpha, so a proof has two `transcript` launches (the
+last-layer felts; the nonce and query draws) plus one a tree that ends
+without a collapse, and the grind searches on the card. Once the query
 words are drawn, one `merkle_open_queries` launch gathers every raw query's
 pair and authentication path in each layer on the card, as the JAX
 package's oblivious gathers do. The transcript's outputs (the layer roots,
@@ -105,7 +108,7 @@ class Route(NamedTuple):
     ingest: Callable  # (words, log_size) -> (4, 2^log_size) bit-reversed coefficients
     evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (4, 2^n) evaluations
     level: Callable  # (x, leaf, fused) -> Merkle level
-    collapse: Callable  # (level, out_widths) -> [levels]
+    collapse: Callable  # (level, out_widths, step=) -> [levels]; step: a ChannelStep run on the root
     open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening (sharded)
     open_queries: Callable  # (layers, trees, query_words, out) -> out: the gathers of `_packed_layout`
     fold: Callable  # (values (4, M), alpha (4,), inv (M/2,)) -> (4, M/2)
@@ -457,12 +460,15 @@ def seed_words(seed, device) -> torch.Tensor | None:
 def commit_phase(words: torch.Tensor, log_total: int, seed,
                  pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                  clock: _Clock | None = None) -> Committed:
-    """The commit phase of `prove_words`: the LDE, a pruned tree, a transcript
-    step and a fold per layer, the last layer, the grind and the query draws,
-    all enqueued on `words`' device; nothing waits for the device (tables
-    not yet cached for this size are uploaded first). Counterpart of
-    `_fri_commit_fn.run`. seed: None, an int, or its (2,) int32 words on the
-    device (`seed_words`), which the transcript mixes as a tensor.
+    """The commit phase of `prove_words`: the LDE, a pruned tree with its
+    channel step (seed, root, alpha: `ops.channel.ChannelStep`, one
+    preallocated alpha a layer) and a fold per layer, the last layer, the
+    grind and the query draws, all enqueued on `words`' device; nothing
+    waits for the device (tables not yet cached for this size are uploaded
+    first). Counterpart of `_fri_commit_fn.run`. seed: None, an int, or its
+    (2,) int32 words on the device (`seed_words`), which layer 0's channel
+    step mixes as a tensor. Under the stage clock the layers' channel steps
+    fall in "lde_trees", with their trees.
 
     This is the eager form, each launch issued from Python: what the CPU,
     another route, the stage clock and `dispatch_commit_phase`'s capture
@@ -476,18 +482,16 @@ def commit_phase(words: torch.Tensor, log_total: int, seed,
     seed = seed_words(seed, device)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
         state = channel_ops.new_state(device)
-        if seed is not None:
-            with clock("transcript"):
-                route.transcript(state, mix_u64=seed)
+        alphas = torch.empty((n_inner + 1, 4), dtype=torch.int32, device=device)
 
         def commit_layer(g):
-            with clock("lde_trees"):
-                tree = build_pruned(g, route.level, route.collapse)
-            with clock("transcript"):
-                alpha, _ = route.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
+            t = len(layers)
+            step = channel_ops.ChannelStep(state, seed if t == 0 else None, alphas[t])
+            with clock("lde_trees"):  # the tree, its channel step on its last launch
+                tree = build_pruned(g, route.level, route.collapse, step, route.transcript)
             layers.append(g)
             trees.append(tree)
-            return alpha
+            return step.alpha
 
         layers, trees = [], []
         with clock("lde_trees"):
@@ -553,8 +557,9 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     gathered subtree roots hashed to the root), and folds its part with
     `fri_fold` and its slice of the fold table (`block_fold_tables`). A layer
     narrower than 2S is gathered onto the home device and continues there,
-    as on one device, and so does the last layer. The transcript and the
-    grind run on the home device: one channel state for the in-process
+    as on one device, and so does the last layer. The transcript (each
+    layer's step on the top tree's collapse, or the one-device tree's) and
+    the grind run on the home device: one channel state for the in-process
     carrier, and one in each process of a process-group mesh, each the same
     (the JAX package's replicated channel). On one device nothing here waits
     for the device. The layers of the returned `Committed` are `Sharded` or
@@ -580,8 +585,7 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     seed = seed_words(seed, home)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
         state = channel_ops.new_state(home)
-        if seed is not None:
-            channel_ops.transcript(state, mix_u64=seed)
+        alphas = torch.empty((n_inner + 1, 4), dtype=torch.int32, device=home)
         coeffs = ingest_ops.ingest(words, log_size)
         ys_inv, xs_invs = fold_tables(n, home)
         if 1 << n >= 2 * S:
@@ -590,8 +594,9 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
             g = fft.evaluate_auto(coeffs, fft.stage_twiddles(n, home))
         layers, trees = [], []
         for t in range(n_inner + 1):
-            tree = build_sharded_tree(g) if isinstance(g, Sharded) else build_pruned(g)
-            alpha, _ = channel_ops.transcript(state, mix_digest=tree.root.reshape(8), draw_felt=True)
+            step = channel_ops.ChannelStep(state, seed if t == 0 else None, alphas[t])
+            tree = build_sharded_tree(g, step) if isinstance(g, Sharded) else build_pruned(g, step=step)
+            alpha = step.alpha
             layers.append(g)
             trees.append(tree)
             if not isinstance(g, Sharded):
@@ -651,8 +656,9 @@ class _CommitGraph(_Instance):
     `words_for(log_total)` int32 words) and `seed` ((2,) int32, or None for
     a key without a seed); `committed`, the outputs each replay writes
     (layers, pruned trees, `packed`); `tables`, every cached table the graph
-    reads, held so that clearing a cache cannot free them; and `launches`,
-    the kernel launches the capture recorded.
+    reads, held so that clearing a cache cannot free them; `launches`, the
+    kernel launches the capture recorded; and `steps`, the channel steps its
+    collapses carried (`merkle_collapse.steps`).
 
     With `warm` (a key's first instance) one eager `commit` runs first, on a
     side stream: it builds every table of the key (a mesh's block tables
@@ -670,7 +676,7 @@ class _CommitGraph(_Instance):
                     commit(self.words, self.seed)
                 torch.cuda.current_stream(device).wait_stream(side)
             self.tables = tables()  # cached again here if a cache was cleared since the warm-up
-            before = ops.launch_counts()
+            before, steps = ops.launch_counts(), merkle_ops.merkle_collapse.steps
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph):
@@ -678,6 +684,8 @@ class _CommitGraph(_Instance):
             finally:
                 self.launches = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
                 ops.add_launch_counts({k: -v for k, v in self.launches.items()})  # recorded, not run
+                self.steps = merkle_ops.merkle_collapse.steps - steps
+                merkle_ops.merkle_collapse.steps = steps
 
     def run(self, seed) -> Committed:
         """Write the seed, replay the graph, count its launches; the new
@@ -687,6 +695,7 @@ class _CommitGraph(_Instance):
                 write_seed(self.seed, seed)
             self.graph.replay()
         ops.add_launch_counts(self.launches)
+        merkle_ops.merkle_collapse.steps += self.steps
         c = self.committed
         out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries, c.layout)
         out.opening_cls = c.opening_cls
@@ -1006,7 +1015,8 @@ def prove_words(words: torch.Tensor, log_total: int, seed,
 
     stats, when a dict, receives the host wall time of each stage
     (synchronized at both ends, so the commit phase then waits for the
-    device at every stage: "lde_trees", "folds", "transcript" (with the one
+    device at every stage: "lde_trees" (each layer's channel step rides on
+    its tree), "folds", "transcript" (the closing steps, with the one
     fetch), "grind", and the decommitment's "decommit_gather" (the
     route's `open_queries`, in the commit phase) and "decommit_assemble"
     (the proof objects)), and each stage's kernel launches."""

@@ -220,9 +220,13 @@ class PrunedTree:
         return self.level(self.log_leaves)
 
 
-def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn) -> list:
+def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn, step=None, transcript_fn=None) -> list:
     """[(level k, (..., 8, m) nodes)]: the stored levels of `build_pruned`
-    over (4, N) columns, or over a batch (B, 4, N), one tree a blob."""
+    over (4, N) columns, or over a batch (B, 4, N), one tree a blob. A
+    channel step (one tree only) rides on the collapse that makes the root,
+    or is one `transcript_fn` call when the tree ends without a collapse (8
+    leaves or fewer: the leaf pass makes the root)."""
+    from ..ops import channel as channel_ops
     from ..ops import merkle as merkle_ops
 
     n = columns.shape[-1]
@@ -237,8 +241,10 @@ def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn) -> list:
     m = level.shape[-1]
     if m > 1:
         widths = tail_widths(m)
-        for w, arr in zip(widths, collapse_fn(level, widths)):
+        for w, arr in zip(widths, collapse_fn(level, widths, step=step)):
             stored.append((lev + (m // w).bit_length() - 1, arr))
+    elif step is not None:
+        channel_ops.run_step(step, level, transcript_fn)
     return stored
 
 
@@ -252,7 +258,8 @@ def _flatten(stored: list) -> tuple:
     return torch.cat([arr.reshape(*arr.shape[:-2], -1) for _, arr in stored], dim=-1), offsets
 
 
-def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> PrunedTree:
+def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None, step=None,
+                 transcript_fn=None) -> PrunedTree:
     """Pruned tree over (4, N) int32 natural-order columns, N a power of two.
 
     Counterpart of `frieda_tpu/core/merkle.py:device_levels_pruned`: the leaf
@@ -265,12 +272,15 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None) -> Prun
     package stores the leaf hashes when N is not a multiple of 8 * 4096, this
     build only when N < 8; every other stored level is the same.
 
-    level_fn / collapse_fn default to the kernel wrappers (`ops.merkle`); the
-    prover passes its own so that one pipeline can run either route."""
+    step: the layer's channel step (`ops.channel.ChannelStep`), run by the
+    collapse that makes the root, or by one `transcript_fn` call for a tree
+    of 8 leaves or fewer. level_fn / collapse_fn / transcript_fn default to
+    the kernel wrappers (`ops.merkle`, `ops.channel`); the prover passes its
+    own so that one pipeline can run either route."""
     from ..ops import merkle as merkle_ops
 
     stored = _pruned_levels(columns, level_fn or merkle_ops.merkle_level,
-                            collapse_fn or merkle_ops.merkle_collapse)
+                            collapse_fn or merkle_ops.merkle_collapse, step, transcript_fn)
     flat, offsets = _flatten(stored)
     return PrunedTree(columns.shape[1].bit_length() - 1, flat, offsets)
 
@@ -384,10 +394,13 @@ class ShardedTree:
     root: torch.Tensor
 
 
-def build_sharded_tree(x) -> ShardedTree:
+def build_sharded_tree(x, step=None) -> ShardedTree:
     """`ShardedTree` of a `parallel.mesh.Sharded` layer of at least 2S
     columns: `build_pruned_many` a block of shards, one gather of the
-    subtree roots, and one `merkle_collapse` writing every level of the top."""
+    subtree roots, and one `merkle_collapse` writing every level of the top,
+    which carries the layer's channel step (`step`, on the home device); a
+    mesh of one shard (no top) runs the step as one `transcript` launch."""
+    from ..ops import channel as channel_ops
     from ..ops import merkle as merkle_ops
 
     shards, subroots = {}, {}
@@ -400,9 +413,11 @@ def build_sharded_tree(x) -> ShardedTree:
     log_leaves = x.width.bit_length() - 1
     S = level.shape[1]
     if S == 1:
+        if step is not None:
+            channel_ops.run_step(step, level)
         return ShardedTree(log_leaves, shards, None, level)
     widths = tuple(S >> k for k in range(1, S.bit_length()))
-    outs = merkle_ops.merkle_collapse(level, widths)
+    outs = merkle_ops.merkle_collapse(level, widths, step=step)
     flat, offsets = _flatten([(0, level)] + [(k + 1, o) for k, o in enumerate(outs)])
     return ShardedTree(log_leaves, shards, PrunedTree(S.bit_length() - 1, flat, offsets), outs[-1])
 

@@ -1,6 +1,8 @@
 // BLAKE2s zero-state raw compression (the Merkle node hash, SURVEY.md A.6),
 // and the RFC compression of the Fiat-Shamir channel (blake2s_compress,
-// below it).
+// below it) with the channel's hash and draw on top of it (hash_after,
+// draw_felt), shared by the transcript kernel (channel.cu) and the collapse
+// that ends a prover's tree (merkle.cu).
 //
 // Replaces frieda_tpu/ops/merkle_pallas.py::_compress16. v = [0]*8 + IV,
 // t = 0, no final flag, out[i] = v[i] ^ v[i+8]. This is NOT the RFC
@@ -15,6 +17,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace frieda {
 
@@ -100,6 +104,66 @@ __device__ __forceinline__ void blake2s_compress(const uint32_t (&h)[8], const u
 
 // IV[0] of BLAKE2s-256 without a key: digest length 32, fanout 1, depth 1.
 constexpr uint32_t kB2sParamIV0 = 0x6A09E667u ^ 0x01010020u;
+
+__device__ __forceinline__ void param_iv(uint32_t (&h)[8]) {
+  h[0] = kB2sParamIV0;
+  h[1] = 0xBB67AE85u;
+  h[2] = 0x3C6EF372u;
+  h[3] = 0xA54FF53Au;
+  h[4] = 0x510E527Fu;
+  h[5] = 0x9B05688Cu;
+  h[6] = 0x1F83D9ABu;
+  h[7] = 0x5BE0CD19u;
+}
+
+// The channel's hash: BLAKE2s-256 of digest || payload (n_words
+// little-endian u32 words after the 32 digest bytes). out may alias digest.
+// Kept out of line: one copy of the compression serves every hash of a
+// channel step, so the single thread that runs the step fetches its code
+// once. Inlined at each call site (2-3 copies), a collapse's step took ~10
+// us of a proof's graph replay on an NVIDIA H100 80GB HBM3 at 700 W, ~5.5
+// us out of line, ~2.5 us with its code cached (PERF.md section 6).
+static __device__ __noinline__ void hash_after(const uint32_t (&digest)[8], const uint32_t* payload, int n_words,
+                                  uint32_t (&out)[8]) {
+  uint32_t h[8];
+  param_iv(h);
+  const uint32_t len = 4u * (8u + static_cast<uint32_t>(n_words));
+  const int blocks = static_cast<int>((len + 63u) / 64u);
+  for (int b = 0; b < blocks; ++b) {
+    uint32_t m[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int w = 16 * b + i;
+      m[i] = w < 8 ? digest[w & 7] : (w - 8 < n_words ? payload[w - 8] : 0u);
+    }
+    const bool final = b == blocks - 1;
+    uint32_t next[8];
+    blake2s_compress(h, m, final ? len : 64u * static_cast<uint32_t>(b + 1), final, next);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = next[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = h[i];
+}
+
+// The channel's draw_felt on digest d: hash d || n_sent (8 bytes LE),
+// counting n_sent up, until all 8 words are below draw_bound; alpha gets the
+// first 4 reduced mod P.
+static __device__ void draw_felt(const uint32_t (&d)[8], uint32_t& n_sent, uint32_t draw_bound,
+                                 uint32_t* alpha) {
+  uint32_t w[8];
+  bool ok;
+  do {
+    const uint32_t v[2] = {n_sent, 0u};
+    hash_after(d, v, 2, w);
+    ++n_sent;
+    ok = true;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ok &= w[i] < draw_bound;
+  } while (!ok);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) alpha[i] = w[i] >= kP ? w[i] - kP : w[i];
+}
 
 #undef FRIEDA_B2S_ROUND
 #undef FRIEDA_B2S_G

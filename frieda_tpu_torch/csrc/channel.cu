@@ -10,11 +10,18 @@
 // loops only with a host synchronization a trip.
 //
 // The channel's hash is RFC BLAKE2s-256 (parameter block in h, byte counter,
-// final flag: blake2s.cuh blake2s_compress), not the Merkle kernels'
-// zero-state compression. The state is 9 u32 words in device memory: the
-// digest (8 words, little-endian) and n_sent. Every mix replaces the digest
-// with BLAKE2s(digest || payload) and resets n_sent; a draw hashes
-// digest || n_sent (8 bytes LE) and counts n_sent up.
+// final flag: blake2s.cuh blake2s_compress, hash_after, draw_felt), not the
+// Merkle kernels' zero-state compression. The state is 9 u32 words in device
+// memory: the digest (8 words, little-endian) and n_sent. Every mix replaces
+// the digest with BLAKE2s(digest || payload) and resets n_sent; a draw
+// hashes digest || n_sent (8 bytes LE) and counts n_sent up.
+//
+// Where each step of a proof runs: the seed mix and every layer's root mix
+// and alpha draw run in the merkle_collapse launch that ends the layer's
+// tree (merkle.cu, its channel step), so a layer adds no launch to the
+// commit phase's chain. A transcript launch runs the rest: the last-layer
+// felts, the nonce mix with the query draws, and the step of a tree that
+// ends without a collapse (8 leaves or fewer; a mesh of one shard).
 //
 // transcript: one block of one warp runs the steps a launch asks for, in
 // this order: mix_u64 (a constant, or two words in device memory: the
@@ -43,46 +50,12 @@
 namespace {
 
 using frieda::blake2s_compress;
+using frieda::hash_after;
 using frieda::kP;
+using frieda::param_iv;
 
 constexpr int kTranscriptThreads = 32;
 constexpr int kGrindThreads = 256;
-
-__device__ __forceinline__ void param_iv(uint32_t (&h)[8]) {
-  h[0] = frieda::kB2sParamIV0;
-  h[1] = 0xBB67AE85u;
-  h[2] = 0x3C6EF372u;
-  h[3] = 0xA54FF53Au;
-  h[4] = 0x510E527Fu;
-  h[5] = 0x9B05688Cu;
-  h[6] = 0x1F83D9ABu;
-  h[7] = 0x5BE0CD19u;
-}
-
-// BLAKE2s-256 of digest || payload (n_words little-endian u32 words after the
-// 32 digest bytes). out may alias digest.
-__device__ void hash_after(const uint32_t (&digest)[8], const uint32_t* payload, int n_words,
-                           uint32_t (&out)[8]) {
-  uint32_t h[8];
-  param_iv(h);
-  const uint32_t len = 4u * (8u + static_cast<uint32_t>(n_words));
-  const int blocks = static_cast<int>((len + 63u) / 64u);
-  for (int b = 0; b < blocks; ++b) {
-    uint32_t m[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int w = 16 * b + i;
-      m[i] = w < 8 ? digest[w & 7] : (w - 8 < n_words ? payload[w - 8] : 0u);
-    }
-    const bool final = b == blocks - 1;
-    uint32_t next[8];
-    blake2s_compress(h, m, final ? len : 64u * static_cast<uint32_t>(b + 1), final, next);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) h[i] = next[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = h[i];
-}
 
 struct TranscriptArgs {
   uint32_t* state;          // digest (8 words), n_sent
@@ -127,20 +100,7 @@ __global__ void __launch_bounds__(kTranscriptThreads) transcript_kernel(Transcri
       hash_after(d, a.felts, 4 * a.n_felts, d);
       n_sent = 0;
     }
-    if (a.alpha != nullptr) {
-      uint32_t w[8];
-      bool ok;
-      do {
-        const uint32_t v[2] = {n_sent, 0u};
-        hash_after(d, v, 2, w);
-        ++n_sent;
-        ok = true;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ok &= w[i] < a.draw_bound;
-      } while (!ok);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a.alpha[i] = w[i] >= kP ? w[i] - kP : w[i];
-    }
+    if (a.alpha != nullptr) frieda::draw_felt(d, n_sent, a.draw_bound, a.alpha);
 #pragma unroll
     for (int i = 0; i < 8; ++i) digest_s[i] = d[i];
     n_sent_s = n_sent;

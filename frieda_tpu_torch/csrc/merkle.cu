@@ -48,6 +48,21 @@
 // version keeps up to 8 x 32768 nodes (1 MiB) in VMEM; here merkle_level
 // keeps fusing down to width 4096 first.
 //
+// The channel step (the prover's trees): a collapse of one blob that ends
+// the tree at the root may carry the Fiat-Shamir step of the layer whose
+// tree it ends, so that the step adds no launch to the commit phase's serial
+// chain. Thread 0 of the block that holds the root in shared memory (rank 0
+// after the cluster's finish, or the one block of B = 1) runs, after the
+// barrier that made the root visible, transcript_kernel's lane-0 code for
+// those steps (channel.cu, with blake2s.cuh's hash_after and draw_felt):
+// mix the seed if given (layer 0), mix the root, draw alpha with the retry
+// while any word >= draw_bound, then write alpha (where the layer's fri_fold
+// reads it) and the 9 state words. It adds a chain of 2 (3 with the seed)
+// dependent channel compressions, ~1 us each, to the end of the launch and
+// changes nothing before it. The last-layer felts and the nonce and query
+// draws stay transcript launches: they follow plain PyTorch work and the
+// grind, with no tree launch to ride on.
+//
 // Blob axis (commit_many, the counterpart of the batch grid dimension that
 // jax.vmap prepends to each pallas_call): merkle_level and merkle_collapse
 // take B blobs stacked, (B, 4 or 8, width). A stacked (B, 8, M) is not one
@@ -137,6 +152,34 @@ struct CollapseOuts {
   uint32_t width[kMaxOuts];  // descending
   int count;
 };
+
+// The channel step a collapse may carry (state == nullptr: none).
+struct CollapseStep {
+  uint32_t* state;       // the channel: digest (8 words), n_sent
+  const uint32_t* seed;  // 2 words (lo, hi) mixed first, or null
+  uint32_t* alpha;       // 4 words out
+  uint32_t draw_bound;   // retry while any drawn word >= draw_bound (2P)
+};
+
+// The step on the root, word w at root[w * stride]; one thread.
+__device__ void channel_step(const CollapseStep& st, const uint32_t* root, uint32_t stride) {
+  uint32_t d[8], r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    d[i] = st.state[i];
+    r[i] = root[i * stride];
+  }
+  if (st.seed != nullptr) {
+    const uint32_t v[2] = {st.seed[0], st.seed[1]};
+    frieda::hash_after(d, v, 2, d);
+  }
+  frieda::hash_after(d, r, 8, d);
+  uint32_t n_sent = 0;
+  frieda::draw_felt(d, n_sent, st.draw_bound, st.alpha);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st.state[i] = d[i];
+  st.state[8] = n_sent;
+}
 
 // The layers of merkle_open_queries, by value (1,032 bytes of the 4 KB of
 // kernel parameters). A layer is whole on this device (top[t] == nullptr), or
@@ -235,7 +278,8 @@ __device__ __forceinline__ void pair_in_place(uint32_t* lvl, uint32_t stride, ui
 }
 
 __global__ void __launch_bounds__(kBlockNodesMax / 2)
-merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs, uint32_t m) {
+merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs, uint32_t m,
+                       const CollapseStep step) {
   __shared__ uint32_t lvl[8 * kBlockNodesMax / 2];  // word w of local node j at lvl[w * S + j]
   __shared__ uint32_t top[8 * kClusterMax];         // rank 0's: the width-B level, word w of node b at top[w * B + b]
   cg::cluster_group cluster = cg::this_cluster();
@@ -279,7 +323,10 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
       for (uint32_t i = t; i < 8 * n; i += T) {
         o[(i / n) * width + b + B * (i % n)] = lvl[(i / n) * S + i % n];  // out is (8, width)
       }
-      if (++next == outs.count) return;  // never when finish: a width below B is left
+      if (++next == outs.count) {  // never when finish: a width below B is left
+        if (step.state != nullptr && t == 0) channel_step(step, lvl, S);  // B = 1: lvl holds the root
+        return;
+      }
       __syncthreads();
     }
     if (n == 1) break;
@@ -295,7 +342,10 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
     if (width == outs.width[next]) {
       uint32_t* __restrict__ o = outs.ptr[next] + blob * 8 * width;
       for (uint32_t i = t; i < 8 * width; i += T) o[i] = top[(i / width) * B + i % width];
-      if (++next == outs.count) return;
+      if (++next == outs.count) {
+        if (step.state != nullptr && t == 0) channel_step(step, top, B);  // width 1: top holds the root
+        return;
+      }
       __syncthreads();
     }
     if (t < width / 2) pair_in_place(top, B, t, width / 2);
@@ -495,15 +545,26 @@ extern "C" int frieda_merkle_level(const void* in, void* out, long long width, i
 // n_out <= 13; cluster: blocks of a blob's cluster, a power of two <= 16
 // with m / cluster <= 512. The grid is one cluster a blob, side by side in x
 // (no 65535 cap on the blobs); the card runs as many clusters at once as fit
-// and the rest in waves.
+// and the rest in waves. state: null, or the channel step on the root (the
+// design note above): the channel's 9 words, updated in place; seed: 2 words
+// mixed first, or null; alpha: 4 words out; 1 <= draw_bound <= 2P. A step
+// needs one blob, m >= 2 and the root among the widths (the last is 1).
 extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const long long* widths,
-                                      int n_out, long long m, int cluster, int blobs, void* stream) {
+                                      int n_out, long long m, int cluster, int blobs, void* state,
+                                      const void* seed, void* alpha, unsigned int draw_bound,
+                                      void* stream) {
   if (m < 1 || m > kCollapseMax || (m & (m - 1)) || n_out < 1 || n_out > kMaxOuts ||
       cluster < 1 || cluster > static_cast<int>(kClusterMax) || (cluster & (cluster - 1)) ||
       cluster > m || m / cluster > kBlockNodesMax || blobs < 1 ||
       static_cast<long long>(blobs) * cluster > 0x7FFFFFFFll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (state != nullptr && (blobs != 1 || m < 2 || widths[n_out - 1] != 1 || alpha == nullptr ||
+                           draw_bound == 0 || draw_bound > 2u * frieda::kP)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CollapseStep step{static_cast<uint32_t*>(state), static_cast<const uint32_t*>(seed),
+                          static_cast<uint32_t*>(alpha), draw_bound};
   CollapseOuts o{};
   for (int j = 0; j < n_out; ++j) {
     const long long w = widths[j];
@@ -531,7 +592,7 @@ extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const l
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, merkle_collapse_kernel,
                                            static_cast<const uint32_t*>(in), o,
-                                           static_cast<uint32_t>(m));
+                                           static_cast<uint32_t>(m), step);
   if (e != cudaSuccess) return static_cast<int>(e);
   FRIEDA_LAUNCH_RESULT();
 }

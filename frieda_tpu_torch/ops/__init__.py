@@ -34,8 +34,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in kernel_wrappers().values():
+    """Every wrapper's count to 0, and `merkle_collapse.steps` (the
+    collapses that carried a channel step)."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["merkle_collapse"].steps = 0
 
 
 def add_launch_counts(counts: dict) -> None:

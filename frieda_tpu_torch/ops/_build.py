@@ -40,7 +40,8 @@ _SIGNATURES = {
     "frieda_fft_pass_launch_shape": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "frieda_fft_exchange": (_VP, _VP, _VP, _I, _I, _LL, _LL, _I, _VP),
     "frieda_merkle_level": (_VP, _VP, _LL, _I, _I, _I, _VP),
-    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _I, _VP),
+    "frieda_merkle_collapse": (_VP, ctypes.POINTER(_VP), ctypes.POINTER(_LL), _I, _LL, _I, _I, _VP, _VP, _VP,
+                               ctypes.c_uint, _VP),
     "frieda_merkle_open": (_VP, _I, _LL, _LL, _VP, _VP),
     "frieda_merkle_open_queries": (ctypes.POINTER(_VP), ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                                    ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_uint), _I, _I, _VP, _I, _VP,
@@ -93,7 +94,7 @@ def compile_once(out_root: pathlib.Path, lib_name: str, compiler: str, flags, so
                 failed = (proc.returncode, proc.stdout)
     (out_dir / "build.log").write_text("".join(log))
     if failed is not None:
-        os.unlink(tmp)
+        pathlib.Path(tmp).unlink(missing_ok=True)  # a failed link has removed it already
         raise RuntimeError(f"{pathlib.Path(compiler).name} failed ({failed[0]}):\n{failed[1][-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so

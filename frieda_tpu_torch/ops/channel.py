@@ -15,11 +15,18 @@ updates the state in place and returns the drawn alpha and query words as
 new tensors. `grind` reads the digest and returns the minimum nonce as two
 int32 words (lo, hi) on the device, which `transcript(mix_u64=...)` takes as
 they are. Nothing here waits for the card.
+
+A layer's step (mix the seed for layer 0, mix the root, draw alpha) is a
+`ChannelStep`: the prover hands it to the `merkle_collapse` launch that ends
+the layer's tree (`ops/merkle.py`), which runs it on the card, and
+`run_step` runs it as one transcript call where a tree ends without a
+collapse, and in the collapse's plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +36,32 @@ from . import _build
 
 STATE_WORDS = 9
 _M64 = (1 << 64) - 1
+
+
+class ChannelStep(NamedTuple):
+    """One layer's step on the channel, run on its tree's root: mix `seed`
+    ((2,) int32 words, or None), mix the root, draw alpha into `alpha`."""
+
+    state: torch.Tensor  # (STATE_WORDS,) int32, updated in place
+    seed: torch.Tensor | None
+    alpha: torch.Tensor  # (4,) int32, written
+
+
+def check_step(step: ChannelStep) -> None:
+    if step.seed is not None and not isinstance(step.seed, torch.Tensor):
+        raise ValueError("a step's seed is (2,) int32 words on the device, or None")
+    _check_steps(step.state, step.seed, None, None, None)
+    _build.check_u32(step.alpha, "alpha", (4,))
+    _build.check_same_device(step.state, step.alpha)
+
+
+def run_step(step: ChannelStep, root: torch.Tensor, transcript_fn=None) -> None:
+    """The step on `root` ((8,) or (8, 1) int32 words) as one call of
+    `transcript_fn` (`transcript` by default, or `transcript_plain`), alpha
+    written into `step.alpha`."""
+    alpha, _ = (transcript_fn or transcript)(step.state, mix_u64=step.seed, mix_digest=root.reshape(8),
+                                             draw_felt=True)
+    step.alpha.copy_(alpha)
 
 
 def new_state(device) -> torch.Tensor:

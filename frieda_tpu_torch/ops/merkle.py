@@ -12,6 +12,10 @@ thread-block cluster of `collapse_plan(m)` blocks takes a level of width
 memory (block b the subtree of the nodes x = b mod B down to width B, then
 rank 0 the rest), and writes each requested width (the commit asks for the
 root only, the prover's pruned trees for every third level of the tail).
+A prover's collapse also carries its layer's channel step
+(`ops.channel.ChannelStep`: the seed mix for layer 0, the root mix, the
+alpha draw), run at the end of the same launch by the thread that holds the
+root (`step=`; counted in `merkle_collapse.steps`).
 `merkle_open` does the device work of `frieda_tpu/core/fri.py`'s
 `_auth_sibling_nodes` and value gathers for every read of one proof in one
 launch, a quad of lanes per read (`leaf_level` / `inner_level` are that
@@ -35,12 +39,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import device_channel as dc
 from ..core.blake2s import compress_rows
 from ..core.circle import bitrev_array
 from ..core.merkle import PrunedTree, ShardedTree, hash_leaves, hash_parents
 from ..parallel.mesh import Sharded
 from ..utils.convert import narrow, to_numpy_u32, widen
 from . import _build
+from . import channel as channel_ops
 
 CLUSTER_MAX = 16  # the largest cluster a Hopper card runs (non-portable above 8)
 BLOCK_NODES = 256  # input nodes a block of the plan takes: 128 compressions, a warp per scheduler
@@ -101,23 +107,44 @@ def _check_widths(m: int, out_widths) -> tuple:
     return widths
 
 
-def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,)) -> list:
+def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,), step=None) -> list:
     """Plain version: (8, m) int64 level -> [(8, w) level of width w for w in
-    out_widths], widths descending and dividing m."""
+    out_widths], widths descending and dividing m; with `step`, then
+    `transcript_plain` runs it on the root (`ops.channel.run_step`)."""
+    widths = _check_widths(level.shape[1], out_widths)
+    _check_step(level, widths, step)
     outs = []
-    for w in _check_widths(level.shape[1], out_widths):
+    for w in widths:
         while level.shape[1] > w:
             level = hash_parents(level)
         outs.append(level)
+    if step is not None:
+        channel_ops.run_step(step, narrow(outs[-1]), channel_ops.transcript_plain)
     return outs
 
 
-def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
+def _check_step(level: torch.Tensor, widths: tuple, step) -> None:
+    """A step rides on the collapse of one blob (m >= 2) that ends at the
+    root; ValueError otherwise."""
+    if step is None:
+        return
+    if level.dim() != 2 or level.shape[1] < 2 or widths[-1] != 1:
+        raise ValueError(f"a channel step needs one (8, m >= 2) level collapsed to its root; got level "
+                         f"{tuple(level.shape)} -> {widths}")
+    channel_ops.check_step(step)
+    _build.check_same_device(level, step.state)
+
+
+def merkle_collapse(level: torch.Tensor, out_widths=(1,), step=None) -> list:
     """(8, m) int32 level, m a power of two <= COLLAPSE_MAX -> [(8, w) int32
     for w in out_widths] (descending powers of two dividing m); or a batch
     (B, 8, m) -> [(B, 8, w) ...], each blob its own tree. One launch on a
     CUDA tensor: a cluster of `collapse_plan(m)` blocks per blob. The plain
-    version on a CPU tensor (per blob, stacked)."""
+    version on a CPU tensor (per blob, stacked).
+
+    step: None, or an `ops.channel.ChannelStep` run on the root at the end
+    of the same launch (state updated, alpha written in place): one blob
+    only, m >= 2, the widths ending at 1 (ValueError otherwise)."""
     if level.dim() not in (2, 3) or level.shape[-2] != 8 or not level.shape[0]:
         raise ValueError(f"level: expected (8, m) or (B >= 1, 8, m), got {tuple(level.shape)}")
     m = level.shape[-1]
@@ -125,23 +152,28 @@ def merkle_collapse(level: torch.Tensor, out_widths=(1,)) -> list:
     if not 1 <= m <= COLLAPSE_MAX or m & (m - 1):
         raise ValueError(f"collapse width must be a power of two <= {COLLAPSE_MAX}, got {m}")
     widths = _check_widths(m, out_widths)
+    _check_step(level, widths, step)
     blobs = level.view(-1, 8, m)
     if level.is_cuda:
         outs = [torch.empty((blobs.shape[0], 8, w), dtype=torch.int32, device=level.device) for w in widths]
         ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
         ws = (ctypes.c_longlong * len(widths))(*widths)
+        state, seed, alpha = step if step is not None else (None, None, None)
         lib = _build.library()
         _build.check_launch(lib.frieda_merkle_collapse(
             level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), blobs.shape[0],
-            _build.stream_of(level)))
+            None if state is None else state.data_ptr(), None if seed is None else seed.data_ptr(),
+            None if alpha is None else alpha.data_ptr(), dc.DRAW_BOUND, _build.stream_of(level)))
         merkle_collapse.launches += 1
+        merkle_collapse.steps += step is not None
     else:
-        per_blob = [merkle_collapse_plain(widen(b), widths) for b in blobs]
+        per_blob = [merkle_collapse_plain(widen(b), widths, step) for b in blobs]
         outs = [torch.stack([narrow(o[k]) for o in per_blob]) for k in range(len(widths))]
     return outs if level.dim() == 3 else [o[0] for o in outs]
 
 
 merkle_collapse.launches = 0
+merkle_collapse.steps = 0  # launches that carried a channel step
 
 
 OPEN_LEVELS = 32  # level offsets a layer descriptor of the job table holds (log_leaves < 32)

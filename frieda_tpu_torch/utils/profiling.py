@@ -231,10 +231,18 @@ def merkle_level_bound(width: int, leaf: bool, fused: bool, blobs: int = 1,
     return least_ms(blobs * n_bytes, blobs * compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
-def merkle_collapse_bound(m: int, widths=(1,), blobs: int = 1, card: str | None = None) -> tuple | None:
+def merkle_collapse_bound(m: int, widths=(1,), blobs: int = 1, card: str | None = None,
+                          step: bool = False) -> tuple | None:
     """`merkle_collapse` of `blobs` levels of width m to the root, writing the
-    levels of `widths`: m - 1 compressions a blob."""
-    return least_ms(blobs * 32 * (m + sum(widths)), blobs * (m - 1) * BLAKE2S_COMPRESS_INSTR, card)
+    levels of `widths`: m - 1 compressions a blob. With `step` (one blob,
+    no seed), the channel step on the root as well: the state read and
+    written, alpha (16 bytes) written, 2 channel compressions."""
+    n_bytes = blobs * 32 * (m + sum(widths))
+    compressions = blobs * (m - 1)
+    if step:
+        n_bytes += 2 * CHANNEL_STATE_BYTES + 16
+        compressions += 2
+    return least_ms(n_bytes, compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
 def merkle_open_bound(n_values: int, leaf, depth, card: str | None = None) -> tuple | None:

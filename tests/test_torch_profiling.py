@@ -184,6 +184,16 @@ def test_merkle_open_bound_counts_each_read():
     assert got == profiling.least_ms(n_bytes, compressions * profiling.BLAKE2S_COMPRESS_INSTR, H100)
 
 
+def test_collapse_bound_with_the_channel_step():
+    """The step adds the channel state read and written, alpha written, and
+    2 dependent channel compressions."""
+    got = profiling.merkle_collapse_bound(16, (2, 1), card=H100, step=True)
+    n_bytes = 32 * (16 + 2 + 1) + 2 * profiling.CHANNEL_STATE_BYTES + 16
+    assert got == profiling.least_ms(n_bytes, (15 + 2) * profiling.BLAKE2S_COMPRESS_INSTR, H100)
+    assert profiling.merkle_collapse_bound(16, (2, 1), card=H100) == profiling.least_ms(
+        32 * 19, 15 * profiling.BLAKE2S_COMPRESS_INSTR, H100)
+
+
 def _bound(got) -> float:
     return got if isinstance(got, float) else got[0]
 
@@ -203,6 +213,7 @@ PERF_ROWS = [
     ("8", "0.2106", lambda: profiling.merkle_level_bound(1 << 23, False, True, card=H100)),
     ("9", "0.000118", lambda: profiling.merkle_collapse_bound(4096, (512, 64, 8, 1), card=H100)),
     ("9'", "0.0075", lambda: profiling.merkle_collapse_bound(4096, blobs=64, card=H100)),
+    ("9s", "0.000118", lambda: profiling.merkle_collapse_bound(4096, (512, 64, 8, 1), card=H100, step=True)),
     ("10", "0.5208", lambda: profiling.fri_fold_bound(1 << 25, card=H100)),
     ("10'", "1.0417", lambda: sum(profiling.fri_fold_bound(1 << (25 - l), card=H100)[0] for l in range(22))),
     ("11", "5.7e-08", lambda: profiling.transcript_bound(32, 16, 2, card=H100)),
