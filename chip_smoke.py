@@ -152,13 +152,19 @@ Phases, each printed as it runs:
      (root == phase 5's 2^24 anchor); at log_blowup 2 and 1 over S = 8 (one and
      two `fft_exchange` stages; root == `api.commit` at that blowup);
      `sharded_commit_and_prove` at 2^24 felts / 20 queries over S = 8 (bytes
-     == phase 9's proof, verify True, tampered copy False), its commit phase
+     == phase 9's proof, verify True, tampered copy False; one `fri_fold`
+     launch a fold, a block of 8 shards in one), its commit phase
      under sync debug mode "error", its `finish_proof` after a graph replay
      with one synchronizing fetch and no launch, and the same commit phase
      decommitted as a row of several blocks (`merkle.ShardedOpening` after
      the fetch: one `merkle_open`, the same bytes); `prove_many_sharded` on
      phase 11's 8 x 2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's
-     proofs; a blob's `finish_proof` one fetch, no launch) and
+     proofs; one batched commit phase, phase 14: each kernel's launches those
+     of one proof, and the 8 finishes one fetch, no launch), the per-blob
+     route of meshes over several devices or a process group
+     (`prove_many_per_blob`) on the same mesh (== phase 11's proofs, verify;
+     each kernel's launches those of 8 proofs, a block's folds one launch
+     each; a blob's finish one fetch, no launch), and
      `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
      Host (enqueue) and device ms of each beside the single-device path's, in
      turns in this phase (the sharded proof eager and as a graph replay), and
@@ -188,11 +194,34 @@ Phases, each printed as it runs:
      `prove_many` on phase 11's 8 x 2^20 felts: bytes == a loop, instances
      of its key <= its window, proofs/s against the loop in turns, idle
      share, peak allocated and reserved memory.
+ 14. the batched commit phase (`fri.commit_phase_batched`, the JAX
+     package's `_fri_commit_fn(..., batched=True)`), which
+     `prove_many_sharded` runs as ONE graph replay when every shard of its
+     mesh lies on the card: each kernel's blob axis against a loop of its
+     plain version at B = 1, 3 and 8 on phase 11's 2^20-felt / 64-query
+     shapes, bit-equal (`fri_fold` with a shared table, a table a blob, one
+     alpha and a table a row; the collapse with a channel step a blob, with
+     and without seeds and with `DRAW_BOUND` lowered so that some blobs'
+     draws retry and others' do not; `transcript`'s close forms; `grind` at
+     pow_bits 8 and 20, each blob's nonce its own minimum; `merkle_open_queries`
+     over the batch's real layers, == the batch's packed gathers, every
+     packed row == `commit_phase`'s), each timed at B = 8 beside 8 one-blob
+     launches and its bound; `prove_many_sharded` of 8 x 2^20 / 64 q over the
+     card's (8, 1) and (2, 4) meshes: bytes == phase 11's, verify True,
+     tampered False, one replay a batch, one capture for both (one key),
+     launches per batch beside 8 single replays' (each kernel once a layer);
+     `dispatch_batch` under sync debug mode "error", its 8 finishes one
+     synchronizing fetch and no launch; device ms of one batched replay
+     against 8 single replays and whole-call ms of `prove_many_sharded`
+     against `prove_many` (median of 5 in turns), idle share and peak
+     memory of one profiled call each.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON,
 the collapse with the channel step as its own entry (`merkle_collapse+step`,
-its launches the main path's `merkle_collapse.steps`).
+its launches the main path's `merkle_collapse.steps`), and the batched forms
+of phase 14 as theirs (`fri_fold[batch]` ...: their launches those of phase
+14's counted `prove_many_sharded`).
 Without CUDA the script exits nonzero before printing any result.
 
     python3 chip_smoke.py --prove-fit 26
@@ -205,6 +234,10 @@ memory: whether the largest blob the JAX bench names fits one card; then
     python3 chip_smoke.py --commit-graph
 
 runs only phases 1-2 and 13 (~1 min).
+
+    python3 chip_smoke.py --batched
+
+runs only phases 1-2 and 14 (~2 min).
 
     python3 chip_smoke.py --commit-split
 
@@ -293,7 +326,9 @@ P = (1 << 31) - 1
 # from utils/profiling.
 EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, "merkle_level": 0.9046,
                   "merkle_collapse": 0.000118, "merkle_open": 0.000235, "fri_fold": 0.5208,
-                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None, "merkle_collapse+step": None}
+                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None, "merkle_collapse+step": None,
+                  **dict.fromkeys(("fri_fold[batch]", "transcript[batch]", "grind[batch]",
+                                   "merkle_collapse+step[batch]", "merkle_open_queries[batch]"))}
 # The kernels line's entry for merkle_collapse launches that carry a layer's
 # channel step; its launches are `merkle_collapse.steps` on the main path.
 STEP_FORM = "merkle_collapse+step"
@@ -336,7 +371,8 @@ def say(msg: str) -> None:
 
 def plain_route():
     """The prover's device steps as the kernels' plain PyTorch versions (int64
-    inside, int32 at the edges): the same pipeline, no kernel launched."""
+    inside, int32 at the edges), on a batch's (B, ...) shapes as the kernels
+    take them: the same pipeline, no kernel launched."""
     from frieda_tpu_torch.core import fft, fri
     from frieda_tpu_torch.ops import channel as channel_ops
     from frieda_tpu_torch.ops import fri as fri_ops
@@ -349,7 +385,8 @@ def plain_route():
         transcript=channel_ops.transcript_plain,
         grind=channel_ops.grind_plain,
         ingest=lambda w, log_size: narrow(ingest_ops.ingest_plain(widen(w), log_size)),
-        evaluate=lambda c, tw: narrow(fft.evaluate(widen(c), tw)),
+        evaluate=lambda c, tw: narrow(fft.evaluate(widen(c).reshape(-1, c.shape[-1]), tw)).view(
+            *c.shape[:-1], -1),
         level=lambda x, leaf, fused: narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused)),
         collapse=lambda lvl, widths, step=None: [
             narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths, step)],
@@ -537,6 +574,7 @@ def main() -> int:
     fit = sys.argv[sys.argv.index("--prove-fit") + 1] if "--prove-fit" in sys.argv else None
     split = "--commit-split" in sys.argv
     graph_only = "--commit-graph" in sys.argv
+    batched_only = "--batched" in sys.argv
 
     # -- 1. the card ---------------------------------------------------------
     smi = card()
@@ -585,6 +623,10 @@ def main() -> int:
     if graph_only:
         graph_phase(dev)
         say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if batched_only:
+        batched_phase(dev, {})
+        say(f"[14] whole run {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # -- 3. each kernel against its plain version, at main-path shapes --------
@@ -1603,10 +1645,14 @@ def main() -> int:
 
     # -- 13. the commit phase as one dispatch -------------------------------------
     graph_phase(dev, staged_wires[24], many_out)
-    del many_out
-    say(f"[13] whole run {time.perf_counter() - t_start:.1f} s")
+    lap(13)
 
-    check(set(kernels) == {*ops.kernel_wrappers(), STEP_FORM}, f"kernels measured {sorted(kernels)}")
+    # -- 14. the batched commit phase (prove_many_sharded on one card) ------------
+    batch_used = batched_phase(dev, kernels, many_out)
+    del many_out
+    say(f"[14] whole run {time.perf_counter() - t_start:.1f} s")
+
+    check(set(kernels) == {*ops.kernel_wrappers(), STEP_FORM, *BATCH_FORMS}, f"kernels measured {sorted(kernels)}")
     for name, k in kernels.items():
         share = k["bound_ms"] / k["ms"]
         check(0 < share <= 1, f"{name}: bound {k['bound_ms']} ms over device {k['ms']} ms = {share} outside (0, 1]")
@@ -1616,7 +1662,8 @@ def main() -> int:
     say(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": prove_steps + many_steps + sharded_counts[STEPS] if name == STEP_FORM else
+         "launches": batch_used.get(BATCH_FORMS[name][0], 0) if name in BATCH_FORMS else
+                     prove_steps + many_steps + sharded_counts[STEPS] if name == STEP_FORM else
                      sum(c[name] for c in (commit_counts, batch_counts, tree_counts, prove_counts, many_counts,
                                            sharded_counts)),
          "max_abs_err": k["max_abs_err"],
@@ -1740,14 +1787,14 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     check(api.verify(proof, 7), "sharded 2^24-felt proof: verify is False")
     check(not api.verify(tampered(proof), 7), "sharded 2^24-felt proof: a tampered copy verifies")
     # the 2^(log_size + 4) domain folds down to 2^4 (last-layer bound 2^0): log_size folds, each of a
-    # layer at least 2S = 16 wide, so one fri_fold launch a shard a fold
+    # layer at least 2S = 16 wide, whose 8 shards (one block on the card) fold in one fri_fold launch
     folds = log_total - 2
     launched_all_but_exchange(used, "sharded_commit_and_prove 2^24 felts over S = 8")
-    check(used["fri_fold"] == 8 * folds and used["transcript"] == 2 and used.get(STEPS) == folds and used["grind"] == 1
+    check(used["fri_fold"] == folds and used["transcript"] == 2 and used.get(STEPS) == folds and used["grind"] == 1
           and used["merkle_open_queries"] == 1 and used["ingest"] == 1,
-          f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {8 * folds}, "
-          f"transcript 2, channel steps {folds} (every layer's on its top tree's collapse), grind, "
-          "merkle_open_queries and ingest 1")
+          f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {folds} (a block of "
+          f"8 shards in one launch a fold; {8 * folds} before), transcript 2, channel steps {folds} (every "
+          "layer's on its top tree's collapse), grind, merkle_open_queries and ingest 1")
     syncs, finished, opened = finish_counted(fri, fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8),
                                              log_total, cfg)
     check(syncs == 1 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
@@ -1813,29 +1860,58 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
           "differs from phase 11's proofs")
     check(all(api.verify(p, s) for (_, p), s in zip(out, seeds)), "a prove_many_sharded proof does not verify")
     check(not api.verify(tampered(out[0][1]), seeds[0]), "a tampered prove_many_sharded proof verifies")
-    folds = log_total_for(len(datas[0])) - 2  # as above: one fri_fold a shard a fold, 4 shards a blob
+    # every shard on one card: the whole batch as one batched commit phase (phase 14), each kernel once a
+    # layer (the batch's) and not once a blob
+    folds = log_total_for(len(datas[0])) - 2
     launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
-    check(used["fri_fold"] == len(datas) * 4 * folds and used["grind"] == len(datas)
-          and used["merkle_open_queries"] == len(datas) and used["transcript"] == 2 * len(datas)
-          and used.get(STEPS) == len(datas) * folds,
-          f"prove_many_sharded: launches {used}, want fri_fold {len(datas) * 4 * folds}, grind and "
-          f"merkle_open_queries {len(datas)}, transcript {2 * len(datas)}, channel steps {len(datas) * folds}")
+    check(used["fri_fold"] == folds and used["grind"] == 1 and used["merkle_open_queries"] == 1
+          and used["transcript"] == 2 and used.get(STEPS) == folds,
+          f"prove_many_sharded: launches {used}, want for the batch fri_fold {folds}, grind and "
+          f"merkle_open_queries 1, transcript 2, channel steps {folds}")
     log_total20 = log_total_for(len(datas[1]))
-    syncs, finished, opened = finish_counted(
+    syncs, opened = 0, {}
+    for b, c in enumerate(fri.dispatch_batch(datas, log_total20, seeds, cfg64, dev)):
+        s, finished, o = finish_counted(fri, c, log_total20, cfg64)
+        syncs, opened = syncs + s, {**opened, **o}
+        check(finished == many_out[b][1], f"prove_many_sharded's batch, row {b}: bytes != phase 11's")
+    check(syncs == 1 and not opened, f"prove_many_sharded's 8 finish_proof calls: {syncs} synchronizing "
+          f"operations, launches {opened}; want 1 and none")
+    # the per-blob route of meshes over several devices or a process group (`prove_many_per_blob`),
+    # driven on the same one-card (2, 4) mesh: each blob's commit phase element-sharded over its row,
+    # a graph replay a blob, every fold of a block of 4 shards in one fri_fold launch
+    per_blob = lambda: sharding.prove_many_per_blob(datas, seeds, log_total20, cfg64, mesh24)  # noqa: E731
+    per_blob()  # each row's key warmed up and captured, an instance a blob of the row
+    out_blob, used_blob = launched(per_blob)
+    check([(c, p.to_bytes()) for c, p in out_blob] == many_out, "prove_many_per_blob 8 x 2^20 felts over (2, 4) "
+          "differs from phase 11's proofs")
+    check(all(api.verify(p, s) for (_, p), s in zip(out_blob, seeds)), "a prove_many_per_blob proof does not verify")
+    check(not api.verify(tampered(out_blob[0][1]), seeds[0]), "a tampered prove_many_per_blob proof verifies")
+    launched_all_but_exchange(used_blob, "prove_many_per_blob 8 x 2^20 felts over (2, 4)")
+    check(used_blob["fri_fold"] == len(datas) * folds and used_blob["grind"] == len(datas)
+          and used_blob["merkle_open_queries"] == len(datas) and used_blob["transcript"] == 2 * len(datas)
+          and used_blob.get(STEPS) == len(datas) * folds,
+          f"prove_many_per_blob: launches {used_blob}, want fri_fold {len(datas) * folds} (a block's 4 shards "
+          f"in one launch a fold), grind and merkle_open_queries {len(datas)}, transcript {2 * len(datas)}, "
+          f"channel steps {len(datas) * folds}")
+    syncs_blob, finished, opened_blob = finish_counted(
         fri, fri.dispatch_blob(datas[1], log_total20, seeds[1], cfg64, dev, mesh24, 0), log_total20, cfg64)
-    check(syncs == 1 and not opened and finished == many_out[1][1], f"a prove_many_sharded blob's finish_proof: "
-          f"{syncs} synchronizing operations, launches {opened}, bytes == phase 11's {finished == many_out[1][1]}")
+    check(syncs_blob == 1 and not opened_blob and finished == many_out[1][1], f"a prove_many_per_blob blob's "
+          f"finish_proof: {syncs_blob} synchronizing operations, launches {opened_blob}, bytes == phase 11's "
+          f"{finished == many_out[1][1]}")
     blobs = [synthetic_data(felt_bytes(20), k) for k in range(16)]
     roots, used_roots = launched(lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24))
     check(roots == roots20, "commit_roots_batch 16 x 2^20 felts over (2, 4) differs from api.commit_many")
     check(all(used_roots.get(k) for k in ("ingest", "fft_pass", "merkle_level", "merkle_collapse"))
           and STEPS not in used_roots, f"commit_roots_batch: launches {used_roots}")
-    walls = {k: [] for k in ("prove_many", "prove_many_sharded", "commit_many", "commit_roots_batch")}
+    walls = {k: [] for k in ("prove_many", "prove_many_sharded", "prove_many_per_blob", "commit_many",
+                             "commit_roots_batch")}
     calls = {"prove_many": lambda: api.prove_many(datas, seeds, cfg64, device=dev),
              "prove_many_sharded": lambda: sharding.prove_many_sharded(datas, seeds, cfg64, mesh24),
+             "prove_many_per_blob": per_blob,
              "commit_many": lambda: api.commit_many(blobs, LOG_BLOWUP, device=dev),
              "commit_roots_batch": lambda: sharding.commit_roots_batch(blobs, LOG_BLOWUP, mesh24)}
-    for one, sharded in (("prove_many", "prove_many_sharded"), ("commit_many", "commit_roots_batch")):
+    for one, sharded in (("prove_many", "prove_many_sharded"), ("prove_many_per_blob", "prove_many_sharded"),
+                         ("commit_many", "commit_roots_batch")):
         for kind in (one, sharded, sharded, one):  # in turns
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1855,10 +1931,17 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
               f"us of {wall_us:.0f} us")
         busy[kind] = f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}"
     say(f"[12] prove_many_sharded 8 x 2^20 felts / 64 queries over a (2, 4) mesh: every commitment and wire "
-        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used}; a blob's "
-        f"finish_proof after its graph replay: 1 synchronizing fetch, no launch; walls in "
-        f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']}; one "
-        f"profiled call each: prove_many {busy['prove_many']}, prove_many_sharded {busy['prove_many_sharded']}")
+        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used} (one batched "
+        f"commit phase); its 8 finish_proof calls after the replay: 1 synchronizing fetch, no launch; walls in "
+        f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']} (the "
+        f"first two against prove_many, the last two against the per-blob route); one profiled call each: "
+        f"prove_many {busy['prove_many']}, prove_many_sharded {busy['prove_many_sharded']}")
+    say(f"[12] prove_many_per_blob (the route of meshes over several devices or a process group) 8 x 2^20 "
+        f"felts / 64 queries over the same (2, 4) mesh: every commitment and wire byte == phase 11's, each "
+        f"verifies, a tampered copy does not; launches {used_blob} (a graph replay a blob); a blob's "
+        f"finish_proof after its graph replay: {syncs_blob} synchronizing fetch, launches {opened_blob}; walls "
+        f"in turns with prove_many_sharded, ms: {walls['prove_many_per_blob']}; one profiled call: "
+        f"{busy['prove_many_per_blob']}")
     say(f"[12] commit_roots_batch 16 x 2^20 felts over a (2, 4) mesh: every root == api.commit_many's; "
         f"launches {used_roots}; walls in turns, ms: commit_many {walls['commit_many']}, commit_roots_batch "
         f"{walls['commit_roots_batch']}; one profiled call each: commit_many {busy['commit_many']}, "
@@ -2148,6 +2231,425 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
     fri.clear_commit_graphs()
     torch.cuda.empty_cache()
     say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# The kernels line's entries for the batched forms that phase 14 measures (the
+# batched commit phase of `prove_many_sharded` on one card): name -> (wrapper
+# count that gives their launches on its main path, source, what they replace).
+BATCH_FORMS = {
+    "fri_fold[batch]": ("fri_fold", "frieda_tpu_torch/csrc/fri.cu",
+                        "frieda_tpu/core/fri.py:211 fold_c and :219 fold_l under jax.vmap (:318-328; XLA)"),
+    "transcript[batch]": ("transcript", "frieda_tpu_torch/csrc/channel.cu",
+                          "frieda_tpu/core/device_channel.py:33-191 (dc_mix_*, dc_sample_query_words) under "
+                          "jax.vmap (frieda_tpu/core/fri.py:318-328; XLA)"),
+    "grind[batch]": ("grind", "frieda_tpu_torch/csrc/channel.cu",
+                     "frieda_tpu/core/device_channel.py:145 dc_grind under jax.vmap (frieda_tpu/core/fri.py:318-328; "
+                     "XLA)"),
+    "merkle_collapse+step[batch]": (STEPS, "frieda_tpu_torch/csrc/merkle.cu",
+                                    "frieda_tpu/ops/merkle_pallas.py:240 (collapse_multi) with "
+                                    "frieda_tpu/core/device_channel.py:76-126 under jax.vmap (XLA)"),
+    "merkle_open_queries[batch]": ("merkle_open_queries", "frieda_tpu_torch/csrc/merkle.cu",
+                                   "frieda_tpu/core/fri.py:283-316 gathers and :68 _auth_sibling_nodes under "
+                                   "jax.vmap (XLA)"),
+}
+
+
+def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
+    """Phase 14: the batched commit phase (`fri.commit_phase_batched`, the
+    JAX package's `_fri_commit_fn(..., batched=True)`) that
+    `prove_many_sharded` runs as one graph replay over a mesh of one card.
+    Each batched kernel against its plain version at B = 1, 3 and 8 on
+    phase 11's 2^20-felt / 64-query shapes; `prove_many_sharded` over (8, 1)
+    and (2, 4) meshes of the card against phase 11's proofs (many_out: its
+    [(commitment, wire bytes)], or None to prove them here), its replays,
+    captures, launches, synchronizations and fetches; the batched replay's
+    device ms beside 8 single replays', the whole call's beside
+    `prove_many`'s. Fills `kernels` with the BATCH_FORMS entries; returns
+    the launches of the counted `prove_many_sharded` call (its main path)."""
+    import torch
+
+    from frieda_tpu_torch import api, ops
+    from frieda_tpu_torch.config import FriConfig, PcsConfig
+    from frieda_tpu_torch.core import device_channel as dc
+    from frieda_tpu_torch.core import fri, merkle
+    from frieda_tpu_torch.ops import channel as channel_ops
+    from frieda_tpu_torch.ops import fri as fri_ops
+    from frieda_tpu_torch.ops import merkle as merkle_ops
+    from frieda_tpu_torch.parallel import sharding
+    from frieda_tpu_torch.utils import profiling
+    from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen
+    from frieda_tpu_torch.utils.packing import log_total_for, upload_words
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+
+    def rand_u32(shape, hi=1 << 32):
+        return from_numpy_u32(rng.integers(0, hi, shape, dtype=np.uint64).astype(np.uint32), dev)
+
+    def max_abs_err(a, b) -> int:
+        return int((widen(a) - widen(b)).abs().max().item())
+
+    def counted(fn) -> tuple:
+        """(fn(), its kernel launches and STEPS), every count set to 0 just
+        before the call and read just after."""
+        ops.reset_launch_counts()
+        out = fn()
+        return out, {k: v for k, v in {**ops.launch_counts(), STEPS: merkle_ops.merkle_collapse.steps}.items() if v}
+
+    cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, 64))
+    datas = [synthetic_data(felt_bytes(20), k) for k in range(8)]
+    seeds = list(range(1, 9))
+    log_total = log_total_for(len(datas[0]))
+    n = log_total - 2 + LOG_BLOWUP
+    layers = log_total - 2  # the proof's trees and folds: 2^24 ... 2^5 values
+    entry = {}  # form -> dict of the kernels line
+    errs = dict.fromkeys(BATCH_FORMS, 0)
+
+    # fri_fold: (B, 4, 2^n) -> (B, 4, 2^(n - 1)), the proofs' first fold, with the
+    # shared ys_inv and with a table a blob; a (4,) alpha shared by rows with a
+    # table a row (a block of shards); one block wide
+    ys, _ = fri.fold_tables(n, dev)
+    for B in (1, 3, 8):
+        values, alphas = rand_u32((B, 4, 1 << n), P), rand_u32((B, 4), P)
+        for what, alpha, inv in (("the shared ys_inv", alphas, ys),
+                                 ("a table a blob", alphas, rand_u32((B, 1 << (n - 1)), P)),
+                                 ("one shared alpha, a table a row", alphas[0], rand_u32((B, 1 << (n - 1)), P))):
+            got = fri_ops.fri_fold(values, alpha, inv)
+            want = torch.stack([narrow(fri_ops.fri_fold_plain(
+                widen(values[b]), widen(alpha if alpha.dim() == 1 else alpha[b]),
+                widen(inv if inv.dim() == 1 else inv[b]))) for b in range(B)])
+            check(torch.equal(got, want), f"fri_fold B = {B} with {what} differs from a loop of plain folds")
+            errs["fri_fold[batch]"] = max(errs["fri_fold[batch]"], max_abs_err(got, want))
+            del got, want
+        small = rand_u32((B, 4, 1 << 6), P)
+        check(torch.equal(fri_ops.fri_fold(small, alphas, ys[: 1 << 5]),
+                          narrow(fri_ops.fri_fold_plain(widen(small), widen(alphas), widen(ys[: 1 << 5])))),
+              f"fri_fold B = {B} at (4, 2^6) differs from plain")
+        if B == 8:
+            half = 1 << (n - 1)
+            ms = device_ms(lambda: fri_ops.fri_fold(values, alphas, ys), reps=4)  # noqa: B023
+            rows = [(values[b], alphas[b]) for b in range(B)]
+            singles = device_ms(lambda: [fri_ops.fri_fold(v, a, ys) for v, a in rows], reps=4)  # noqa: B023
+            v64, a64, i64 = widen(values), widen(alphas), widen(ys)
+            plain_ms = cuda_ms(lambda: fri_ops.fri_fold_plain(v64, a64, i64), reps=3)  # noqa: B023
+            call = cuda_ms(lambda: fri_ops.fri_fold(values, alphas, ys))  # noqa: B023
+            b_ms, b_by = profiling.fri_fold_bound(half, blobs=B)
+            entry["fri_fold[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            say(f"[14] fri_fold (8, 4, 2^{n}) -> (8, 4, 2^{n - 1}), one launch: device {ms:.4f} ms, call {call:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; share {b_ms / ms:.3f}); 8 single launches "
+                f"device {singles:.4f} ms")
+            del v64, a64, i64, rows
+        del values
+        torch.cuda.empty_cache()
+    say(f"[14] fri_fold B = 1, 3, 8 at (B, 4, 2^{n}) (ys_inv shared, a table a blob, one alpha and a table a "
+        "row) and (B, 4, 2^6): bit-equal to a loop of fri_fold_plain")
+
+    # the collapse with a channel step a blob, with and without the seeds, and
+    # with DRAW_BOUND lowered so that some blobs' draws retry and others' do not
+    def step_case(B: int, m: int, with_seed: bool) -> list:
+        widths = merkle.tail_widths(m)
+        level, states = rand_u32((B, 8, m)), rand_u32((B, 9))
+        seed = rand_u32((B, 2)) if with_seed else None
+        kernel, plain = (channel_ops.ChannelStep(states.clone(), seed, torch.zeros((B, 4), dtype=torch.int32,
+                                                                                     device=dev)) for _ in range(2))
+        got = merkle_ops.merkle_collapse(level, widths, step=kernel)
+        want = [narrow(w) for w in merkle_ops.merkle_collapse_plain(widen(level), widths, plain)]
+        check(all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(kernel.state, plain.state)
+              and torch.equal(kernel.alpha, plain.alpha),
+              f"merkle_collapse B = {B}, m = {m} with a step a blob (seeds {with_seed}) differs from plain")
+        errs["merkle_collapse+step[batch]"] = max(
+            errs["merkle_collapse+step[batch]"], max(max_abs_err(g, w) for g, w in zip(got, want)),
+            max_abs_err(kernel.state, plain.state), max_abs_err(kernel.alpha, plain.alpha))
+        return to_numpy_u32(kernel.state[:, 8]).tolist()
+
+    for B in (1, 3, 8):
+        for m in (2, 256, 4096):
+            for with_seed in (False, True):
+                step_case(B, m, with_seed)
+    bound0, n_sent = dc.DRAW_BOUND, []
+    dc.DRAW_BOUND = 15 << 28  # an attempt passes with probability (15/16)^8, about 0.6
+    try:
+        for B in (1, 3, 8):
+            for m in (2, 256, 4096):
+                n_sent += step_case(B, m, True)
+    finally:
+        dc.DRAW_BOUND = bound0
+    check(min(n_sent) == 1 and max(n_sent) > 1, f"lowered DRAW_BOUND: n_sent {n_sent}, want some 1 and some more")
+    say(f"[14] merkle_collapse with a channel step a blob, B = 1, 3, 8, m = 2, 256, 4096 -> tail widths and 1, "
+        f"with and without the seeds: outputs, states and alphas bit-equal to a loop of the plain collapse + "
+        f"transcript_plain; with DRAW_BOUND 15 x 2^28 (n_sent a blob {n_sent}: some draws retried, others not): "
+        f"bit-equal")
+    level8 = rand_u32((8, 8, 4096))
+    widths = merkle.tail_widths(4096)
+    st8 = channel_ops.ChannelStep(channel_ops.new_state(dev, 8), None, torch.zeros((8, 4), dtype=torch.int32,
+                                                                                   device=dev))
+    one = [channel_ops.ChannelStep(channel_ops.new_state(dev), None, torch.zeros(4, dtype=torch.int32, device=dev))
+           for _ in range(8)]
+    ms = device_ms(lambda: merkle_ops.merkle_collapse(level8, widths, step=st8))
+    singles = device_ms(lambda: [merkle_ops.merkle_collapse(level8[b], widths, step=one[b]) for b in range(8)])
+    call = cuda_ms(lambda: merkle_ops.merkle_collapse(level8, widths, step=st8))
+    l64 = widen(level8)
+    plain_ms = cuda_ms(lambda: merkle_ops.merkle_collapse_plain(l64, widths, st8), reps=3)
+    b_ms, b_by = profiling.merkle_collapse_bound(4096, widths, blobs=8, step=True)
+    entry["merkle_collapse+step[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    say(f"[14] merkle_collapse (8, 8, 4096) -> {widths} with 8 steps, one launch: device {ms:.4f} ms, call "
+        f"{call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); 8 single launches device "
+        f"{singles:.4f} ms")
+
+    # transcript's close forms (and a small tree's step) over B channels
+    for B in (1, 3, 8):
+        forms = (("seed + root + alpha", dict(mix_u64=rand_u32((B, 2)), mix_digest=rand_u32((B, 8)), draw_felt=True)),
+                 ("last-layer felts, k = 1", dict(mix_felts=rand_u32((B, 1, 4), P))),
+                 ("last-layer felts, k = 4", dict(mix_felts=rand_u32((B, 4, 4), P))),
+                 ("nonce + 64 queries", dict(mix_u64=rand_u32((B, 2)), queries=(64, n))))
+        st = rand_u32((B, 9))
+        st_plain = st.clone()
+        for what, step in forms:
+            got = channel_ops.transcript(st, **step)
+            want = channel_ops.transcript_plain(st_plain, **step)
+            check(torch.equal(st, st_plain) and all((g is None) == (w is None) and (g is None or torch.equal(g, w))
+                                                    for g, w in zip(got, want)),
+                  f"transcript B = {B} {what} differs from plain")
+            errs["transcript[batch]"] = max([errs["transcript[batch]"], max_abs_err(st, st_plain)]
+                                            + [max_abs_err(g, w) for g, w in zip(got, want) if g is not None])
+    st8 = rand_u32((8, 9))
+    nonce8 = rand_u32((8, 2))
+    close = dict(mix_u64=nonce8, queries=(64, n))
+    ms = device_ms(lambda: channel_ops.transcript(st8, **close))
+    singles = device_ms(lambda: [channel_ops.transcript(st8[b], mix_u64=nonce8[b], queries=(64, n))
+                                 for b in range(8)])
+    call = cuda_ms(lambda: channel_ops.transcript(st8, **close))
+    plain_ms = cuda_ms(lambda: channel_ops.transcript_plain(st8, **close), reps=3)
+    b_ms, b_by = profiling.transcript_bound(8, 256, 9, blobs=8)
+    entry["transcript[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    say(f"[14] transcript B = 1, 3, 8 (seed + root + alpha, last-layer felts k = 1 and 4, nonce + 64 queries): "
+        f"bit-equal to plain; 8 channels' nonce + 64 queries in one launch: device {ms:.4f} ms, call {call:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); 8 single launches device {singles:.4f} ms")
+
+    # grind: each blob's nonce is its own minimum (the plain sweep's)
+    for pow_bits in (8, 20):
+        for B in (1, 3, 8):
+            st = channel_ops.new_state(dev, B)
+            channel_ops.transcript(st, mix_u64=rand_u32((B, 2)))
+            got = channel_ops.grind(st, pow_bits)
+            want = channel_ops.grind_plain(st, pow_bits)
+            nonces = to_numpy_u32(got).astype(np.uint64)
+            nonces = (nonces[:, 0] | nonces[:, 1] << np.uint64(32)).tolist()
+            check(torch.equal(got, want), f"grind B = {B}, pow_bits {pow_bits}: nonces {nonces} != the plain "
+                  "sweep's minima")
+            check(all(torch.equal(got[b], channel_ops.grind(st[b], pow_bits)) for b in range(B)),
+                  f"grind B = {B}, pow_bits {pow_bits}: a blob's nonce differs from its one-blob launch's")
+            errs["grind[batch]"] = max(errs["grind[batch]"], max_abs_err(got, want))
+            if pow_bits == 20 and B == 8:
+                ms = device_ms(lambda: channel_ops.grind(st, pow_bits), reps=5)  # noqa: B023
+                singles = device_ms(lambda: [channel_ops.grind(st[b], pow_bits) for b in range(8)], reps=5)  # noqa: B023
+                call = cuda_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
+                plain_ms = cuda_ms(lambda: channel_ops.grind_plain(st, pow_bits), reps=3)  # noqa: B023
+                b_ms, b_by = profiling.grind_bound(nonces)
+                entry["grind[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                say(f"[14] grind 8 channels at pow_bits 20 (nonces {nonces}), one launch: device {ms:.4f} ms, call "
+                    f"{call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {sum(nonces) + 8} "
+                    f"compressions; share {b_ms / ms:.3f}); 8 single launches device {singles:.4f} ms")
+    say("[14] grind B = 1, 3, 8 at pow_bits 8 and 20: each blob's nonce == the plain sweep's minimum == its "
+        "one-blob launch's")
+
+    # merkle_open_queries over a batch's real layers and trees
+    for B in (1, 3, 8):
+        _, words = upload_words(datas[:B], log_total, dev)
+        cs = fri.commit_phase_batched(words, log_total, seeds[:B], cfg)
+        cols = [torch.stack([c.layers[t] for c in cs]) for t in range(layers)]
+        trees = [[c.trees[t] for c in cs] for t in range(layers)]
+        packed = cs[0].batch[0].packed
+        o = cs[0].layout.head["qpos"][0]
+        raw = packed[:, o : o + 64].contiguous()
+        got = merkle_ops.merkle_open_queries(cols, trees, raw)
+        want = narrow(merkle_ops.merkle_open_queries_plain(cols, trees, raw))
+        check(torch.equal(got, want) and torch.equal(got, packed[:, cs[0].layout.head_words :]),
+              f"merkle_open_queries B = {B} differs from a loop of the plain version or from the batch's packed "
+              "gathers")
+        errs["merkle_open_queries[batch]"] = max(errs["merkle_open_queries[batch]"], max_abs_err(got, want))
+        for b, c in enumerate(cs):  # each row == the one-proof commit phase's packed vector
+            single = fri.commit_phase(words[b], log_total, seeds[b], cfg)
+            check(torch.equal(single.packed, packed[b]), f"commit_phase_batched B = {B}: row {b} != commit_phase's")
+        if B == 8:
+            q_args = (cols, trees, raw)
+            ms = device_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
+            rows = [([x[b] for x in cols], [t[b] for t in trees], raw[b]) for b in range(B)]
+            singles = device_ms(lambda: [merkle_ops.merkle_open_queries(*r) for r in rows])  # noqa: B023
+            call = cuda_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
+            plain_ms = cuda_ms(lambda: merkle_ops.merkle_open_queries_plain(*q_args), reps=3)  # noqa: B023
+            compressions, read_bytes = merkle_ops.open_queries_work(trees, to_numpy_u32(raw))
+            b_ms, b_by = profiling.merkle_open_queries_bound(B * 64, got.numel(), read_bytes, compressions)
+            entry["merkle_open_queries[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms,
+                                                       bound_by=b_by)
+            say(f"[14] merkle_open_queries over 8 proofs' {layers} layers, one launch: device {ms:.4f} ms, call "
+                f"{call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {compressions} "
+                f"compressions, {read_bytes} distinct bytes read); 8 single launches device {singles:.4f} ms")
+            del rows, q_args
+        del cs, cols, trees, packed, raw, got, want, words
+        torch.cuda.empty_cache()
+    say("[14] merkle_open_queries B = 1, 3, 8 over commit_phase_batched's layers and trees: bit-equal to a loop "
+        "of the plain version and to the batch's packed gathers; every packed row == commit_phase's")
+    lap_ms = (time.perf_counter() - t_phase)
+    say(f"[14] kernels checked in {lap_ms:.1f} s")
+
+    # prove_many_sharded over one card's (8, 1) and (2, 4) meshes: one batched
+    # replay, against phase 11's proofs
+    if many_out is None:
+        many_out = [(c, p.to_bytes()) for c, p in (api.commit_and_prove(d, s, cfg, device=dev)
+                                                    for d, s in zip(datas, seeds))]
+    replays = [0]
+    run = fri._CommitGraph.run
+
+    def counting_run(self, seed):
+        replays[0] += 1
+        return run(self, seed)
+
+    fri._CommitGraph.run = counting_run
+    try:
+        captures0 = fri.commit_graphs()[0]
+        main_used = None
+        for shape in ((8, 1), (2, 4)):
+            mesh = sharding.make_mesh(*shape, devices=[dev] * 8)
+            sharding.prove_many_sharded(datas, seeds, cfg, mesh)  # the key's warm-up and capture (once)
+            replays[0] = 0
+            out, used = counted(lambda: sharding.prove_many_sharded(datas, seeds, cfg, mesh))  # noqa: B023
+            check([(c, p.to_bytes()) for c, p in out] == many_out,
+                  f"prove_many_sharded 8 x 2^20 felts over one card's {shape} mesh != phase 11's proofs")
+            check(all(api.verify(p, s) for (_, p), s in zip(out, seeds)) and not api.verify(tampered(out[0][1]), 1),
+                  f"prove_many_sharded over {shape}: a proof does not verify, or a tampered copy does")
+            check(replays[0] == 1, f"prove_many_sharded over {shape}: {replays[0]} graph replays, want 1")
+            main_used = main_used or used
+        captures = fri.commit_graphs()[0] - captures0
+        check(captures == 1, f"prove_many_sharded over two meshes of one card: {captures} captures, want 1 (one key)")
+        # 8 single replays (prove_many's instances captured in phase 11 or here)
+        api.prove_many(datas, seeds, cfg, device=dev)
+        _, single_used = counted(lambda: api.prove_many(datas, seeds, cfg, device=dev))
+    finally:
+        fri._CommitGraph.run = run
+    want_used = {"fri_fold": layers, "transcript": 2, STEPS: layers, "grind": 1, "merkle_open_queries": 1, "ingest": 1}
+    check(all(main_used.get(k) == v for k, v in want_used.items())
+          and all(8 * main_used.get(k, 0) == v for k, v in single_used.items()),
+          f"prove_many_sharded launches per batch {main_used}: want {want_used} and 1/8 of 8 single replays' "
+          f"{single_used}")
+    say(f"[14] prove_many_sharded 8 x 2^20 felts / 64 queries over one card's (8, 1) and (2, 4) meshes: every "
+        f"commitment and wire byte == phase 11's, each verifies, a tampered copy does not; 1 graph replay a "
+        f"batch, {captures} capture for both meshes (one key: log_size 20, batch 8); launches per batch "
+        f"{main_used} (each batched kernel once a layer); 8 single replays (prove_many) {single_used}")
+
+    # the dispatch under sync debug mode "error", then one synchronizing fetch
+    # for the 8 finishes and no launch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        committed = fri.dispatch_batch(datas, log_total, seeds, cfg, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs, launched = 0, {}
+    for b, c in enumerate(committed):
+        s, wire, opened = finish_counted(fri, c, log_total, cfg)
+        syncs += s
+        launched.update(opened)
+        check(wire == many_out[b][1], f"dispatch_batch row {b}: bytes != phase 11's")
+    check(syncs == 1 and not launched, f"the 8 finishes of a batch: {syncs} synchronizing operations, launches "
+          f"{launched}; want 1 and none")
+    del committed
+    say("[14] dispatch_batch (upload, seeds, replay) under sync debug mode 'error': no synchronization; its 8 "
+        "finish_proof calls: 1 synchronizing fetch in all, no launch")
+
+    # device ms: one batched replay against 8 single replays (median of 5 in
+    # turns), the words already on the card
+    _, words8 = upload_words(datas, log_total, dev)
+    inst = fri._fri_commit_fn(log_total, cfg, True, dev, batch=8)
+
+    def batched():
+        inst.words.copy_(words8)
+        return inst.run(seeds)
+
+    def singles():
+        return [fri.dispatch_commit_phase(words8[b], log_total, seeds[b], cfg) for b in range(8)]
+
+    dev_ms = {"batched": [], "8 single": []}
+    for kind in ("batched", "8 single", "8 single", "batched") * 2 + ("batched", "8 single"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        cs = batched() if kind == "batched" else singles()
+        end.record()
+        end.synchronize()
+        dev_ms[kind].append(start.elapsed_time(end))
+        for b, c in enumerate(cs):
+            check(fri.finish_proof(c, log_total, cfg)[1].to_bytes() == many_out[b][1], f"{kind} row {b} differs")
+        del cs
+    med = {k: statistics.median(v) for k, v in dev_ms.items()}
+    say(f"[14] device ms of the commit phases of 8 x 2^20 felts / 64 q (CUDA events, words on the card; median of "
+        f"5 in turns): one batched replay {med['batched']:.3f} ({[round(x, 3) for x in dev_ms['batched']]}), 8 "
+        f"single replays {med['8 single']:.3f} ({[round(x, 3) for x in dev_ms['8 single']]})")
+    # where one batched replay's device time goes: its records in a trace.
+    # The launches are checked by the wrappers' counts above; a trace of a
+    # batched replay has lost its first records (the same 8 kernels in 3
+    # traces, after a 20 ms device wait, late in a whole run), so the kernels
+    # it holds are printed beside the recorded ones and not held to them.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        cs = batched()
+        torch.cuda.synchronize()
+    traced = traced_launches(prof)
+    for b, c in enumerate(cs):
+        check(fri.finish_proof(c, log_total, cfg)[1].to_bytes() == many_out[b][1], f"traced batch row {b} differs")
+    del cs
+    lost = {k: v - traced.get(k, 0) for k, v in inst.launches.items() if v != traced.get(k, 0)}
+    say(f"[14] the trace of one batched replay holds {'every recorded launch' if not lost else 'all but ' + str(lost)}"
+        f" (recorded at its capture: {inst.launches})")
+    port, plain, copies, windows = replay_device_ms(prof)
+    say(f"[14] one batched replay's device records (torch.profiler, [records, summed ms, summed ms of the gaps "
+        f"after them]): the port's kernels {({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in port.items()})}"
+        f"; plain PyTorch {sum(v[0] for v in plain.values())} kernels, {sum(v[1] for v in plain.values()):.4f} ms "
+        f"({({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in plain.items()})}); copies and fills "
+        f"{copies[0]}, {copies[1]:.4f} ms; the close's windows "
+        f"{({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in windows.items()})}")
+
+    # whole calls: prove_many_sharded (one card's (8, 1) mesh) against
+    # prove_many, median of 5 in turns; idle share and peak memory of one
+    # profiled call each
+    mesh = sharding.make_mesh(8, 1, devices=[dev] * 8)
+    calls = {"prove_many": lambda: api.prove_many(datas, seeds, cfg, device=dev),
+             "prove_many_sharded": lambda: sharding.prove_many_sharded(datas, seeds, cfg, mesh)}
+    walls = {k: [] for k in calls}
+    for kind in ("prove_many", "prove_many_sharded", "prove_many_sharded", "prove_many") * 2 + (
+            "prove_many", "prove_many_sharded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls[kind]()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+    notes = {}
+    for kind, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us, records = device_busy_us(prof)
+        check(records > 0 and busy_us < wall_us, f"profile of {kind}: {records} records, busy {busy_us:.0f} us of "
+              f"{wall_us:.0f} us")
+        notes[kind] = (f"median {statistics.median(walls[kind]):.3f} ms ({[round(x, 3) for x in walls[kind]]}); "
+                       f"profiled call: device busy {busy_us / 1e3:.3f} ms in {records} records, idle share "
+                       f"{1 - busy_us / wall_us:.3f}; peak allocated {torch.cuda.max_memory_allocated(dev)} B, "
+                       f"reserved {torch.cuda.max_memory_reserved(dev)} B")
+    for kind, note in notes.items():
+        say(f"[14] whole call {kind}, 8 x 2^20 felts / 64 q (in turns): {note}")
+    for form, e in entry.items():
+        kernels[form] = dict(source=BATCH_FORMS[form][1], replaces=BATCH_FORMS[form][2],
+                             max_abs_err=errs[form], **e)
+        say(f"[14] {form}: device {e['ms']:.4f} ms, bound {e['bound_ms']:.6g} ms ({e['bound_by']}; share "
+            f"{e['bound_ms'] / e['ms']:.3f}); launches on the main path (the counted prove_many_sharded) "
+            f"{main_used.get(BATCH_FORMS[form][0], 0)}")
+    say(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return main_used
 
 
 def finish_counted(fri, committed, log_total: int, cfg) -> tuple:

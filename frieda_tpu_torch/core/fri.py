@@ -95,7 +95,8 @@ from . import circle as hostcircle
 from . import fft, npfield
 from .channel import Blake2sChannel, sample_query_positions
 from .field import P, m31_add, m31_mul, m31_sub
-from .merkle import MerkleDecommitment, Opening, build_pruned, compress_rows_host, verify_openings_rows
+from .merkle import (MerkleDecommitment, Opening, build_pruned, build_pruned_many, compress_rows_host,
+                     verify_openings_rows)
 from .proof import FriLayerProof, FriProof, Proof
 
 _INV2 = (P + 1) // 2
@@ -103,17 +104,18 @@ _INV2 = (P + 1) // 2
 
 class Route(NamedTuple):
     """The device steps of the pipeline, with the kernel wrappers'
-    signatures (int32 u32-bit tensors in and out)."""
+    signatures (int32 u32-bit tensors in and out). The commit phase calls
+    them on a batch's (B, ...) shapes (B = 1 for one proof)."""
 
-    ingest: Callable  # (words, log_size) -> (4, 2^log_size) bit-reversed coefficients
-    evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (4, 2^n) evaluations
+    ingest: Callable  # (words (B, nw), log_size) -> (B, 4, 2^log_size) bit-reversed coefficients
+    evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (B, 4, 2^n) evaluations
     level: Callable  # (x, leaf, fused) -> Merkle level
-    collapse: Callable  # (level, out_widths, step=) -> [levels]; step: a ChannelStep run on the root
+    collapse: Callable  # (level, out_widths, step=) -> [levels]; step: a ChannelStep a blob, run on its root
     open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening (sharded)
     open_queries: Callable  # (layers, trees, query_words, out) -> out: the gathers of `_packed_layout`
-    fold: Callable  # (values (4, M), alpha (4,), inv (M/2,)) -> (4, M/2)
+    fold: Callable  # (values (B, 4, M), alpha (B, 4), inv (M/2,)) -> (B, 4, M/2); (4, M) too
     transcript: Callable  # (state, mix_u64=, mix_digest=, mix_felts=, draw_felt=, queries=) -> (alpha, words)
-    grind: Callable  # (state, pow_bits) -> (2,) nonce words (lo, hi)
+    grind: Callable  # (state, pow_bits) -> (2,) nonce words (lo, hi); (B, 2) for (B, 9) states
 
 
 KERNELS = Route(ingest_ops.ingest, fft.evaluate_auto, merkle_ops.merkle_level,
@@ -183,16 +185,18 @@ def _device_ifft_line(values: torch.Tensor, xs_invs, depth: int) -> torch.Tensor
     stages, all 2^d sub-problems of level d at once as a (4, 2^d, M/2^d)
     tensor. Output index bit k is the s(0)/d(1) branch choice at level k;
     appending branch results along the block axis keeps block index ==
-    output index. Counterpart of `fri._device_ifft_line`."""
-    m = values.shape[1]
-    x = values.to(torch.int64).reshape(4, 1, m)
+    output index. A batch (B, 4, M) -> (B, M, 4), each blob its own.
+    Counterpart of `fri._device_ifft_line` (vmapped in the batched commit
+    phase)."""
+    lead, m = tuple(values.shape[:-2]), values.shape[-1]
+    x = values.to(torch.int64).reshape(*lead, 4, 1, m)
     for d in range(m.bit_length() - 1):
-        half = x.shape[2] // 2
-        v0, v1 = x[:, :, :half], x[:, :, half:]
+        half = x.shape[-1] // 2
+        v0, v1 = x[..., :half], x[..., half:]
         s = m31_mul(m31_add(v0, v1), _INV2)
         dd = m31_mul(m31_mul(m31_sub(v0, v1), _INV2), xs_invs[depth + d][:half].to(torch.int64))
-        x = torch.cat([s, dd], dim=1)
-    return x[:, :, 0].T
+        x = torch.cat([s, dd], dim=-2)
+    return x[..., 0].transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +311,13 @@ class Committed:
     decommitment after the fetch (`opening_cls`, `merkle.ShardedOpening`);
     set on a `Committed` with gathers, the same class reads it after the
     fetch instead of the gathers (the tests and chip_smoke.py hold the two
-    routes to the same bytes)."""
+    routes to the same bytes). A row of a batched commit phase
+    (`commit_phase_batched`) names its batch's `BatchFetch` and its row in
+    `batch`: the first fetch of any row copies every row's packed vector
+    in one fetch, and the others read that host copy."""
 
     opening_cls = None
+    batch = None  # (BatchFetch, row) for a row of a batched commit phase
 
     def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int,
                  layout: PackedLayout | None = None):
@@ -339,7 +347,7 @@ class Committed:
         if self._host is not None:
             return
         with span("prove/fetch_packed"):
-            words = to_numpy_u32(self.packed)
+            words = to_numpy_u32(self.packed) if self.batch is None else self.batch[0].row(self.batch[1])
         head = {key: words[o : o + count] for key, (o, count) in self.layout.head.items()}
         if not head["degree_ok"][0]:
             raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
@@ -380,6 +388,24 @@ class Committed:
         """The raw query draws, with duplicates, in draw order."""
         self.fetch()
         return self._host[4]
+
+
+class BatchFetch:
+    """The packed vectors of a batched commit phase, (B, layout.total) int32
+    on the device, fetched in one copy at the first `row` (then every row
+    is read from the host copy) and the host buffer its words were uploaded
+    from (`staging`), kept until then."""
+
+    def __init__(self, packed: torch.Tensor):
+        self.packed = packed
+        self.staging = None
+        self.host = None
+
+    def row(self, b: int) -> np.ndarray:
+        if self.host is None:
+            self.host = to_numpy_u32(self.packed)
+            self.staging = None
+        return self.host[b]
 
 
 def _layer_sizes(log_total: int, pcs_config: PcsConfig) -> tuple:
@@ -437,103 +463,174 @@ def _packed_layout(n: int, n_inner: int, bound: int, nq: int, gather: bool = Tru
 _M64 = (1 << 64) - 1
 
 
-def write_seed(out: torch.Tensor, seed) -> torch.Tensor:
-    """Write a seed into `out`, a (2,) int32 tensor: its u32 words (lo, hi)
-    of `int(seed) & (2^64 - 1)`, as the JAX package normalises it
-    (`frieda_tpu/core/fri.py:583`), in one fill of the pair viewed as one
-    int64 (no host synchronization, nothing baked into a kernel's
-    arguments). Returns `out`."""
-    value = int(seed) & _M64
-    out.view(torch.int64).fill_(value - (1 << 64) if value >> 63 else value)
-    return out
-
-
 def seed_words(seed, device) -> torch.Tensor | None:
     """The seed as the (2,) int32 words that `transcript(mix_u64=...)` mixes,
     on `device`: None for None (nothing is mixed), a (2,) int32 tensor as it
-    is, else `write_seed` into a new tensor."""
+    is, else row 0 of `write_seeds` of the one seed into a new tensor."""
     if seed is None or isinstance(seed, torch.Tensor):
         return seed
-    return write_seed(torch.empty(2, dtype=torch.int32, device=device), seed)
+    return write_seeds(torch.empty((1, 2), dtype=torch.int32, device=device), [seed])[0]
+
+
+def write_seeds(out: torch.Tensor, seeds) -> torch.Tensor:
+    """Write a batch's seeds into `out`, a (B, 2) int32 tensor: row b the
+    words (lo, hi) of `int(seeds[b]) & (2^64 - 1)`, as the JAX package
+    normalises a seed (`frieda_tpu/core/fri.py:583`), in one fill a row of
+    the pair viewed as one int64 (no host synchronization and no page-locked
+    staging, nothing baked into a kernel's arguments). Returns `out`."""
+    rows = out.view(torch.int64).view(-1)
+    for b, seed in enumerate(seeds):
+        value = int(seed) & _M64
+        rows[b].fill_(value - (1 << 64) if value >> 63 else value)
+    return out
+
+
+def batch_has_seed(seeds, blobs: int) -> bool:
+    """Whether a batch's seeds (None, B ints or Nones, or (B, 2) int32
+    words) are set. ValueError for another count than B, or some None and
+    some set (the JAX package's rule and message)."""
+    if seeds is None:
+        return False
+    if len(seeds) != blobs:
+        raise ValueError(f"{blobs} blobs but {len(seeds)} seeds")
+    if isinstance(seeds, torch.Tensor):
+        return True
+    has_seed = [s is not None for s in seeds]
+    if any(has_seed) != all(has_seed):
+        raise ValueError("seeds must be all None or all set in one batch")
+    return all(has_seed)
+
+
+def batch_seed_words(seeds, blobs: int, device) -> torch.Tensor | None:
+    """A batch's seeds as the (B, 2) int32 words that the batched channel
+    steps mix, on `device`: None where they are not set, a (B, 2) int32
+    tensor as it is, else `write_seeds` of the B ints into a new tensor
+    (ValueError as for `batch_has_seed`)."""
+    if not batch_has_seed(seeds, blobs):
+        return None
+    if isinstance(seeds, torch.Tensor):
+        return seeds
+    return write_seeds(torch.empty((blobs, 2), dtype=torch.int32, device=device), seeds)
 
 
 def commit_phase(words: torch.Tensor, log_total: int, seed,
                  pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
                  clock: _Clock | None = None) -> Committed:
-    """The commit phase of `prove_words`: the LDE, a pruned tree with its
-    channel step (seed, root, alpha: `ops.channel.ChannelStep`, one
-    preallocated alpha a layer) and a fold per layer, the last layer, the
-    grind and the query draws, all enqueued on `words`' device; nothing
-    waits for the device (tables not yet cached for this size are uploaded
-    first). Counterpart of `_fri_commit_fn.run`. seed: None, an int, or its
-    (2,) int32 words on the device (`seed_words`), which layer 0's channel
-    step mixes as a tensor. Under the stage clock the layers' channel steps
-    fall in "lde_trees", with their trees.
+    """The commit phase of `prove_words` for one blob's words: row 0 of
+    `commit_phase_batched` over a batch of one, the same launches (the
+    kernels' blob axis at B = 1). Counterpart of `_fri_commit_fn.run`. seed:
+    None, an int, or its (2,) int32 words on the device (`seed_words`),
+    which layer 0's channel step mixes as a tensor. What the CPU, another
+    route, the stage clock and `dispatch_commit_phase`'s capture run."""
+    seeds = None if seed is None else seed[None] if isinstance(seed, torch.Tensor) else [seed]
+    committed = commit_phase_batched(words[None], log_total, seeds, pcs_config, route, clock)[0]
+    committed.batch = None  # its packed vector is fetched alone
+    return committed
 
-    This is the eager form, each launch issued from Python: what the CPU,
-    another route, the stage clock and `dispatch_commit_phase`'s capture
-    run. On the kernel route the folds go through this module's `fold_c`
-    and `fold_l` (a caller may replace them); another route's `fold` is
-    called as it is."""
+
+def commit_phase_batched(words: torch.Tensor, log_total: int, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
+                         route: Route = KERNELS, clock: _Clock | None = None) -> list:
+    """The commit phase of B blobs of one size at once, (B, nw) `pad_to_words`
+    rows on the device: the counterpart of the JAX package's
+    `_fri_commit_fn(..., batched=True)` (its `run` under `jax.vmap`), each
+    blob with its own transcript, in the launches of one proof. In order:
+    the ingest and the extension of the (B, ...) batch (as
+    `api.commit_root_pipeline_batch`); per layer the B pruned trees in the
+    launches of one (`merkle.build_pruned_many`), every blob's channel step
+    (seed, root, alpha: `ops.channel.ChannelStep`, one preallocated alpha a
+    layer) on the collapse that ends them, and one batched `fri_fold` (the
+    fold tables shared); the last layer's coefficients and degree check per
+    blob; one batched `transcript` for the last-layer felts, one `grind`
+    (each blob's own minimum nonce), one `transcript` for the nonce mixes
+    and query draws; one `merkle_open_queries` for every blob's gathers.
+    Nothing waits for the device (tables not yet cached for this size are
+    uploaded first).
+
+    seeds: None, B ints (all set or all None; ValueError otherwise), or
+    their (B, 2) int32 words on the device. Returns B `Committed`s, row b
+    equal to `commit_phase` of row b word for word; their packed vectors
+    are the rows of one (B, layout.total) tensor (`Committed.batch`:
+    the first fetch copies all of them). This is the eager form, each
+    launch issued from Python: what the CPU (on the plain versions), another
+    route and the stage clock run, and what `dispatch_batch` captures. Under
+    the stage clock the layers' channel steps fall in "lde_trees", with
+    their trees. On the kernel route the folds go through this module's
+    `fold_c` and `fold_l` (a caller may replace them); another route's
+    `fold` is called as it is."""
     log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
-    device = words.device
+    if words.dim() != 2 or not words.shape[0]:
+        raise ValueError(f"words: expected (B >= 1, nw) rows, got {tuple(words.shape)}")
+    B, device = words.shape[0], words.device
     clock = clock or _Clock(device, None)
     circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
-    seed = seed_words(seed, device)
+    seeds = batch_seed_words(seeds, B, device)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
-        state = channel_ops.new_state(device)
-        alphas = torch.empty((n_inner + 1, 4), dtype=torch.int32, device=device)
-
-        def commit_layer(g):
-            t = len(layers)
-            step = channel_ops.ChannelStep(state, seed if t == 0 else None, alphas[t])
-            with clock("lde_trees"):  # the tree, its channel step on its last launch
-                tree = build_pruned(g, route.level, route.collapse, step, route.transcript)
-            layers.append(g)
-            trees.append(tree)
-            return step.alpha
-
-        layers, trees = [], []
+        state = channel_ops.new_state(device, blobs=B)
+        alphas = torch.empty((n_inner + 1, B, 4), dtype=torch.int32, device=device)
+        ys_inv, xs_invs = fold_tables(n, device)
         with clock("lde_trees"):
-            evals = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
-        alpha = commit_layer(evals)
-        with clock("folds"):
-            ys_inv, xs_invs = fold_tables(n, device)
-            g = circle_fold(evals, alpha, ys_inv)
-        for l in range(n_inner):
-            alpha = commit_layer(g)
+            g = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
+        layers, trees, roots = [], [], []
+        for t in range(n_inner + 1):
+            step = channel_ops.ChannelStep(state, seeds if t == 0 else None, alphas[t])
+            with clock("lde_trees"):  # the trees, their channel steps on their last launch
+                rows, root = build_pruned_many(g, step, route.level, route.collapse, route.transcript)
+            layers.append(g)
+            trees.append(rows)
+            roots.append(root)
             with clock("folds"):
-                g = line_fold(g, alpha, xs_invs[l])
-        return _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock)
+                g = circle_fold(g, alphas[t], ys_inv) if t == 0 else line_fold(g, alphas[t], xs_invs[t - 1])
+        packed, layout, bound = _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, route,
+                                       clock)
+    fetch = BatchFetch(packed)
+    out = []
+    for b in range(B):
+        c = Committed([x[b] for x in layers], [rows[b] for rows in trees], packed[b], bound,
+                      pcs_config.fri_config.n_queries, layout)
+        c.batch = (fetch, b)
+        out.append(c)
+    return out
 
 
 def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock,
                       gather: bool = True) -> Committed:
-    """The end of a commit phase after the last fold: the last layer's
-    coefficients and degree check, its transcript step, the grind and the
-    query draws, then (with `gather`) the decommitment's gathers read with
-    the query words on the device (`route.open_queries`), all packed for
-    the one fetch (`_packed_layout`)."""
+    """The end of a commit phase after the last fold (`_close`) for one
+    proof: its `Committed`."""
+    packed, layout, bound = _close(state, g, layers, trees, [t.root.reshape(8) for t in trees], xs_invs, n,
+                                   n_inner, pcs_config, route, clock, gather)
+    return Committed(layers, trees, packed, bound, pcs_config.fri_config.n_queries, layout)
+
+
+def _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, route, clock,
+           gather: bool = True) -> tuple:
+    """(packed, layout, bound): the end of a commit phase after the last
+    fold: the last layer's coefficients and degree check, its transcript
+    step, the grind and the query draws, then (with `gather`) the
+    decommitment's gathers read with the query words on the device
+    (`route.open_queries`), all packed for the one fetch (`_packed_layout`).
+    A batch (g (B, 4, M), (B, 9) states, each root (B, 8), each layer's
+    trees a list of B) packs (B, layout.total), a row a blob."""
     fri_cfg = pcs_config.fri_config
     bound = 1 << fri_cfg.log_last_layer_degree_bound
+    lead = tuple(g.shape[:-2])
     with clock("folds"):
-        coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (2^last_log, 4) int64
-        last_poly = narrow(coeffs[:bound]).contiguous()
-        degree_ok = (coeffs[bound:] == 0).all().to(torch.int32).reshape(1)
+        coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (..., 2^last_log, 4) int64
+        last_poly = narrow(coeffs[..., :bound, :]).contiguous()
+        degree_ok = (coeffs[..., bound:, :] == 0).reshape(*lead, -1).all(-1).to(torch.int32).reshape(*lead, 1)
     with clock("transcript"):
         route.transcript(state, mix_felts=last_poly)
     with clock("grind"):
         nonce = route.grind(state, pcs_config.pow_bits)
     with clock("transcript"):
         _, query_words = route.transcript(state, mix_u64=nonce, queries=(fri_cfg.n_queries, n))
-        head = [t.root.reshape(8) for t in trees] + [last_poly.reshape(-1), degree_ok, nonce, query_words]
+        head = list(roots) + [last_poly.reshape(*lead, -1), degree_ok, nonce, query_words]
         layout = _packed_layout(n, n_inner, bound, fri_cfg.n_queries, gather)
-        packed = torch.empty(layout.total, dtype=torch.int32, device=query_words.device)
-        torch.cat(head, out=packed[: layout.head_words])
+        packed = torch.empty((*lead, layout.total), dtype=torch.int32, device=query_words.device)
+        torch.cat(head, dim=-1, out=packed[..., : layout.head_words])
     if gather:
         with clock("decommit_gather"):
-            route.open_queries(layers, trees, query_words, packed[layout.head_words :])
-    return Committed(layers, trees, packed, bound, fri_cfg.n_queries, layout)
+            route.open_queries(layers, trees, query_words, packed[..., layout.head_words :])
+    return packed, layout, bound
 
 
 def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig,
@@ -555,7 +652,8 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
     shard builds its pruned tree over its part (`merkle.build_sharded_tree`:
     a block of shards on one device in the launches of one tree, then the
     gathered subtree roots hashed to the root), and folds its part with
-    `fri_fold` and its slice of the fold table (`block_fold_tables`). A layer
+    its slice of the fold table (`block_fold_tables`): one `fri_fold`
+    launch a block of shards, the layer's alpha shared. A layer
     narrower than 2S is gathered onto the home device and continues there,
     as on one device, and so does the last layer. The transcript (each
     layer's step on the top tree's collapse, or the one-device tree's) and
@@ -603,11 +701,9 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
                 g = fri_ops.fri_fold(g, alpha, ys_inv if t == 0 else xs_invs[t - 1])
                 continue
             out = new_sharded(mesh, row, (4, g.blocks[0][1].shape[-1] // 2))
-            for (e0, src), (_, dst) in zip(g.blocks, out.blocks):
-                a = alpha.to(src.device)
+            for (e0, src), (_, dst) in zip(g.blocks, out.blocks):  # a block's shards in one launch
                 inv = block_fold_tables(mesh, n, e0, src.shape[0], src.device)[t]
-                for i in range(src.shape[0]):
-                    fri_ops.fri_fold(src[i], a, inv[i], out=dst[i])
+                fri_ops.fri_fold(src, alpha.to(src.device), inv, out=dst)
             g = out if out.width >= 2 * S else out.gather()
         if isinstance(g, Sharded):
             g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
@@ -626,24 +722,24 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
 class _Instance:
     """Lease bookkeeping of one instance of a cached commit phase. A run
     writes the instance's outputs anew, so the instance is leased to the
-    `Committed` its last run produced (`lend`) until that `Committed` is
-    finished (`Committed.release`, from `finish_proof`) or collected (the
-    lease is a weak reference); only a free instance runs again."""
+    `Committed`s its last run produced (`lend`: one, or a batch's B) until
+    every one of them is finished (`Committed.release`, from
+    `finish_proof`) or collected (each lease is a weak reference); only a
+    free instance runs again."""
 
-    lease = None  # weak reference to the leased Committed, or None
+    _leases = ()  # weak references to the leased Committeds
     nbytes = 0  # what the instance keeps on its device (`_GraphCache` sets it)
 
     @property
     def free(self) -> bool:
-        return self.lease is None or self.lease() is None
+        return all(ref() is None for ref in self._leases)
 
     def lend(self, committed: Committed) -> None:
         committed._lease = self
-        self.lease = weakref.ref(committed)
+        self._leases = [ref for ref in self._leases if ref() is not None] + [weakref.ref(committed)]
 
     def give_back(self, committed: Committed) -> None:
-        if self.lease is not None and self.lease() is committed:
-            self.lease = None
+        self._leases = [ref for ref in self._leases if ref() is not None and ref() is not committed]
 
     def close(self) -> None:
         """Free what the instance holds; its key was evicted."""
@@ -654,21 +750,24 @@ class _CommitGraph(_Instance):
     seed)`, in a memory pool of its own (a later capture cannot place its
     tensors in this one's temporaries); its static inputs, `words` (the
     `words_for(log_total)` int32 words) and `seed` ((2,) int32, or None for
-    a key without a seed); `committed`, the outputs each replay writes
-    (layers, pruned trees, `packed`); `tables`, every cached table the graph
-    reads, held so that clearing a cache cannot free them; `launches`, the
-    kernel launches the capture recorded; and `steps`, the channel steps its
-    collapses carried (`merkle_collapse.steps`).
+    a key without a seed), or a batch's (B, nw) words and (B, 2) seeds;
+    `committed`, the outputs each replay writes (layers, pruned trees,
+    `packed`; a batch's B `Committed`s); `tables`, every cached table the
+    graph reads, held so that clearing a cache cannot free them; `launches`,
+    the kernel launches the capture recorded; and `steps`, the channel steps
+    its collapses carried (`merkle_collapse.steps`).
 
     With `warm` (a key's first instance) one eager `commit` runs first, on a
     side stream: it builds every table of the key (a mesh's block tables
     too) and sets the kernels' one-time attributes, none of which may happen
     inside a capture. A capture or replay error raises."""
 
-    def __init__(self, device: torch.device, n_words: int, has_seed: bool, commit, tables, warm: bool):
+    def __init__(self, device: torch.device, n_words: int, has_seed: bool, commit, tables, warm: bool,
+                 batch: int | None = None):
+        lead = () if batch is None else (batch,)
         with torch.cuda.device(device):
-            self.words = torch.zeros(n_words, dtype=torch.int32, device=device)
-            self.seed = torch.zeros(2, dtype=torch.int32, device=device) if has_seed else None
+            self.words = torch.zeros(lead + (n_words,), dtype=torch.int32, device=device)
+            self.seed = torch.zeros(lead + (2,), dtype=torch.int32, device=device) if has_seed else None
             if warm:
                 side = torch.cuda.Stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
@@ -687,18 +786,25 @@ class _CommitGraph(_Instance):
                 self.steps = merkle_ops.merkle_collapse.steps - steps
                 merkle_ops.merkle_collapse.steps = steps
 
-    def run(self, seed) -> Committed:
-        """Write the seed, replay the graph, count its launches; the new
-        `Committed` (over this instance's outputs) holds the lease."""
+    def run(self, seed):
+        """Write the seed (a batch's B seeds), replay the graph, count its
+        launches; the new `Committed` (over this instance's outputs; a
+        batch's B, which share one `BatchFetch`) holds the lease."""
         with torch.cuda.device(self.words.device), span("prove/device_dispatch(lde+merkle+transcript+grind)"):
             if self.seed is not None:
-                write_seed(self.seed, seed)
+                write_seeds(self.seed.view(-1, 2), [seed] if self.seed.dim() == 1 else seed)
             self.graph.replay()
         ops.add_launch_counts(self.launches)
         merkle_ops.merkle_collapse.steps += self.steps
-        c = self.committed
+        if isinstance(self.committed, Committed):
+            return self._renew(self.committed, None)
+        fetch = BatchFetch(self.committed[0].batch[0].packed)
+        return [self._renew(c, (fetch, b)) for b, c in enumerate(self.committed)]
+
+    def _renew(self, c: Committed, batch) -> Committed:
         out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries, c.layout)
         out.opening_cls = c.opening_cls
+        out.batch = batch
         self.lend(out)
         return out
 
@@ -787,29 +893,36 @@ _GRAPHS = _GraphCache(8)
 
 
 def _fri_commit_fn(log_total: int, pcs_config: PcsConfig, has_seed: bool, device: torch.device,
-                   mesh=None, row: int = 0) -> _CommitGraph:
+                   mesh=None, row: int = 0, batch: int | None = None) -> _CommitGraph:
     """A free captured commit phase of one configuration on one CUDA device:
     the counterpart of the JAX package's `_fri_commit_fn`
-    (`frieda_tpu/core/fri.py:150-151`), cached by the same fields (log_size,
-    log_blowup, llb, n_queries, pow_bits, has_seed) and the device, and for
-    a mesh by its shape and row (`commit_phase_sharded`, whose shards all lie
-    on `device`)."""
+    (`frieda_tpu/core/fri.py:150-153`), cached by the same fields (log_size,
+    log_blowup, llb, n_queries, pow_bits, has_seed) and the device, for a
+    mesh by its shape and row (`commit_phase_sharded`, whose shards all lie
+    on `device`), and for a batch by its blob count B (`commit_phase_batched`
+    over static (B, nw) words and (B, 2) seeds: the JAX package's jit
+    retraces its vmapped program per batch shape). A batch's instance keeps
+    B proofs' bytes, and its key's first capture is warmed up by an eager
+    batch of B."""
     fri_cfg = pcs_config.fri_config
     log_size = log_total - 2
     n = log_size + fri_cfg.log_blowup_factor
     key = (log_size, fri_cfg.log_blowup_factor, fri_cfg.log_last_layer_degree_bound, fri_cfg.n_queries,
-           pcs_config.pow_bits, has_seed, device, None if mesh is None else (mesh.n_data, mesh.n_elem, row))
+           pcs_config.pow_bits, has_seed, device, None if mesh is None else (mesh.n_data, mesh.n_elem, row), batch)
 
     def commit(words, seed):
+        if batch is not None:
+            return commit_phase_batched(words, log_total, seed, pcs_config)
         return _eager(words, log_total, seed, pcs_config, mesh, row)
 
     def tables() -> list:
         held = [fft.stage_twiddles(n, device), fold_tables(n, device)]
         return held if mesh is None else held + [mesh]  # the mesh keeps its block tables (`Mesh.cached`)
 
+    blobs = batch or 1
     return _GRAPHS.instance(key, lambda warm: _CommitGraph(device, words_for(log_total), has_seed, commit,
-                                                           tables, warm),
-                            device, RESIDENT_BYTES_PER_ELEMENT << n, ACTIVE_BYTES_PER_ELEMENT << n)
+                                                           tables, warm, batch),
+                            device, blobs * RESIDENT_BYTES_PER_ELEMENT << n, blobs * ACTIVE_BYTES_PER_ELEMENT << n)
 
 
 def _eager(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig, mesh, row: int) -> Committed:
@@ -876,6 +989,40 @@ def dispatch_blob(data: bytes, log_total: int, seed, pcs_config: PcsConfig, devi
         host, words = upload_words([data], log_total, device, out=None if graph is None else graph.words[None])
     committed = _eager(words[0], log_total, seed, pcs_config, mesh, row) if graph is None else graph.run(seed)
     committed.staging = host  # the upload reads it asynchronously: kept until the fetch
+    return committed
+
+
+def _batch_graph(log_total: int, pcs_config: PcsConfig, has_seed: bool, device, batch: int):
+    """The free captured batched commit phase of `batch` blobs on `device`,
+    or None on the CPU, where it runs eagerly."""
+    _layer_sizes(log_total, pcs_config)  # ValueError before any capture
+    device = _card(device)
+    if device.type != "cuda":
+        return None
+    return _fri_commit_fn(log_total, pcs_config, has_seed, device, batch=batch)
+
+
+def dispatch_batch(datas, log_total: int, seeds, pcs_config: PcsConfig, device) -> list:
+    """The commit phase of B blobs of one padded size (2^log_total felts)
+    under their seeds (all set or all None), as ONE dispatch: on a CUDA
+    device the B rows staged in one page-locked buffer and uploaded in one
+    copy straight into the static words of a free captured instance of
+    `commit_phase_batched` for B (`_fri_commit_fn(..., batch=B)`; captured
+    on first use), the B seeds written by a fill each, one graph replay;
+    nothing waits for the device. Returns the B `Committed`s, which hold the
+    instance until the last of them is finished. The CPU runs
+    `commit_phase_batched` eagerly on the plain versions; the bytes are the
+    same. The host buffer stays with the batch until its fetch."""
+    datas = list(datas)
+    has_seed = batch_has_seed(seeds, len(datas))
+    graph = _batch_graph(log_total, pcs_config, has_seed, device, len(datas))
+    with span("prove/ingest"):
+        host, words = upload_words(datas, log_total, device, out=None if graph is None else graph.words)
+    if graph is None:
+        committed = commit_phase_batched(words, log_total, seeds, pcs_config)
+    else:
+        committed = graph.run(seeds if has_seed else None)
+    committed[0].batch[0].staging = host  # the upload reads it asynchronously: kept until the fetch
     return committed
 
 
@@ -1076,6 +1223,18 @@ def safe_in_flight(log_size: int, fri_cfg, device: torch.device) -> int:
     budget = (int(MEMORY_SHARE * device_memory_bytes(device)) - ACTIVE_BYTES_PER_ELEMENT * n
               - _GRAPHS.held_bytes(device, leased_only=True))
     return max(1, budget // (RESIDENT_BYTES_PER_ELEMENT * n))
+
+
+def safe_batch(log_size: int, fri_cfg, device: torch.device) -> int:
+    """Largest batch of blobs of 2^log_size felts per column whose batched
+    commit phase fits `MEMORY_SHARE` of the device's memory, less what live
+    `Committed`s hold there: B x (`RESIDENT_BYTES_PER_ELEMENT`, the batch's
+    instance, + `ACTIVE_BYTES_PER_ELEMENT`, its eager warm-up) per domain
+    element; at least 1."""
+    n = 1 << (log_size + fri_cfg.log_blowup_factor)
+    device = _card(device)
+    budget = int(MEMORY_SHARE * device_memory_bytes(device)) - _GRAPHS.held_bytes(device, leased_only=True)
+    return max(1, budget // ((RESIDENT_BYTES_PER_ELEMENT + ACTIVE_BYTES_PER_ELEMENT) * n))
 
 
 def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,

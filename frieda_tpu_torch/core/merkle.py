@@ -223,9 +223,9 @@ class PrunedTree:
 def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn, step=None, transcript_fn=None) -> list:
     """[(level k, (..., 8, m) nodes)]: the stored levels of `build_pruned`
     over (4, N) columns, or over a batch (B, 4, N), one tree a blob. A
-    channel step (one tree only) rides on the collapse that makes the root,
-    or is one `transcript_fn` call when the tree ends without a collapse (8
-    leaves or fewer: the leaf pass makes the root)."""
+    channel step (a batch's: one channel a blob) rides on the collapse that
+    makes the root, or is one `transcript_fn` call when the tree ends
+    without a collapse (8 leaves or fewer: the leaf pass makes the root)."""
     from ..ops import channel as channel_ops
     from ..ops import merkle as merkle_ops
 
@@ -285,13 +285,21 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None, step=No
     return PrunedTree(columns.shape[1].bit_length() - 1, flat, offsets)
 
 
-def build_pruned_many(columns: torch.Tensor) -> tuple:
+def build_pruned_many(columns: torch.Tensor, step=None, level_fn=None, collapse_fn=None,
+                      transcript_fn=None) -> tuple:
     """(trees, roots): the `build_pruned` trees of a batch (B, 4, N) of
     column sets, in the launches of one tree (the kernels' blob axis), each
-    tree's `flat` a row of one (B, total) tensor; roots: (B, 8) root words."""
+    tree's `flat` a row of one (B, total) tensor; roots: (B, 8) root words.
+
+    step: a batch of B channel steps (`ops.channel.ChannelStep` with (B, ...)
+    fields: the batched commit phase's layer), blob b's run on its root by
+    the collapse that makes the roots, or, for trees of 8 leaves or fewer,
+    by one batched `transcript_fn` call. level_fn / collapse_fn /
+    transcript_fn as for `build_pruned`."""
     from ..ops import merkle as merkle_ops
 
-    stored = _pruned_levels(columns, merkle_ops.merkle_level, merkle_ops.merkle_collapse)
+    stored = _pruned_levels(columns, level_fn or merkle_ops.merkle_level,
+                            collapse_fn or merkle_ops.merkle_collapse, step, transcript_fn)
     flat, offsets = _flatten(stored)
     log_leaves = columns.shape[-1].bit_length() - 1
     off = offsets[log_leaves][0]

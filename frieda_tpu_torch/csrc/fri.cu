@@ -1,4 +1,5 @@
-// Kernel 6, fri_fold: one FRI fold of QM31 columns, (4, M) -> (4, M/2).
+// Kernel 6, fri_fold: one FRI fold of QM31 columns, (4, M) -> (4, M/2), or of
+// a batch (B, 4, M) -> (B, 4, M/2).
 //
 // Replaces fold_c and fold_l of frieda_tpu/core/fri.py:_fri_commit_fn
 // (:211-225), which XLA fuses inside the commit phase's one dispatch; they
@@ -19,6 +20,14 @@
 // Design: one thread per k, so every load and store of a warp is 128
 // contiguous bytes; each thread reads alpha (4 words, one cached line for
 // the whole launch) and doubles it once for m31_mul_dbl.
+//
+// Blob axis (the batched commit phase, the counterpart of jax.vmap over
+// fold_c / fold_l; and a block of shards of one mesh row): B stacked
+// (B, 4, M) values fold to (B, 4, M/2) in one launch, blob b in grid row
+// blockIdx.y (looping past gridDim.y's 65535). Each blob reads its alpha at
+// b * alpha_stride (4: one draw a blob; 0: the shards of one layer share
+// theirs) and its inverse table at b * inv_stride (0: one (M/2,) table
+// shared by every blob; M/2: a (B, M/2) table a row, a shard's slice).
 
 #include "common.cuh"
 
@@ -62,20 +71,26 @@ __device__ __forceinline__ void fold_one(const uint32_t (&lo)[4], const uint32_t
 
 __global__ void __launch_bounds__(kThreads)
 fri_fold_kernel(const uint32_t* __restrict__ values, const uint32_t* __restrict__ alpha,
-                const uint32_t* __restrict__ inv, uint32_t* __restrict__ out, size_t half) {
+                const uint32_t* __restrict__ inv, uint32_t* __restrict__ out, size_t half,
+                uint32_t blobs, size_t alpha_stride, size_t inv_stride) {
   const size_t k = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (k >= half) return;
   const size_t m = 2 * half;
-  uint32_t a2[4], lo[4], hi[4], g[4];
+  for (uint32_t b = blockIdx.y; b < blobs; b += gridDim.y) {
+    const uint32_t* __restrict__ v = values + size_t(b) * 4 * m;
+    const uint32_t* __restrict__ a = alpha + size_t(b) * alpha_stride;
+    uint32_t a2[4], lo[4], hi[4], g[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    a2[c] = 2u * alpha[c];
-    lo[c] = values[c * m + k];
-    hi[c] = values[c * m + half + k];
+    for (int c = 0; c < 4; ++c) {
+      a2[c] = 2u * a[c];
+      lo[c] = v[c * m + k];
+      hi[c] = v[c * m + half + k];
+    }
+    fold_one(lo, hi, a2, 2u * inv[size_t(b) * inv_stride + k], g);
+    uint32_t* __restrict__ o = out + size_t(b) * 4 * half;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c * half + k] = g[c];
   }
-  fold_one(lo, hi, a2, 2u * inv[k], g);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[c * half + k] = g[c];
 }
 
 }  // namespace
@@ -95,14 +110,20 @@ extern "C" __global__ void frieda_fri_fold_probe(const uint32_t* in, uint32_t* o
   for (int c = 0; c < 4; ++c) out[c] = g[c];
 }
 
-// values: (4, 2 * half) u32 canonical M31; alpha: 4 words; inv: (half,)
-// inverses; out: (4, half). The caller checks the shapes.
+// values: (blobs, 4, 2 * half) u32 canonical M31; alpha: 4 words a blob, at
+// b * alpha_stride; inv: (half,) inverses a blob, at b * inv_stride; out:
+// (blobs, 4, half). The caller checks the shapes.
 extern "C" int frieda_fri_fold(const void* values, const void* alpha, const void* inv, void* out,
-                               long long half, void* stream) {
-  if (half < 1) return static_cast<int>(cudaErrorInvalidValue);
+                               long long half, int blobs, long long alpha_stride, long long inv_stride,
+                               void* stream) {
+  if (half < 1 || blobs < 1 || alpha_stride < 0 || inv_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long blocks = (half + kThreads - 1) / kThreads;
-  fri_fold_kernel<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), blobs < 65535 ? static_cast<unsigned>(blobs) : 65535u);
+  fri_fold_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(alpha),
-      static_cast<const uint32_t*>(inv), static_cast<uint32_t*>(out), static_cast<size_t>(half));
+      static_cast<const uint32_t*>(inv), static_cast<uint32_t*>(out), static_cast<size_t>(half),
+      static_cast<uint32_t>(blobs), static_cast<size_t>(alpha_stride), static_cast<size_t>(inv_stride));
   FRIEDA_LAUNCH_RESULT();
 }

@@ -61,7 +61,10 @@
 // dependent channel compressions, ~1 us each, to the end of the launch and
 // changes nothing before it. The last-layer felts and the nonce and query
 // draws stay transcript launches: they follow plain PyTorch work and the
-// grind, with no tree launch to ride on.
+// grind, with no tree launch to ride on. A batch of blobs (the batched
+// commit phase) carries a step a blob: the block holding blob b's root runs
+// blob b's channel (state, seed and alpha at fixed strides), with the same
+// retry, so the B steps run side by side in one launch.
 //
 // Blob axis (commit_many, the counterpart of the batch grid dimension that
 // jax.vmap prepends to each pallas_call): merkle_level and merkle_collapse
@@ -116,6 +119,12 @@
 // of the stored levels below it), so a captured launch holds its instance's
 // own pointers and nothing is uploaded.
 //
+// Its batched form (the batched commit phase, the JAX package's vmap over
+// those gathers) reads B proofs in one launch: the grid is B times one
+// proof's reads, quad g reads read g mod R of blob g / R (R a proof's
+// reads), whose layers, trees, query words and output lie a fixed stride
+// a blob further on (OpenLayers' blob_cols and blob_flat, nq, out_stride).
+//
 // Its sharded form reads the layers of a mesh row whose S = 2^log_shards
 // shards all lie in one block on this device (the cyclic layout of
 // parallel/mesh.py: natural column x on shard x mod S), the output the same
@@ -161,24 +170,27 @@ struct CollapseStep {
   uint32_t draw_bound;   // retry while any drawn word >= draw_bound (2P)
 };
 
-// The step on the root, word w at root[w * stride]; one thread.
-__device__ void channel_step(const CollapseStep& st, const uint32_t* root, uint32_t stride) {
+// Blob b's step on its root, word w at root[w * stride]; one thread. Blob
+// b's channel is at state + 9 b, its seed at seed + 2 b, its alpha at
+// alpha + 4 b.
+__device__ void channel_step(const CollapseStep& st, size_t b, const uint32_t* root, uint32_t stride) {
+  uint32_t* state = st.state + 9 * b;
   uint32_t d[8], r[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    d[i] = st.state[i];
+    d[i] = state[i];
     r[i] = root[i * stride];
   }
   if (st.seed != nullptr) {
-    const uint32_t v[2] = {st.seed[0], st.seed[1]};
+    const uint32_t v[2] = {st.seed[2 * b], st.seed[2 * b + 1]};
     frieda::hash_after(d, v, 2, d);
   }
   frieda::hash_after(d, r, 8, d);
   uint32_t n_sent = 0;
-  frieda::draw_felt(d, n_sent, st.draw_bound, st.alpha);
+  frieda::draw_felt(d, n_sent, st.draw_bound, st.alpha + 4 * b);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) st.state[i] = d[i];
-  st.state[8] = n_sent;
+  for (int i = 0; i < 8; ++i) state[i] = d[i];
+  state[8] = n_sent;
 }
 
 // The layers of merkle_open_queries, by value (1,032 bytes of the 4 KB of
@@ -189,10 +201,17 @@ __device__ void channel_step(const CollapseStep& st, const uint32_t* root, uint3
 // `stored`, over the local levels; a row is as many words as the mask's
 // levels hold), and top[t] the top tree: every level from width S (level 0,
 // the shards' roots) to the root, all stored.
+//
+// A batch of B proofs (the batched commit phase) reads blob b's layer t at
+// cols[t] + b * blob_cols[t] and its tree at flat[t] + b * blob_flat[t] (the
+// rows of the (B, 4, 2^L) layer and of the (B, words) trees; whole layers
+// only), 1,544 bytes in all.
 struct OpenLayers {
   const uint32_t* cols[kOpenLevels];  // (4, 2^log_leaves) columns of layer t, or the (S, 4, ...) block
   const uint32_t* flat[kOpenLevels];  // its pruned tree's stored levels, ascending, or the (S, words) block
   const uint32_t* top[kOpenLevels];   // a sharded layer's top tree, else nullptr
+  long long blob_cols[kOpenLevels];   // words from blob b's columns to blob b + 1's
+  long long blob_flat[kOpenLevels];   // words from blob b's tree to blob b + 1's
   int log_leaves[kOpenLevels];        // of the whole layer
   uint32_t stored[kOpenLevels];  // bit k: level k is stored (in each shard's tree)
   int log_shards;
@@ -324,7 +343,7 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
         o[(i / n) * width + b + B * (i % n)] = lvl[(i / n) * S + i % n];  // out is (8, width)
       }
       if (++next == outs.count) {  // never when finish: a width below B is left
-        if (step.state != nullptr && t == 0) channel_step(step, lvl, S);  // B = 1: lvl holds the root
+        if (step.state != nullptr && t == 0) channel_step(step, blob, lvl, S);  // B = 1: lvl holds the root
         return;
       }
       __syncthreads();
@@ -343,7 +362,7 @@ merkle_collapse_kernel(const uint32_t* __restrict__ in, const CollapseOuts outs,
       uint32_t* __restrict__ o = outs.ptr[next] + blob * 8 * width;
       for (uint32_t i = t; i < 8 * width; i += T) o[i] = top[(i / width) * B + i % width];
       if (++next == outs.count) {
-        if (step.state != nullptr && t == 0) channel_step(step, top, B);  // width 1: top holds the root
+        if (step.state != nullptr && t == 0) channel_step(step, blob, top, B);  // width 1: top holds the root
         return;
       }
       __syncthreads();
@@ -426,10 +445,16 @@ merkle_open_kernel(const long long* __restrict__ table, int n_layers, long long 
 
 __global__ void __launch_bounds__(kOpenThreads)
 merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__ queries, uint32_t nq,
-                           long long n_reads, uint32_t* __restrict__ out) {
+                           long long n_reads, long long blobs, long long out_stride,
+                           uint32_t* __restrict__ out) {
   const long long g = (static_cast<long long>(blockIdx.x) * kOpenThreads + threadIdx.x) >> 2;
   const uint32_t u = threadIdx.x & 3;
-  long long j = g < n_reads ? g : n_reads - 1;  // then the read's index in its layer
+  const bool live = g < n_reads * blobs;  // quads past the last read repeat it and store nothing
+  const long long gl = live ? g : n_reads * blobs - 1;
+  const long long blob = gl / n_reads;
+  queries += blob * nq;
+  out += blob * out_stride;
+  long long j = gl - blob * n_reads;  // then the read's index in its layer
   int t = 0;
   size_t dst = 0;  // layer t's first output word
   for (; t + 1 < layers.count; ++t) {
@@ -439,8 +464,8 @@ merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__
     dst += size_t(8) * nq * (1 + layers.log_leaves[t]);
   }
   int L = layers.log_leaves[t];
-  const uint32_t* cols = layers.cols[t];
-  const uint32_t* flat = layers.flat[t];
+  const uint32_t* cols = layers.cols[t] + blob * layers.blob_cols[t];
+  const uint32_t* flat = layers.flat[t] + blob * layers.blob_flat[t];
   uint32_t stored = layers.stored[t];
   // The words are the transcript's draws, below 2^n; the mask only keeps a
   // bad word inside its layer.
@@ -474,7 +499,7 @@ merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__
   uint32_t h[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int r = 0;
   if (pair) {  // lane u reads column u of element j & 1 of the queried pair
-    if (g < n_reads) out[dst + size_t(u) * 2 * nq + j] = cols[(size_t(u) << L) + bitrev(s, L)];
+    if (live) out[dst + size_t(u) * 2 * nq + j] = cols[(size_t(u) << L) + bitrev(s, L)];
   } else {
     const int base = (stored >> kl) & 1 ? kl : 3 * (kl / 3);
     r = kl - base;
@@ -487,7 +512,7 @@ merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__
     rebuild_lane(cols, level, L, base, s, r, u, h);
   }
   combine_quad(h, r, u);
-  if (!pair && g < n_reads) {
+  if (!pair && live) {
     uint32_t* node = out + dst + size_t(8) * nq * (1 + k) + qi;  // word w at node[w * nq]
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
@@ -547,8 +572,9 @@ extern "C" int frieda_merkle_level(const void* in, void* out, long long width, i
 // (no 65535 cap on the blobs); the card runs as many clusters at once as fit
 // and the rest in waves. state: null, or the channel step on the root (the
 // design note above): the channel's 9 words, updated in place; seed: 2 words
-// mixed first, or null; alpha: 4 words out; 1 <= draw_bound <= 2P. A step
-// needs one blob, m >= 2 and the root among the widths (the last is 1).
+// mixed first, or null; alpha: 4 words out; 1 <= draw_bound <= 2P; each a
+// blob's at 9 b, 2 b and 4 b words (a channel a blob). A step needs m >= 2
+// and the root among the widths (the last is 1).
 extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const long long* widths,
                                       int n_out, long long m, int cluster, int blobs, void* state,
                                       const void* seed, void* alpha, unsigned int draw_bound,
@@ -559,7 +585,7 @@ extern "C" int frieda_merkle_collapse(const void* in, void* const* outs, const l
       static_cast<long long>(blobs) * cluster > 0x7FFFFFFFll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (state != nullptr && (blobs != 1 || m < 2 || widths[n_out - 1] != 1 || alpha == nullptr ||
+  if (state != nullptr && (m < 2 || widths[n_out - 1] != 1 || alpha == nullptr ||
                            draw_bound == 0 || draw_bound > 2u * frieda::kP)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -623,36 +649,47 @@ extern "C" int frieda_merkle_open(const void* table, int n_layers, long long n_v
 // stored[t] the shards' mask over their local levels; queries: nq >= 1 int32
 // words on the card (below 2^log_leaves[0]); out: sum over t of 8 nq (1 +
 // log_leaves[t]) int32 words, per layer the (4, nq, 2) pairs, then (8, nq)
-// for each level. The caller checks that each level k below a tree's leaf
-// count is stored or has its base 3 (k / 3) stored, or k <= 2, and that a
-// sharded layer's parts are the rows of its blocks.
+// for each level. blobs >= 1 proofs: blob b's layer t at cols[t] + b x
+// blob_cols[t] words and flats[t] + b x blob_flat[t] (whole layers only when
+// blobs > 1), its nq words at queries + b nq, its out at out + b x
+// out_stride. The caller checks that each level k below a tree's leaf count
+// is stored or has its base 3 (k / 3) stored, or k <= 2, and that a sharded
+// layer's parts and a batch's blobs are the rows of their blocks.
 extern "C" int frieda_merkle_open_queries(const void* const* cols, const void* const* flats,
                                           const void* const* tops, const int* log_leaves,
-                                          const unsigned* stored, int n_layers, int log_shards,
-                                          const void* queries, int nq, void* out, void* stream) {
-  if (n_layers < 1 || n_layers > kOpenLevels || nq < 1 || log_shards < 0 || log_shards >= kOpenLevels) {
+                                          const unsigned* stored, const long long* blob_cols,
+                                          const long long* blob_flat, int n_layers, int log_shards,
+                                          const void* queries, int nq, int blobs, long long out_stride,
+                                          void* out, void* stream) {
+  if (n_layers < 1 || n_layers > kOpenLevels || nq < 1 || log_shards < 0 || log_shards >= kOpenLevels ||
+      blobs < 1 || out_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OpenLayers layers{};
-  long long n_reads = 0;
+  long long n_reads = 0, n_words = 0;
   for (int t = 0; t < n_layers; ++t) {
     if (log_leaves[t] < 0 || log_leaves[t] >= kOpenLevels ||
-        (tops[t] != nullptr && (log_shards < 1 || log_leaves[t] <= log_shards))) {
+        (tops[t] != nullptr && (log_shards < 1 || log_leaves[t] <= log_shards || blobs > 1)) ||
+        blob_cols[t] < 0 || blob_flat[t] < 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     layers.cols[t] = static_cast<const uint32_t*>(cols[t]);
     layers.flat[t] = static_cast<const uint32_t*>(flats[t]);
     layers.top[t] = static_cast<const uint32_t*>(tops[t]);
+    layers.blob_cols[t] = blob_cols[t];
+    layers.blob_flat[t] = blob_flat[t];
     layers.log_leaves[t] = log_leaves[t];
     layers.stored[t] = stored[t];
     n_reads += static_cast<long long>(nq) * (2 + log_leaves[t]);
+    n_words += 8ll * nq * (1 + log_leaves[t]);
   }
+  if (blobs > 1 && out_stride < n_words) return static_cast<int>(cudaErrorInvalidValue);
   layers.log_shards = log_shards;
   layers.count = n_layers;
-  const long long blocks = (4 * n_reads + kOpenThreads - 1) / kOpenThreads;
+  const long long blocks = (4 * n_reads * blobs + kOpenThreads - 1) / kOpenThreads;
   merkle_open_queries_kernel<<<dim3(static_cast<unsigned>(blocks)), kOpenThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      layers, static_cast<const uint32_t*>(queries), static_cast<uint32_t>(nq), n_reads,
+      layers, static_cast<const uint32_t*>(queries), static_cast<uint32_t>(nq), n_reads, blobs, out_stride,
       static_cast<uint32_t*>(out));
   FRIEDA_LAUNCH_RESULT();
 }

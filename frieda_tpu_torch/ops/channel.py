@@ -21,6 +21,11 @@ A layer's step (mix the seed for layer 0, mix the root, draw alpha) is a
 the layer's tree (`ops/merkle.py`), which runs it on the card, and
 `run_step` runs it as one transcript call where a tree ends without a
 collapse, and in the collapse's plain version.
+
+A batch of B channels (the batched commit phase, the JAX package's vmap over
+its device channel) is a (B, STATE_WORDS) state: each wrapper then takes a
+(B, ...) tensor for each operand and runs every blob's steps in the same one
+launch, and `grind` finds each blob's own minimum nonce.
 """
 
 from __future__ import annotations
@@ -40,51 +45,63 @@ _M64 = (1 << 64) - 1
 
 class ChannelStep(NamedTuple):
     """One layer's step on the channel, run on its tree's root: mix `seed`
-    ((2,) int32 words, or None), mix the root, draw alpha into `alpha`."""
+    ((2,) int32 words, or None), mix the root, draw alpha into `alpha`. A
+    batch of B channels (the batched commit phase) has (B, ...) fields:
+    states (B, STATE_WORDS), seeds (B, 2) or None, alphas (B, 4)."""
 
-    state: torch.Tensor  # (STATE_WORDS,) int32, updated in place
+    state: torch.Tensor  # (STATE_WORDS,) or (B, STATE_WORDS) int32, updated in place
     seed: torch.Tensor | None
-    alpha: torch.Tensor  # (4,) int32, written
+    alpha: torch.Tensor  # (4,) or (B, 4) int32, written
 
 
 def check_step(step: ChannelStep) -> None:
     if step.seed is not None and not isinstance(step.seed, torch.Tensor):
         raise ValueError("a step's seed is (2,) int32 words on the device, or None")
     _check_steps(step.state, step.seed, None, None, None)
-    _build.check_u32(step.alpha, "alpha", (4,))
+    _build.check_u32(step.alpha, "alpha", _lead(step.state) + (4,))
     _build.check_same_device(step.state, step.alpha)
 
 
 def run_step(step: ChannelStep, root: torch.Tensor, transcript_fn=None) -> None:
-    """The step on `root` ((8,) or (8, 1) int32 words) as one call of
-    `transcript_fn` (`transcript` by default, or `transcript_plain`), alpha
-    written into `step.alpha`."""
-    alpha, _ = (transcript_fn or transcript)(step.state, mix_u64=step.seed, mix_digest=root.reshape(8),
-                                             draw_felt=True)
+    """The step on `root` ((8,) or (8, 1) int32 words; a batch's (B, 8) or
+    (B, 8, 1)) as one call of `transcript_fn` (`transcript` by default, or
+    `transcript_plain`), alpha written into `step.alpha`."""
+    alpha, _ = (transcript_fn or transcript)(step.state, mix_u64=step.seed,
+                                             mix_digest=root.reshape(_lead(step.state) + (8,)), draw_felt=True)
     step.alpha.copy_(alpha)
 
 
-def new_state(device) -> torch.Tensor:
-    """A fresh channel: zero digest, n_sent 0."""
-    return torch.zeros(STATE_WORDS, dtype=torch.int32, device=device)
+def new_state(device, blobs: int | None = None) -> torch.Tensor:
+    """A fresh channel: zero digest, n_sent 0; with `blobs`, B fresh
+    channels, (B, STATE_WORDS)."""
+    shape = (STATE_WORDS,) if blobs is None else (blobs, STATE_WORDS)
+    return torch.zeros(shape, dtype=torch.int32, device=device)
+
+
+def _lead(state: torch.Tensor) -> tuple:
+    """() for one channel's state, (B,) for a batch's."""
+    return tuple(state.shape[:-1])
 
 
 def _check_state(state: torch.Tensor) -> None:
-    _build.check_u32(state, "state", (STATE_WORDS,))
+    if state.dim() not in (1, 2) or (state.dim() == 2 and not state.shape[0]):
+        raise ValueError(f"state: expected ({STATE_WORDS},) or (B >= 1, {STATE_WORDS}), got {tuple(state.shape)}")
+    _build.check_u32(state, "state", _lead(state) + (STATE_WORDS,))
 
 
 def _check_steps(state, mix_u64, mix_digest, mix_felts, queries) -> None:
     _check_state(state)
+    lead = _lead(state)
     if isinstance(mix_u64, torch.Tensor):
-        _build.check_u32(mix_u64, "mix_u64", (2,))
+        _build.check_u32(mix_u64, "mix_u64", lead + (2,))
         _build.check_same_device(state, mix_u64)
     if mix_digest is not None:
-        _build.check_u32(mix_digest, "mix_digest", (8,))
+        _build.check_u32(mix_digest, "mix_digest", lead + (8,))
         _build.check_same_device(state, mix_digest)
     if mix_felts is not None:
-        if mix_felts.dim() != 2 or mix_felts.shape[1] != 4 or not mix_felts.shape[0]:
-            raise ValueError(f"mix_felts: expected (k >= 1, 4) QM31, got {tuple(mix_felts.shape)}")
-        _build.check_u32(mix_felts, "mix_felts", tuple(mix_felts.shape))
+        if mix_felts.dim() != len(lead) + 2 or mix_felts.shape[-1] != 4 or not mix_felts.shape[-2]:
+            raise ValueError(f"mix_felts: expected {lead + ('k >= 1', 4)} QM31, got {tuple(mix_felts.shape)}")
+        _build.check_u32(mix_felts, "mix_felts", lead + tuple(mix_felts.shape[-2:]))
         _build.check_same_device(state, mix_felts)
     if queries is not None:
         n_queries, log_domain = queries
@@ -98,8 +115,15 @@ def transcript_plain(state: torch.Tensor, mix_u64=None, mix_digest=None, mix_fel
                      draw_felt: bool = False, queries=None) -> tuple:
     """Plain version of `transcript`: the `dc_*` functions on the state's
     device (the draw's retry tests on the host). Same arguments and
-    results."""
+    results; a batch runs blob by blob."""
     _check_steps(state, mix_u64, mix_digest, mix_felts, queries)
+    if state.dim() == 2:
+        def row(x, b):
+            return x[b] if isinstance(x, torch.Tensor) else x
+
+        outs = [transcript_plain(state[b], row(mix_u64, b), row(mix_digest, b), row(mix_felts, b), draw_felt,
+                                 queries) for b in range(state.shape[0])]
+        return tuple(None if o[0] is None else torch.stack(o) for o in zip(*outs))
     digest, n_sent = widen(state[:8]), widen(state[8])
     if mix_u64 is not None:
         if isinstance(mix_u64, torch.Tensor):
@@ -132,15 +156,18 @@ def transcript(state: torch.Tensor, mix_u64=None, mix_digest=None, mix_felts=Non
     root words; mix_felts: (k, 4) int32 QM31; draw_felt: draw alpha;
     queries: (n_queries, log_domain), the raw query words & (2^log_domain -
     1). Returns (alpha (4,) int32 or None, query words (n_queries,) int32 or
-    None). Launches the kernel for a CUDA state, runs the plain version for
-    a CPU state."""
+    None). A batch of B channels, state (B, STATE_WORDS), takes a (B, ...)
+    tensor for each operand (an int mix_u64 is mixed into every channel)
+    and returns (B, 4) and (B, n_queries), in the same one launch.
+    Launches the kernel for a CUDA state, runs the plain version for a CPU
+    state."""
     if not state.is_cuda:
         return transcript_plain(state, mix_u64, mix_digest, mix_felts, draw_felt, queries)
     _check_steps(state, mix_u64, mix_digest, mix_felts, queries)
-    dev = state.device
-    alpha = torch.empty(4, dtype=torch.int32, device=dev) if draw_felt else None
+    dev, lead = state.device, _lead(state)
+    alpha = torch.empty(lead + (4,), dtype=torch.int32, device=dev) if draw_felt else None
     n_queries, log_domain = queries if queries is not None else (0, 0)
-    words = torch.empty(n_queries, dtype=torch.int32, device=dev) if queries is not None else None
+    words = torch.empty(lead + (n_queries,), dtype=torch.int32, device=dev) if queries is not None else None
     src = mix_u64 if isinstance(mix_u64, torch.Tensor) else None
     value = 0 if mix_u64 is None or src is not None else int(mix_u64) & _M64
 
@@ -149,8 +176,8 @@ def transcript(state: torch.Tensor, mix_u64=None, mix_digest=None, mix_felts=Non
 
     _build.check_launch(_build.library().frieda_transcript(
         state.data_ptr(), int(mix_u64 is not None), ctypes.c_ulonglong(value), ptr(src), ptr(mix_digest),
-        ptr(mix_felts), 0 if mix_felts is None else mix_felts.shape[0], ptr(alpha), dc.DRAW_BOUND,
-        ptr(words), n_queries, log_domain, _build.stream_of(state)))
+        ptr(mix_felts), 0 if mix_felts is None else mix_felts.shape[-2], ptr(alpha), dc.DRAW_BOUND,
+        ptr(words), n_queries, log_domain, state.shape[0] if lead else 1, _build.stream_of(state)))
     transcript.launches += 1
     return alpha, words
 
@@ -160,27 +187,31 @@ transcript.launches = 0
 
 def grind_plain(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
     """Plain version of `grind`: `dc_grind`'s sweep (one host test a batch),
-    the nonce as (2,) int32 words (lo, hi) on the state's device."""
+    the nonce as (2,) int32 words (lo, hi) on the state's device; for a
+    batch of channels (B, 2), blob by blob."""
     _check_state(state)
-    nonce = dc.dc_grind(widen(state[:8]), pow_bits)
-    return torch.tensor([nonce], dtype=torch.int64, device=state.device).view(torch.int32)
+    rows = state.view(-1, STATE_WORDS)
+    nonces = [dc.dc_grind(widen(row[:8]), pow_bits) for row in rows]
+    return torch.tensor(nonces, dtype=torch.int64, device=state.device).view(torch.int32).view(_lead(state) + (2,))
 
 
 def grind(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
     """The minimum nonce whose mix into the channel `state` clears pow_bits
     (0 <= pow_bits <= 60), as (2,) int32 words (lo, hi) on the state's
-    device. One kernel launch, the search on the card, for a CUDA state; the
-    plain version for a CPU state."""
+    device; for a batch of channels, (B, STATE_WORDS), each blob's own
+    minimum as (B, 2). One kernel launch, the search on the card, for a
+    CUDA state; the plain version for a CPU state."""
     if not 0 <= pow_bits <= 60:
         raise ValueError(f"pow_bits must be in [0, 60], got {pow_bits}")
     if not state.is_cuda:
         return grind_plain(state, pow_bits)
     _check_state(state)
-    best = torch.full((1,), -1, dtype=torch.int64, device=state.device)  # 2^64 - 1
+    lead = _lead(state)
+    best = torch.full(lead or (1,), -1, dtype=torch.int64, device=state.device)  # 2^64 - 1 a blob
     _build.check_launch(_build.library().frieda_grind(
-        state.data_ptr(), pow_bits, best.data_ptr(), _build.stream_of(state)))
+        state.data_ptr(), pow_bits, best.data_ptr(), best.numel(), _build.stream_of(state)))
     grind.launches += 1
-    return best.view(torch.int32)
+    return best.view(torch.int32).view(lead + (2,))
 
 
 grind.launches = 0

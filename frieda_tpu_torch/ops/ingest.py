@@ -40,15 +40,16 @@ def ingest_tile(log_size: int) -> int:
 
 
 def ingest_plain(words: torch.Tensor, log_size: int) -> torch.Tensor:
-    """Plain version on int64 u32 values: (nw,) -> (4, 2^log_size)."""
+    """Plain version on int64 u32 values: (nw,) -> (4, 2^log_size), or a
+    batch (B, nw) -> (B, 4, 2^log_size)."""
     L = 1 << log_size
     rev = torch.from_numpy(bitrev_permutation(log_size).copy()).to(words.device)
     f = torch.arange(4, dtype=torch.int64, device=words.device)[:, None] * L + rev[None, :]
     bit = 30 * f  # int64: no overflow past log_total = 27
     idx = bit >> 5
     s = bit & 31
-    lo = words[idx]
-    hi = words[idx + 1]
+    lo = words[..., idx]
+    hi = words[..., idx + 1]
     high = torch.where(s > 2, (hi << (32 - s)) & _M32, torch.zeros_like(hi))
     return ((lo >> s) | high) & _MASK30
 

@@ -15,7 +15,8 @@ root only, the prover's pruned trees for every third level of the tail).
 A prover's collapse also carries its layer's channel step
 (`ops.channel.ChannelStep`: the seed mix for layer 0, the root mix, the
 alpha draw), run at the end of the same launch by the thread that holds the
-root (`step=`; counted in `merkle_collapse.steps`).
+root (`step=`; counted in `merkle_collapse.steps`), a step a blob for a
+batch.
 `merkle_open` does the device work of `frieda_tpu/core/fri.py`'s
 `_auth_sibling_nodes` and value gathers for every read of one proof in one
 launch, a quad of lanes per read (`leaf_level` / `inner_level` are that
@@ -63,7 +64,10 @@ def collapse_plan(m: int) -> int:
 def merkle_level_plain(x: torch.Tensor, leaf: bool, fused: bool) -> torch.Tensor:
     """Plain version on int64 values. leaf: (4, N) columns -> (8, N) leaf
     hashes, or (8, N/8) with fused. Inner: (8, M) -> (8, M/2), or (8, M/8)
-    with fused (three pairing levels)."""
+    with fused (three pairing levels). A batch (B, 4 or 8, width) runs blob
+    by blob."""
+    if x.dim() == 3:
+        return torch.stack([merkle_level_plain(b, leaf, fused) for b in x])
     level = hash_leaves(x) if leaf else x
     for _ in range(3 if fused else (0 if leaf else 1)):
         level = hash_parents(level)
@@ -110,9 +114,14 @@ def _check_widths(m: int, out_widths) -> tuple:
 def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,), step=None) -> list:
     """Plain version: (8, m) int64 level -> [(8, w) level of width w for w in
     out_widths], widths descending and dividing m; with `step`, then
-    `transcript_plain` runs it on the root (`ops.channel.run_step`)."""
-    widths = _check_widths(level.shape[1], out_widths)
+    `transcript_plain` runs it on the root (`ops.channel.run_step`). A batch
+    (B, 8, m) -> [(B, 8, w) ...] runs blob by blob, blob b with row b of a
+    batched step."""
+    widths = _check_widths(level.shape[-1], out_widths)
     _check_step(level, widths, step)
+    if level.dim() == 3:
+        per_blob = [merkle_collapse_plain(x, widths, _row_step(step, b)) for b, x in enumerate(level)]
+        return [torch.stack([o[k] for o in per_blob]) for k in range(len(widths))]
     outs = []
     for w in widths:
         while level.shape[1] > w:
@@ -123,14 +132,25 @@ def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,), step=None) -> li
     return outs
 
 
+def _row_step(step, b: int):
+    """Blob b's step of a batched step (None for None)."""
+    if step is None:
+        return None
+    return channel_ops.ChannelStep(step.state[b], None if step.seed is None else step.seed[b], step.alpha[b])
+
+
 def _check_step(level: torch.Tensor, widths: tuple, step) -> None:
-    """A step rides on the collapse of one blob (m >= 2) that ends at the
-    root; ValueError otherwise."""
+    """A step rides on a collapse (m >= 2) that ends at the root: one
+    channel for an (8, m) level, a batch of B channels ((B, ...) fields)
+    for a (B, 8, m) batch; ValueError otherwise."""
     if step is None:
         return
-    if level.dim() != 2 or level.shape[1] < 2 or widths[-1] != 1:
-        raise ValueError(f"a channel step needs one (8, m >= 2) level collapsed to its root; got level "
+    if level.shape[-1] < 2 or widths[-1] != 1:
+        raise ValueError(f"a channel step needs a level of m >= 2 collapsed to its root; got level "
                          f"{tuple(level.shape)} -> {widths}")
+    if step.state.shape[:-1] != level.shape[:-2]:
+        raise ValueError(f"a step over channels {tuple(step.state.shape)} for a level {tuple(level.shape)}: "
+                         "one channel a blob")
     channel_ops.check_step(step)
     _build.check_same_device(level, step.state)
 
@@ -140,11 +160,13 @@ def merkle_collapse(level: torch.Tensor, out_widths=(1,), step=None) -> list:
     for w in out_widths] (descending powers of two dividing m); or a batch
     (B, 8, m) -> [(B, 8, w) ...], each blob its own tree. One launch on a
     CUDA tensor: a cluster of `collapse_plan(m)` blocks per blob. The plain
-    version on a CPU tensor (per blob, stacked).
+    version on a CPU tensor.
 
     step: None, or an `ops.channel.ChannelStep` run on the root at the end
-    of the same launch (state updated, alpha written in place): one blob
-    only, m >= 2, the widths ending at 1 (ValueError otherwise)."""
+    of the same launch (state updated, alpha written in place): m >= 2, the
+    widths ending at 1, and for a batch one channel a blob, (B, ...) fields,
+    each run by the block that holds its blob's root (ValueError
+    otherwise)."""
     if level.dim() not in (2, 3) or level.shape[-2] != 8 or not level.shape[0]:
         raise ValueError(f"level: expected (8, m) or (B >= 1, 8, m), got {tuple(level.shape)}")
     m = level.shape[-1]
@@ -153,22 +175,20 @@ def merkle_collapse(level: torch.Tensor, out_widths=(1,), step=None) -> list:
         raise ValueError(f"collapse width must be a power of two <= {COLLAPSE_MAX}, got {m}")
     widths = _check_widths(m, out_widths)
     _check_step(level, widths, step)
+    if not level.is_cuda:
+        return [narrow(o) for o in merkle_collapse_plain(widen(level), widths, step)]
     blobs = level.view(-1, 8, m)
-    if level.is_cuda:
-        outs = [torch.empty((blobs.shape[0], 8, w), dtype=torch.int32, device=level.device) for w in widths]
-        ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
-        ws = (ctypes.c_longlong * len(widths))(*widths)
-        state, seed, alpha = step if step is not None else (None, None, None)
-        lib = _build.library()
-        _build.check_launch(lib.frieda_merkle_collapse(
-            level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), blobs.shape[0],
-            None if state is None else state.data_ptr(), None if seed is None else seed.data_ptr(),
-            None if alpha is None else alpha.data_ptr(), dc.DRAW_BOUND, _build.stream_of(level)))
-        merkle_collapse.launches += 1
-        merkle_collapse.steps += step is not None
-    else:
-        per_blob = [merkle_collapse_plain(widen(b), widths, step) for b in blobs]
-        outs = [torch.stack([narrow(o[k]) for o in per_blob]) for k in range(len(widths))]
+    outs = [torch.empty((blobs.shape[0], 8, w), dtype=torch.int32, device=level.device) for w in widths]
+    ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    ws = (ctypes.c_longlong * len(widths))(*widths)
+    state, seed, alpha = step if step is not None else (None, None, None)
+    lib = _build.library()
+    _build.check_launch(lib.frieda_merkle_collapse(
+        level.data_ptr(), ptrs, ws, len(widths), m, collapse_plan(m), blobs.shape[0],
+        None if state is None else state.data_ptr(), None if seed is None else seed.data_ptr(),
+        None if alpha is None else alpha.data_ptr(), dc.DRAW_BOUND, _build.stream_of(level)))
+    merkle_collapse.launches += 1
+    merkle_collapse.steps += step is not None
     return outs if level.dim() == 3 else [o[0] for o in outs]
 
 
@@ -385,7 +405,11 @@ def merkle_open_queries_plain(columns, trees, query_words) -> torch.Tensor:
     nodes a level (`query_reads`), read by `merkle_open_plain`. A sharded
     layer (`parallel.mesh.Sharded`, `core.merkle.ShardedTree`) is read from
     its reassembled columns and `whole_tree`. The query words are read on
-    the host (a tensor is fetched)."""
+    the host (a tensor is fetched). A batch ((B, 4, 2^L) layers, a list of
+    B trees each, (B, nq) words) -> (B, words), blob by blob."""
+    if trees and isinstance(trees[0], (list, tuple)):
+        return torch.stack([merkle_open_queries_plain([x[b] for x in columns], [tree[b] for tree in trees],
+                                                      query_words[b]) for b in range(len(trees[0]))])
     columns, trees = _whole(columns, trees)
     words = to_numpy_u32(query_words) if isinstance(query_words, torch.Tensor) else np.asarray(query_words)
     values, nodes = query_reads(trees, words)
@@ -426,28 +450,77 @@ class OpenLayer(NamedTuple):
     in csrc/merkle.cu). Whole: its (4, 2^L) columns, its pruned tree's flat
     tensor, no top. Element-sharded over the S > 1 shards of one mesh row,
     all in one block here: shard 0's part and tree (shard e's lie e parts and
-    e trees further on), and the top tree's flat tensor."""
+    e trees further on), and the top tree's flat tensor. Of a batch of
+    proofs: blob 0's columns and tree, blob b's `blob_cols` and `blob_flat`
+    words a blob further on (0 for one proof)."""
 
     cols: torch.Tensor
     flat: torch.Tensor
     top: torch.Tensor | None
     log_leaves: int  # of the whole layer
     stored: int  # `stored_mask` of its tree (of each shard's tree)
+    blob_cols: int = 0
+    blob_flat: int = 0
+
+
+def _rows_of_one_tensor(what: str, rows: list) -> int:
+    """The word stride from each of `rows` to the next, checked: row b must
+    lie b strides after row 0 (ValueError otherwise); 0 for one row."""
+    if len(rows) == 1:
+        return 0
+    step = (rows[1].data_ptr() - rows[0].data_ptr()) // 4
+    if step < rows[0].numel() or any(row.data_ptr() != rows[0].data_ptr() + 4 * b * step
+                                     for b, row in enumerate(rows)):
+        raise ValueError(f"{what} are not the rows of one tensor in blob order")
+    return step
+
+
+def _batched_layer(t: int, x: torch.Tensor, trees) -> OpenLayer:
+    """The `OpenLayer` of layer t of a batch: (B, 4, 2^L) columns and B
+    pruned trees (`core.merkle.build_pruned_many`'s rows), checked."""
+    trees = list(trees)
+    if any(isinstance(tree, ShardedTree) for tree in trees):
+        raise ValueError(f"layer {t}: a batch of proofs reads whole layers only")
+    if x.dim() != 3 or x.shape[0] != len(trees) or not trees:
+        raise ValueError(f"layer {t}: {tuple(x.shape)} columns for {len(trees)} trees; expected (B, 4, 2^L)")
+    for b, tree in enumerate(trees):
+        _check_layer(f"layer {t}, blob {b}", x[b], tree)
+    first = trees[0]
+    if any(tree.log_leaves != first.log_leaves or tree.offsets != first.offsets for tree in trees):
+        raise ValueError(f"layer {t}: its blobs' trees differ in shape")
+    return OpenLayer(x[0], first.flat, None, first.log_leaves, stored_mask(first),
+                     _rows_of_one_tensor(f"layer {t}'s columns", list(x)),
+                     _rows_of_one_tensor(f"layer {t}'s trees", [tree.flat for tree in trees]))
 
 
 def open_queries_layers(columns, trees) -> tuple:
     """(layers, log_shards): the `OpenLayer` of each layer, checked, and
     log2 S of the sharded ones (0 with none). A layer is a (4, 2^L) tensor
-    with a `PrunedTree`, or a `parallel.mesh.Sharded` with a
-    `ShardedTree`; one over a single shard is read as a whole layer. Raises
-    ValueError for layers of several shard counts, a shard not held here,
-    shards whose parts or trees are not the rows of one tensor in shard
-    order (the kernel finds shard e's at e rows from shard 0's), unequal
-    shard trees, or a top tree that does not store every level."""
+    with a `PrunedTree`, a `parallel.mesh.Sharded` with a `ShardedTree`, or
+    a batch's (B, 4, 2^L) tensor with a list of B `PrunedTree`s (every
+    layer then a batch's); one over a single shard is read as a whole
+    layer. Raises ValueError for layers of several shard counts, a shard
+    not held here, shards whose parts or trees are not the rows of one
+    tensor in shard order (the kernel finds shard e's at e rows from shard
+    0's), unequal shard trees, a top tree that does not store every level,
+    and a batch whose blobs' columns or trees are not the rows of one
+    tensor at one stride (the kernel finds blob b's at b strides), or mixed
+    with single or sharded layers."""
     if not columns or len(columns) != len(trees):
         raise ValueError(f"{len(columns)} column sets for {len(trees)} trees")
     if len(trees) > OPEN_LEVELS:
         raise ValueError(f"at most {OPEN_LEVELS} layers")
+    batched = {isinstance(tree, (list, tuple)) for tree in trees}
+    if len(batched) > 1:
+        raise ValueError("a batch's layers and single layers in one read")
+    if batched.pop():
+        layers = [_batched_layer(t, x, tree) for t, (x, tree) in enumerate(zip(columns, trees))]
+        if len({len(tree) for tree in trees}) != 1:
+            raise ValueError("layers of a batch with different blob counts")
+        if any(layer.log_leaves >= OPEN_LEVELS for layer in layers):
+            raise ValueError(f"at most {OPEN_LEVELS} layers of fewer than 2^{OPEN_LEVELS} leaves")
+        _build.check_same_device(*[layer.cols for layer in layers])
+        return layers, 0
     layers, shard_logs = [], set()
     for t, (x, tree) in enumerate(zip(columns, trees)):
         if not isinstance(tree, ShardedTree):
@@ -496,19 +569,35 @@ def merkle_open_queries(columns, trees, query_words: torch.Tensor, out: torch.Te
     mesh row with every shard in one block here, `open_queries_layers`) and
     the (nq,) int32 query words on the same device, into `out`
     (`open_queries_words` int32 words, or a new tensor): the same words at
-    the same offsets whatever the layers' form. One launch on CUDA tensors:
-    the layers go by value in the kernel's parameters and the words are read
-    on the card, so nothing is uploaded or fetched and a CUDA graph captures
-    the launch. The plain version on CPU tensors."""
+    the same offsets whatever the layers' form. A batch of B proofs takes
+    (B, 4, 2^L) layers with a list of B trees each (`core.merkle.
+    build_pruned_many`'s rows), (B, nq) words and a (B, words) `out`, whose
+    rows may lie further apart than their length (the gathers' part of
+    each row of a batch's packed vectors). One launch on CUDA tensors, for
+    a batch too: the layers go by value in the kernel's parameters and the
+    words are read on the card, so nothing is uploaded or fetched and a
+    CUDA graph captures the launch. The plain version on CPU tensors."""
     layers, log_shards = open_queries_layers(columns, trees)
-    nq = query_words.numel()
+    batch = query_words.dim() == 2
+    if batch != isinstance(trees[0], (list, tuple)):
+        raise ValueError(f"query words {tuple(query_words.shape)}: (nq,) for one proof, (B, nq) for a batch")
+    lead = tuple(query_words.shape[:-1])
+    nq = query_words.shape[-1]
     if not nq:
         raise ValueError("no query words")
-    _build.check_u32(query_words, "query_words", (nq,))
+    if batch and query_words.shape[0] != len(trees[0]):
+        raise ValueError(f"{query_words.shape[0]} rows of query words for {len(trees[0])} blobs")
+    _build.check_u32(query_words, "query_words", lead + (nq,))
     n_words = open_queries_words([layer.log_leaves for layer in layers], nq)
     if out is None:
-        out = torch.empty(n_words, dtype=torch.int32, device=query_words.device)
-    _build.check_u32(out, "out", (n_words,))
+        out = torch.empty(lead + (n_words,), dtype=torch.int32, device=query_words.device)
+    if batch:
+        if out.dtype != torch.int32 or tuple(out.shape) != lead + (n_words,) or out.stride(-1) != 1 \
+                or (out.shape[0] > 1 and out.stride(0) < n_words):
+            raise ValueError(f"out: expected int32 {lead + (n_words,)} rows, got {out.dtype} {tuple(out.shape)} "
+                             f"strides {out.stride()}")
+    else:
+        _build.check_u32(out, "out", (n_words,))
     _build.check_same_device(layers[0].cols, query_words, out)
     if not query_words.is_cuda:
         return out.copy_(narrow(merkle_open_queries_plain(columns, trees, query_words)))
@@ -517,11 +606,15 @@ def merkle_open_queries(columns, trees, query_words: torch.Tensor, out: torch.Te
     def pointers(ts):
         return (ctypes.c_void_p * T)(*[None if x is None else x.data_ptr() for x in ts])
 
+    def longs(values):
+        return (ctypes.c_longlong * T)(*values)
+
     _build.check_launch(_build.library().frieda_merkle_open_queries(
         pointers([layer.cols for layer in layers]), pointers([layer.flat for layer in layers]),
         pointers([layer.top for layer in layers]), (ctypes.c_int * T)(*[layer.log_leaves for layer in layers]),
-        (ctypes.c_uint * T)(*[layer.stored for layer in layers]), T, log_shards, query_words.data_ptr(), nq,
-        out.data_ptr(), _build.stream_of(out)))
+        (ctypes.c_uint * T)(*[layer.stored for layer in layers]), longs([layer.blob_cols for layer in layers]),
+        longs([layer.blob_flat for layer in layers]), T, log_shards, query_words.data_ptr(), nq,
+        lead[0] if batch else 1, out.stride(0) if batch else 0, out.data_ptr(), _build.stream_of(out)))
     merkle_open_queries.launches += 1
     return out
 
@@ -537,7 +630,13 @@ def open_queries_work(trees, query_words) -> tuple:
     of the distinct column entries (16) and stored nodes (32) its reads
     touch, each counted once. For `utils/profiling.merkle_open_queries_bound`.
     A sharded layer counts as its `whole_tree`, whose levels narrower than S
-    are all stored: their nodes are read, not rebuilt."""
+    are all stored: their nodes are read, not rebuilt. A batch's launch (a
+    list of B trees a layer, (B, nq) words) counts its B proofs' work, each
+    its own."""
+    if trees and isinstance(trees[0], (list, tuple)):
+        work = [open_queries_work([tree[b] for tree in trees], np.asarray(query_words)[b])
+                for b in range(len(trees[0]))]
+        return tuple(int(sum(w)) for w in zip(*work))
     trees = [whole_tree(tree) if isinstance(tree, ShardedTree) else tree for tree in trees]
     values, nodes = query_reads(trees, query_words)
     nodes = np.unique(nodes, axis=0)

@@ -129,16 +129,38 @@ def sharded_commit_and_prove(data: bytes, seed, pcs_config: PcsConfig, mesh: Mes
     return fri.finish_proof(committed, log_total, pcs_config)
 
 
+def _one_device(mesh: Mesh):
+    """The device that holds every shard of an in-process mesh, or None
+    (several devices, or a process group); "cuda" and "cuda:0" name one card
+    (`core/fri._card`)."""
+    if mesh.group is not None:
+        return None
+    devices = {fri._card(mesh.device(d, e)) for d in range(mesh.n_data) for e in range(mesh.n_elem)}
+    return devices.pop() if len(devices) == 1 else None
+
+
 def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     """[(commitment, Proof)] of each blob under its seed, in input order,
-    bit-identical to the single-device proofs: the blobs split over the
-    mesh rows, each blob's commit phase element-sharded over its row with its
-    own transcript; every commit phase is enqueued before the first
-    decommitment (a graph replay each where `sharded_commit_and_prove`'s
-    is one, so a row's key holds as many captured instances as the row has
-    blobs). Blobs must share a padded size, and seeds be all None or
-    all set (ValueError, as in the JAX package). A process-group mesh gives
-    None for the blobs of rows this process holds no shard of."""
+    bit-identical to the single-device proofs; each blob keeps its own
+    transcript. Blobs must share a padded size, and seeds be all None or
+    all set (ValueError, as in the JAX package). Counterpart of the JAX
+    package's, which proves the whole batch as ONE dispatch of its commit
+    phase vmapped over the blobs (`_fri_commit_fn(..., batched=True)`).
+
+    Where every shard of the mesh lies on one device and the carrier is
+    in-process (a mesh of one card's virtual shards, or of the CPU), the
+    batch is that one dispatch here too (`core/fri.dispatch_batch`): the rows
+    uploaded in one copy, one batched commit phase (on the card one graph
+    replay), then a `finish_proof` a blob, the first of which makes the one
+    fetch. Each blob's layers are then whole, as the JAX batched program
+    keeps its auto-sharded XLA stage loop rather than the shard_map path
+    (`frieda_tpu/core/fri.py:199-205`): a row's shards are one buffer on one
+    device, and the packed outputs equal one device's. A batch larger than
+    the card's share (`core/fri.safe_batch`) runs as consecutive batched
+    dispatches.
+
+    Otherwise (shards on several devices, or a process-group mesh) the
+    batch takes the per-blob route, `prove_many_per_blob`."""
     datas, seeds = list(datas), list(seeds)
     if len(datas) != len(seeds):
         raise ValueError(f"{len(datas)} blobs but {len(seeds)} seeds")
@@ -151,6 +173,26 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     log_total = log_totals.pop()
     if log_total - 2 - 1 - pcs_config.fri_config.log_last_layer_degree_bound < 0:  # n_inner < 0
         raise ValueError("config unsatisfiable for this blob size")
+    device = _one_device(mesh)
+    if device is not None:  # batched dispatches of at most `safe_batch` blobs, each finished before the next
+        chunk = fri.safe_batch(log_total - 2, pcs_config.fri_config, device)
+        out = []
+        for i in range(0, len(datas), chunk):
+            committed = fri.dispatch_batch(datas[i : i + chunk], log_total, seeds[i : i + chunk], pcs_config, device)
+            out.extend(fri.finish_proof(c, log_total, pcs_config) for c in committed)
+        return out
+    return prove_many_per_blob(datas, seeds, log_total, pcs_config, mesh)
+
+
+def prove_many_per_blob(datas, seeds, log_total: int, pcs_config: PcsConfig, mesh: Mesh):
+    """`prove_many_sharded`'s route for a mesh over several devices or a
+    process group, which takes any mesh: the blobs (2^log_total felts each,
+    checked by the caller) split over the mesh rows, each blob's commit phase
+    element-sharded over its row with its own transcript (`fri.dispatch_blob`:
+    a graph replay each where `sharded_commit_and_prove`'s is one, so a
+    row's key holds as many captured instances as the row has blobs), every
+    commit phase enqueued before the first decommitment. A process-group
+    mesh gives None for the blobs of rows this process holds no shard of."""
     local = set(mesh.rows())
     pending = {}
     for b, (data, seed) in enumerate(zip(datas, seeds)):

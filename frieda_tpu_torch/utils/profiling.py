@@ -232,16 +232,17 @@ def merkle_level_bound(width: int, leaf: bool, fused: bool, blobs: int = 1,
 
 
 def merkle_collapse_bound(m: int, widths=(1,), blobs: int = 1, card: str | None = None,
-                          step: bool = False) -> tuple | None:
+                          step: bool = False, seed: bool = False) -> tuple | None:
     """`merkle_collapse` of `blobs` levels of width m to the root, writing the
-    levels of `widths`: m - 1 compressions a blob. With `step` (one blob,
-    no seed), the channel step on the root as well: the state read and
-    written, alpha (16 bytes) written, 2 channel compressions."""
+    levels of `widths`: m - 1 compressions a blob. With `step`, each blob's
+    channel step on its root as well: its state read and written, alpha
+    (16 bytes) written, 2 channel compressions (3 and its 8 seed bytes read
+    with `seed`)."""
     n_bytes = blobs * 32 * (m + sum(widths))
     compressions = blobs * (m - 1)
     if step:
-        n_bytes += 2 * CHANNEL_STATE_BYTES + 16
-        compressions += 2
+        n_bytes += blobs * (2 * CHANNEL_STATE_BYTES + 16 + (8 if seed else 0))
+        compressions += blobs * (3 if seed else 2)
     return least_ms(n_bytes, compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
@@ -265,29 +266,36 @@ def merkle_open_queries_bound(nq: int, out_words: int, read_bytes: int, compress
     """`merkle_open_queries` of one proof (`ops/merkle.open_queries_work`):
     the nq query words read, the distinct column entries and stored nodes
     its reads touch (`read_bytes`, each once) and its out_words written;
-    `compressions`, the distinct hashes its distinct node reads need."""
+    `compressions`, the distinct hashes its distinct node reads need. A
+    batch's launch of B proofs: the sums over them (B nq words, B proofs'
+    output words, `open_queries_work` of the batch)."""
     return least_ms(4 * nq + read_bytes + 4 * out_words, compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
-def fri_fold_bound(half: int, card: str | None = None) -> tuple | None:
-    """`fri_fold` of (4, 2 half) QM31 values to (4, half): the values, `half`
-    inverses and alpha read, the fold written."""
-    return least_ms(4 * (8 * half + half + 4 + 4 * half), half * QM31_FOLD_INSTR, card)
+def fri_fold_bound(half: int, card: str | None = None, blobs: int = 1, tables: int = 1) -> tuple | None:
+    """`fri_fold` of `blobs` (4, 2 half) QM31 values to (4, half) each: the
+    values, each blob's alpha and `tables` inverse tables of `half` words
+    (1: shared by the blobs; `blobs`: one a row) read, the folds written."""
+    return least_ms(4 * (blobs * (8 * half + 4 + 4 * half) + tables * half), blobs * half * QM31_FOLD_INSTR,
+                    card)
 
 
 def transcript_bound(message_bytes: int, drawn_bytes: int, compressions: int,
-                     card: str | None = None) -> tuple | None:
-    """One `transcript` launch: the channel state read and written, the mixed
-    message read, the drawn words written; `compressions` dependent BLAKE2s
-    compressions."""
-    return least_ms(2 * CHANNEL_STATE_BYTES + message_bytes + drawn_bytes,
-                    compressions * BLAKE2S_COMPRESS_INSTR, card)
+                     card: str | None = None, blobs: int = 1) -> tuple | None:
+    """One `transcript` launch over `blobs` channels, each with the same
+    steps: a channel's state read and written, its mixed message read, its
+    drawn words written; `compressions` BLAKE2s compressions a channel."""
+    return least_ms(blobs * (2 * CHANNEL_STATE_BYTES + message_bytes + drawn_bytes),
+                    blobs * compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
-def grind_bound(nonce: int, card: str | None = None) -> tuple | None:
-    """`grind` that found `nonce`: the state read and the nonce (8 bytes)
-    written; nonce + 1 compressions, one a candidate up to the minimum."""
-    return least_ms(CHANNEL_STATE_BYTES + 8, (nonce + 1) * BLAKE2S_COMPRESS_INSTR, card)
+def grind_bound(nonce, card: str | None = None) -> tuple | None:
+    """`grind` that found `nonce` (a batch's: the nonce of each blob): each
+    state read and nonce (8 bytes) written; nonce + 1 compressions a blob,
+    one a candidate up to its minimum."""
+    nonces = [nonce] if isinstance(nonce, int) else list(nonce)
+    return least_ms(len(nonces) * (CHANNEL_STATE_BYTES + 8), sum(n + 1 for n in nonces) * BLAKE2S_COMPRESS_INSTR,
+                    card)
 
 
 def _roofline(kernel: str, n_bytes: int, n_instr: int, seconds: float, card: str | None, **counts) -> dict:

@@ -339,10 +339,10 @@ def test_a_last_layer_above_its_bound_raises_in_finish_proof(monkeypatch):
     fold_l = fri.fold_l
     rng = np.random.default_rng(3)
 
-    def breaking_fold(g, alpha, xs_inv):
+    def breaking_fold(g, alpha, xs_inv):  # a batch's (B, 4, M) values
         out = fold_l(g, alpha, xs_inv)
-        if out.shape[1] == last:  # the last layer: not of degree < 1
-            out = from_numpy_u32(_u32(rng, (4, last), P), "cpu")
+        if out.shape[-1] == last:  # the last layer: not of degree < 1
+            out = from_numpy_u32(_u32(rng, tuple(out.shape), P), "cpu")
         return out
 
     monkeypatch.setattr(fri, "fold_l", breaking_fold)

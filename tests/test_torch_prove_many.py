@@ -144,9 +144,10 @@ def test_a_wrong_last_fold_is_rejected(monkeypatch):
     fold_l = fri.fold_l
     last = 1 << (CFG.fri_config.log_blowup_factor + CFG.fri_config.log_last_layer_degree_bound)
 
-    def cheating_fold(g, alpha, xs_inv):
-        if g.shape[1] == 2 * last:
-            alpha = ((alpha[0] + 1) % ((1 << 31) - 1),) + tuple(alpha[1:])
+    def cheating_fold(g, alpha, xs_inv):  # a batch's (B, 4, M) values and (B, 4) alphas
+        if g.shape[-1] == 2 * last:
+            alpha = alpha.clone()
+            alpha[..., 0] = (alpha[..., 0] + 1) % ((1 << 31) - 1)
         return fold_l(g, alpha, xs_inv)
 
     monkeypatch.setattr(fri, "fold_l", cheating_fold)
