@@ -58,7 +58,10 @@ Phases, each printed as it runs:
      and queries) on 64 seeded states against the host channel and the plain
      version, each step form timed beside the launch floor and its chain of
      compressions; `grind` at pow_bits 8, 16 and 20 against the plain sweep
-     (and at 8 and 16 a host scan, `grind_host`'s loop): the minimum nonce;
+     (and at 8 and 16 a host scan, `grind_host`'s loop): the minimum nonce,
+     with its plan (blocks, k, W), its registers (phase 2) and, at 20,
+     nvidia-smi's SM clock, power and temperature sampled beside launches
+     run back to back;
      then the blob axis of `commit_many`, each batch
      bit-equal to the one-blob plain version per blob: `ingest` at 64 blobs
      of log_size 14 (tiles) and 3 of log_size 8 (per-element), `fft_pass`
@@ -184,7 +187,11 @@ Phases, each printed as it runs:
      element beside `fri.RESIDENT_BYTES_PER_ELEMENT`), finished in reverse
      order, each == eager; one capture per key over repeated calls; launches
      per proof == eager's, `merkle_open_queries` inside the graph (a
-     torch.profiler trace of one replay holds its node); the dispatch (copy,
+     torch.profiler trace of one replay, behind a warm replay that takes
+     the trace's lost first records (`traced_run`), holds each recorded
+     launch), the replayed
+     proof's nonce and its `grind` record's device ms and share of
+     `grind_bound`; the dispatch (copy,
      seed fill, replay) under sync debug mode "error", then a `finish_proof`
      with one synchronizing fetch and no launch; host enqueue, device
      and whole-prove ms of both, median of 5 in turns, and the words' copy.
@@ -203,7 +210,10 @@ Phases, each printed as it runs:
      alpha and a table a row; the collapse with a channel step a blob, with
      and without seeds and with `DRAW_BOUND` lowered so that some blobs'
      draws retry and others' do not; `transcript`'s close forms; `grind` at
-     pow_bits 8 and 20, each blob's nonce its own minimum; `merkle_open_queries`
+     pow_bits 8 and 20 and B = 1, 3, 8 and 64, each blob's nonce its own
+     minimum and its one-blob launch's, each case's device ms, share, plan
+     and registers, 8 and 64 channels beside as many one-channel launches,
+     the SM clock beside the 8; `merkle_open_queries`
      over the batch's real layers, == the batch's packed gathers, every
      packed row == `commit_phase`'s), each timed at B = 8 beside 8 one-blob
      launches and its bound; `prove_many_sharded` of 8 x 2^20 / 64 q over the
@@ -212,9 +222,10 @@ Phases, each printed as it runs:
      launches per batch beside 8 single replays' (each kernel once a layer);
      `dispatch_batch` under sync debug mode "error", its 8 finishes one
      synchronizing fetch and no launch; device ms of one batched replay
-     against 8 single replays and whole-call ms of `prove_many_sharded`
-     against `prove_many` (median of 5 in turns), idle share and peak
-     memory of one profiled call each.
+     against 8 single replays, a trace of one batched replay behind a warm
+     one holding each recorded launch, and whole-call ms of
+     `prove_many_sharded` against `prove_many` (median of 5 in turns), idle
+     share and peak memory of one profiled call each.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON,
@@ -267,7 +278,7 @@ import warnings
 import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
-from torch_harness import (card, cuda_ms, device_busy_us, device_ms, host_ms,  # noqa: E402
+from torch_harness import (card, clocks_beside, cuda_ms, device_busy_us, device_ms, host_ms,  # noqa: E402
                            proof_collapse_widths)
 
 # The JAX package's span names on the paths phase 9 traces (utils/profiling),
@@ -333,6 +344,7 @@ EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, 
 # channel step; its launches are `merkle_collapse.steps` on the main path.
 STEP_FORM = "merkle_collapse+step"
 STEPS = "merkle_collapse.steps"  # the key of the steps in a phase's counts
+BUILT = {}  # kernel -> its registers, barriers and spills from the build log (phase 2)
 # SASS opcodes that are not integer work: memory, control, moves.
 SASS_SKIP = {"LDG", "STG", "LDC", "ULDC", "S2R", "S2UR", "EXIT", "BRA", "NOP", "ISETP", "BAR",
              "BSSY", "BSYNC", "RET", "CS2R", "MOV", "UMOV"}
@@ -367,6 +379,16 @@ def check(cond: bool, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def grind_form(blobs: int) -> str:
+    """The grind launch's plan over `blobs` channels (blocks, threads, k, W)
+    and its kernel's registers from the build's `-Xptxas -v` (phase 2)."""
+    from frieda_tpu_torch.ops import channel as channel_ops
+
+    plan = channel_ops.grind_plan(blobs)
+    return (f"{plan.blocks} blocks of {plan.threads} threads, k {plan.nonces} nonces a thread an item, "
+            f"W {plan.width}; {BUILT.get('grind_kernel', 'registers not read')}")
 
 
 def plain_route():
@@ -603,7 +625,8 @@ def main() -> int:
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
-            say(f"[2]   {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+            BUILT[kernel] = f"{line.split(':', 1)[1].strip()}; {spills}"
+            say(f"[2]   {kernel}: {BUILT[kernel]}")
     bfly = sass_int_ops(so, "frieda_fft_butterfly_probe")
     say(f"[2] the M31 butterfly probe's SASS: {' '.join(bfly)}")
     for what, probe, fixed in (
@@ -1119,13 +1142,13 @@ def main() -> int:
         ms = device_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
         call = cuda_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
         plain_ms = cuda_ms(lambda: channel_ops.grind_plain(st, pow_bits), reps=3)  # noqa: B023
-        blocks = ctypes.c_int()
-        _build.library().frieda_grind_blocks(ctypes.byref(blocks))
         say(f"[3] grind pow_bits={pow_bits}: nonce {nonce} == plain sweep"
             f"{' == host scan' if pow_bits <= 16 else ''}; device {ms:.4f} ms, call {call:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {nonce + 1} compressions; share {b_ms / ms:.3f}); "
-            f"{blocks.value} blocks of 256 threads")
+            f"{grind_form(1)}")
         if pow_bits == 20:
+            say(f"[3] grind pow_bits=20, one launch after another: "
+                f"{clocks_beside(lambda: channel_ops.grind(st, pow_bits))}")  # noqa: B023
             kernels["grind"] = dict(
                 source="frieda_tpu_torch/csrc/channel.cu",
                 replaces="frieda_tpu/core/device_channel.py:145 dc_grind (XLA, no Pallas kernel)",
@@ -1969,6 +1992,7 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
     from frieda_tpu_torch.core import fft, fri
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.parallel import sharding
+    from frieda_tpu_torch.utils import profiling
     from frieda_tpu_torch.utils.convert import from_numpy_u32
     from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words
 
@@ -2050,11 +2074,8 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
               f"{what}: 3 repeated graph proofs: {captures() - n1} captures, bytes equal {repeated == [want] * 3}")
         check(graph_counts == {k: 3 * v for k, v in eager_counts.items()},
               f"{what}: launches of 3 graph proofs {graph_counts}, eager proof {eager_counts}")
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            lead_in()
-            committed = graph()
-            torch.cuda.synchronize()
+        prof, committed = traced_run(
+            graph, lambda c: check(finish(c) == want, f"{what}: the trace's warm replay's proof differs"))  # noqa: B023
         traced = traced_launches(prof)
         recorded = committed._lease.launches
         check(traced == recorded and {**recorded, STEPS: committed._lease.steps} == eager_counts,
@@ -2062,6 +2083,10 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
               f"{recorded} and {committed._lease.steps} channel steps, eager commit phase {eager_counts}")
         check(finish(committed) == want, f"{what}: the traced replay's proof differs")
         port, plain, copies, windows = replay_device_ms(prof)
+        grind_ms = port["grind"][1]
+        b_ms, b_by = profiling.grind_bound(committed.nonce)
+        say(f"[13]   {what}: the replay's grind: nonce {committed.nonce}, device {grind_ms:.4f} ms (its record), "
+            f"bound {b_ms:.6f} ms ({b_by}), share {b_ms / grind_ms:.3f}; {grind_form(1)}")
         say(f"[13]   {what}: one replay's device records (torch.profiler, [records, summed ms, summed ms of "
             f"the gaps after them]): the port's kernels "
             f"{({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in port.items()})}; plain PyTorch "
@@ -2426,11 +2451,16 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         f"bit-equal to plain; 8 channels' nonce + 64 queries in one launch: device {ms:.4f} ms, call {call:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); 8 single launches device {singles:.4f} ms")
 
-    # grind: each blob's nonce is its own minimum (the plain sweep's)
+    # grind: each blob's nonce is its own minimum (the plain sweep's) and its
+    # one-blob launch's; B = 64's states from their own generator, so that
+    # B = 1, 3, 8 keep the states of the phase before it had B = 64
+    many_rng = np.random.default_rng(SEED + 64)
     for pow_bits in (8, 20):
-        for B in (1, 3, 8):
+        for B in (1, 3, 8, 64):
             st = channel_ops.new_state(dev, B)
-            channel_ops.transcript(st, mix_u64=rand_u32((B, 2)))
+            words = (rand_u32((B, 2)) if B < 64 else
+                     from_numpy_u32(many_rng.integers(0, 1 << 32, (B, 2), dtype=np.uint64).astype(np.uint32), dev))
+            channel_ops.transcript(st, mix_u64=words)
             got = channel_ops.grind(st, pow_bits)
             want = channel_ops.grind_plain(st, pow_bits)
             nonces = to_numpy_u32(got).astype(np.uint64)
@@ -2440,17 +2470,23 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
             check(all(torch.equal(got[b], channel_ops.grind(st[b], pow_bits)) for b in range(B)),
                   f"grind B = {B}, pow_bits {pow_bits}: a blob's nonce differs from its one-blob launch's")
             errs["grind[batch]"] = max(errs["grind[batch]"], max_abs_err(got, want))
+            ms = device_ms(lambda: channel_ops.grind(st, pow_bits), reps=5)  # noqa: B023
+            b_ms, b_by = profiling.grind_bound(nonces)
+            line = (f"[14] grind B = {B}, pow_bits {pow_bits}: nonces == the plain sweep's == the one-blob "
+                    f"launches' (sum {sum(nonces)}, largest {max(nonces)}); one launch: device {ms:.4f} ms, bound "
+                    f"{b_ms:.6f} ms ({b_by}; {sum(nonces) + B} compressions), share {b_ms / ms:.3f}; {grind_form(B)}")
+            if pow_bits == 20 and B in (8, 64):
+                singles = device_ms(lambda: [channel_ops.grind(st[b], pow_bits) for b in range(B)],  # noqa: B023
+                                    reps=5 if B == 8 else 2)
+                line += f"; {B} one-channel launches: device {singles:.4f} ms (share {b_ms / singles:.3f})"
             if pow_bits == 20 and B == 8:
-                ms = device_ms(lambda: channel_ops.grind(st, pow_bits), reps=5)  # noqa: B023
-                singles = device_ms(lambda: [channel_ops.grind(st[b], pow_bits) for b in range(8)], reps=5)  # noqa: B023
                 call = cuda_ms(lambda: channel_ops.grind(st, pow_bits))  # noqa: B023
                 plain_ms = cuda_ms(lambda: channel_ops.grind_plain(st, pow_bits), reps=3)  # noqa: B023
-                b_ms, b_by = profiling.grind_bound(nonces)
                 entry["grind[batch]"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-                say(f"[14] grind 8 channels at pow_bits 20 (nonces {nonces}), one launch: device {ms:.4f} ms, call "
-                    f"{call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {sum(nonces) + 8} "
-                    f"compressions; share {b_ms / ms:.3f}); 8 single launches device {singles:.4f} ms")
-    say("[14] grind B = 1, 3, 8 at pow_bits 8 and 20: each blob's nonce == the plain sweep's minimum == its "
+                line += (f"; call {call:.4f} ms, plain {plain_ms:.4f} ms; one launch after another: "
+                         f"{clocks_beside(lambda: channel_ops.grind(st, pow_bits))}")  # noqa: B023
+            say(line)
+    say("[14] grind B = 1, 3, 8, 64 at pow_bits 8 and 20: each blob's nonce == the plain sweep's minimum == its "
         "one-blob launch's")
 
     # merkle_open_queries over a batch's real layers and trees
@@ -2585,23 +2621,20 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     say(f"[14] device ms of the commit phases of 8 x 2^20 felts / 64 q (CUDA events, words on the card; median of "
         f"5 in turns): one batched replay {med['batched']:.3f} ({[round(x, 3) for x in dev_ms['batched']]}), 8 "
         f"single replays {med['8 single']:.3f} ({[round(x, 3) for x in dev_ms['8 single']]})")
-    # where one batched replay's device time goes: its records in a trace.
-    # The launches are checked by the wrappers' counts above; a trace of a
-    # batched replay has lost its first records (the same 8 kernels in 3
-    # traces, after a 20 ms device wait, late in a whole run), so the kernels
-    # it holds are printed beside the recorded ones and not held to them.
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        lead_in()
-        cs = batched()
-        torch.cuda.synchronize()
+    # where one batched replay's device time goes: its records in a trace,
+    # which holds each launch its capture recorded
+    def settle(cs):
+        for b, c in enumerate(cs):
+            check(fri.finish_proof(c, log_total, cfg)[1].to_bytes() == many_out[b][1],
+                  f"traced batch row {b} differs")
+
+    prof, cs = traced_run(batched, settle)
     traced = traced_launches(prof)
-    for b, c in enumerate(cs):
-        check(fri.finish_proof(c, log_total, cfg)[1].to_bytes() == many_out[b][1], f"traced batch row {b} differs")
+    settle(cs)
     del cs
-    lost = {k: v - traced.get(k, 0) for k, v in inst.launches.items() if v != traced.get(k, 0)}
-    say(f"[14] the trace of one batched replay holds {'every recorded launch' if not lost else 'all but ' + str(lost)}"
-        f" (recorded at its capture: {inst.launches})")
+    check(traced == inst.launches, f"the trace of one batched replay holds {traced}, recorded at its capture "
+          f"{inst.launches}")
+    say(f"[14] the trace of one batched replay holds every recorded launch: {traced}")
     port, plain, copies, windows = replay_device_ms(prof)
     say(f"[14] one batched replay's device records (torch.profiler, [records, summed ms, summed ms of the gaps "
         f"after them]): the port's kernels {({k: [n, round(ms, 4), round(gap, 4)] for k, (n, ms, gap) in port.items()})}"
@@ -2681,14 +2714,13 @@ KERNEL_OF_WRAPPER = re.compile(
 
 
 def traced_launches(prof) -> dict:
-    """{wrapper: kernels of it} in a finished `torch.profiler.profile`: the
-    launches the card ran, which for a CUDA graph's replay are its kernel
-    nodes (the wrappers' counts there are the capture's record)."""
-    import torch
-
+    """{wrapper: kernels of it} among the counted records of a finished
+    `torch.profiler.profile` (`counted_events`): the launches the card ran,
+    which for a CUDA graph's replay are its kernel nodes (the wrappers'
+    counts there are the capture's record)."""
     out: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        m = KERNEL_OF_WRAPPER.search(e.name()) if e.device_type() == torch.autograd.DeviceType.CUDA else None
+    for e in counted_events(prof):
+        m = KERNEL_OF_WRAPPER.search(e.name())
         if m:
             out[m.group(1)] = out.get(m.group(1), 0) + 1
     return out
@@ -2698,22 +2730,51 @@ LEAD_IN = "spin_kernel"  # the kernel of torch.cuda._sleep
 
 
 def lead_in() -> None:
-    """A short device wait before the work a trace is for, inside its
-    `torch.profiler.profile`, left out of the counts (`LEAD_IN`): a trace
-    has lost the first kernel records of a graph replay that began as the
-    profiler started (`ingest`, the replay's first kernel, in one run)."""
+    """A short device wait that marks where the counted work of a trace
+    begins (`LEAD_IN`, `counted_events`)."""
     import torch
 
     torch.cuda._sleep(200_000)
     torch.cuda.synchronize()
 
 
+def counted_events(prof) -> list:
+    """The device records of a finished `torch.profiler.profile` after its
+    last `lead_in`, by start time; all of them if it holds none."""
+    import torch
+
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA), key=lambda e: e.start_ns())
+    last = max((i for i, e in enumerate(events) if LEAD_IN in e.name()), default=-1)
+    return events[last + 1:]
+
+
+def traced_run(run, settle) -> tuple:
+    """(a finished `torch.profiler.profile`, the result of the `run()` it
+    counts). A trace loses a varying number of its first device records,
+    whatever they are: the lead-in alone, or with the first 4 or 14 kernels
+    of the replay behind it, in a few of a hundred traces on an H100
+    (tools/torch_trace_loss.py). So the trace holds a warm `run()` first,
+    `settle` of its result (which frees what the counted run reuses), then
+    `lead_in` and the counted run: the loss falls on the warm run, and the
+    records after the lead-in are the counted run's."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        settle(run())
+        lead_in()
+        out = run()
+        torch.cuda.synchronize()
+    return prof, out
+
+
 def replay_device_ms(prof) -> tuple:
     """({port kernel: [records, summed device ms, summed ms of the idle gaps
     after them]}, {PyTorch kernel, short name: [the same]}, [copies and
     fills: the same], {window: [records, summed ms, device ms from the
-    record before it to the record after it]}) of the device records of one
-    commit phase's replay in a finished
+    record before it to the record after it]}) of the counted device records
+    (`counted_events`) of one commit phase's replay in a finished
     `torch.profiler.profile`. PyTorch's own kernels there: the trees'
     `torch.cat` (`core/merkle._flatten`), the channel state's zero fill and
     the close. The windows are the close's two stretches of plain PyTorch:
@@ -2721,11 +2782,7 @@ def replay_device_ms(prof) -> tuple:
     (`fri._device_ifft_line`, the coefficients' cast, the degree check),
     "head" from the last `transcript` to `merkle_open_queries` (the packed
     head's `torch.cat`)."""
-    import torch
-
-    events = sorted((e for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == torch.autograd.DeviceType.CUDA and LEAD_IN not in e.name()),
-                    key=lambda e: e.start_ns())
+    events = counted_events(prof)
     kinds = []
     port, plain, copies = {}, {}, [0, 0.0, 0.0]
     for i, e in enumerate(events):

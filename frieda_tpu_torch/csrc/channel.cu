@@ -39,23 +39,39 @@
 // words; its 4 alpha words and n_queries query words out); transcript runs
 // one block a blob, each the chain above.
 //
-// grind: the minimum nonce whose BLAKE2s(digest || nonce_le8) has at least
-// pow_bits trailing zeros in its first 16 bytes (a u128, little-endian), as
+// grind: for each channel b of a batch of B >= 1 (one channel is B = 1), the
+// minimum nonce whose BLAKE2s(digest_b || nonce_le8) has at least pow_bits
+// trailing zeros in its first 16 bytes (a u128, little-endian), as
 // core/grind.py's sweep and the host's grind_host. Bound: integer issue,
-// (nonce + 1) compressions of one block. Design: one launch, the search loop
-// on the card. A grid that fits on the card at once walks the 64-bit nonces
-// grid-stride; a thread stops at its first qualifying nonce (atomicMin into
-// best) or at its first nonce not below the current best. best only falls,
-// so every nonce a thread skips lies above the final minimum, and every
-// nonce below it was hashed: the result is the minimum, whatever the order
-// in which threads run. The caller sets best to 2^64 - 1 first.
-//
-// A batch of B channels shares the grid: a thread takes the nonces of its
-// grid-stride walk for every blob in turn, each blob with its own best
-// (atomicMin) and its own early exit (a nonce not below that blob's best is
-// skipped), and stops when its nonce is at or above every blob's best. Each
-// blob's best is then its own minimum by the argument above, and a blob
-// that is done leaves the whole grid to the others.
+// (nonce_b + 1) compressions a blob. One launch, one body for every B: a
+// persistent grid, one wave sized by ops/channel.grind_plan, whose blocks
+// claim search items from a counter in device memory. Item i is round
+// r = i / B of blob b = i mod B: the W = threads x k nonces [r W, (r + 1) W),
+// k to a thread. Items are handed out round-major, so the blobs advance
+// through the nonces together and the card's threads are spread over the
+// blobs still searching; a blob that is done costs a claim, not its hashes.
+// A block
+//   - skips an item whose base r W is at or above best[b] when it is claimed
+//     (one relaxed load of best[b] an item, not one a nonce);
+//   - exits once the base of its claimed round is at or above every blob's
+//     best (later claims only have larger bases);
+//   - otherwise reads the blob's digest once into registers, and each
+//     thread hashes its k nonces in increasing order, stopping at its first
+//     hit with atomicMin(best + b, nonce). The compiler hoists what does not
+//     depend on the nonce (the parameter IV, 7 of round 0's 8 Gs) out of the
+//     k-nonce loop itself: splitting the hash by hand there measured within
+//     1-2% (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W).
+// Why each best[b] ends at blob b's minimum, whatever order the blocks run
+// in: best[b] only falls (atomicMin from 2^64 - 1), and holds a qualifying
+// nonce once it is below 2^64 - 1. An item is skipped only when its base is
+// at or above best[b], so all its nonces are at or above the final best[b];
+// a thread stops only at a hit, so the nonces it leaves are larger than a
+// qualifying one; a block exits only when every round it could still claim
+// lies at or above every best. So every nonce below the final best[b] is
+// hashed, and none qualifies. The counter (best[B]) starts at 2^64 - 1 with
+// the bests, set by the wrapper's one fill inside whatever CUDA graph holds
+// the launch: the first claim wraps to item 0. tests/test_torch_grind_schedule.py
+// plays this schedule on the CPU in random claim orders.
 
 #include "blake2s.cuh"
 #include "common.cuh"
@@ -69,6 +85,8 @@ using frieda::param_iv;
 
 constexpr int kTranscriptThreads = 32;
 constexpr int kGrindThreads = 256;
+constexpr int kGrindMaxNonces = 64;  // k at most
+constexpr int kGrindMaxBlocks = 1 << 16;
 
 struct TranscriptArgs {
   uint32_t* state;          // digest (8 words), n_sent; blob b's at 9 b
@@ -154,73 +172,68 @@ __device__ __forceinline__ int trailing_zeros128(const uint32_t (&w)[8]) {
   return 128;
 }
 
-// Whether nonce clears pow_bits on digest d: BLAKE2s(d || nonce_le8) with at
-// least pow_bits trailing zeros in its first 16 bytes.
-__device__ __forceinline__ bool clears(const uint32_t (&d)[8], unsigned long long nonce, int pow_bits) {
-  const uint32_t m[16] = {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
-                          static_cast<uint32_t>(nonce), static_cast<uint32_t>(nonce >> 32),
-                          0u, 0u, 0u, 0u, 0u, 0u};
-  uint32_t h[8], out[8];
-  param_iv(h);
-  blake2s_compress(h, m, 40u, true, out);
-  return trailing_zeros128(out) >= pow_bits;
+// One relaxed load from device memory (L2): a best that other blocks lower.
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// ONE: one channel, its digest in registers for the whole search and the
-// thread gone at its first qualifying nonce. A batch's form (a loop over the
-// blobs inside the nonce loop, each digest read a nonce) took ~9% longer for
-// one channel (0.263-0.273 against 0.242-0.250 ms in a 2^20 and a 2^24
-// proof's graph replay, NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6),
-// so one channel keeps this form.
-template <bool ONE>
-__global__ void __launch_bounds__(kGrindThreads)
-grind_kernel(const uint32_t* __restrict__ state, int pow_bits, unsigned long long* best, int blobs) {
-  volatile unsigned long long* const seen = best;
-  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * kGrindThreads;
-  const unsigned long long first = static_cast<unsigned long long>(blockIdx.x) * kGrindThreads + threadIdx.x;
-  if constexpr (ONE) {
-    uint32_t d[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = state[i];
-    for (unsigned long long nonce = first;; nonce += stride) {
-      if (nonce >= *seen) return;
-      if (clears(d, nonce, pow_bits)) {
-        atomicMin(best, nonce);
-        return;
-      }
-    }
-  } else {
-    for (unsigned long long nonce = first;; nonce += stride) {
-      bool open = false;  // some blob's best is still above this nonce
-      for (int b = 0; b < blobs; ++b) {
-        if (nonce >= seen[b]) continue;
-        open = true;
-        uint32_t d[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = state[9 * b + i];
-        if (clears(d, nonce, pow_bits)) atomicMin(best + b, nonce);
-      }
-      if (!open) return;
-    }
-  }
-}
+struct GrindArgs {
+  const uint32_t* state;    // blob b's digest at 9 b
+  unsigned long long* best;  // best[b] a blob, then the item counter: all 2^64 - 1 on entry
+  int blobs;
+  int pow_bits;
+  int nonces;               // k: the nonces a thread hashes an item
+};
 
-// Blocks of a grind form's grid: as many as the card holds at once.
-template <bool ONE>
-cudaError_t grind_blocks(int* blocks) {
-  static int cached = 0;
-  static cudaError_t err = cudaSuccess;
-  if (cached == 0 && err == cudaSuccess) {
-    int device = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grind_kernel<ONE>, kGrindThreads, 0);
+// A persistent grid of kGrindThreads-thread blocks claiming items (see the
+// header): thread 0 claims and reads best, the block's barriers hand the item
+// to every thread (double-buffered by the claim's parity, so a slow thread's
+// read is never overwritten by the next claim).
+__global__ void __launch_bounds__(kGrindThreads) grind_kernel(GrindArgs a) {
+  __shared__ unsigned long long base_s[2];
+  __shared__ int blob_s[2];
+  unsigned long long* const counter = a.best + a.blobs;
+  const unsigned long long width = static_cast<unsigned long long>(kGrindThreads) * a.nonces;
+  for (int turn = 0;; turn ^= 1) {
+    bool open = false;
+    if (threadIdx.x == 0) {
+      const unsigned long long item = atomicAdd(counter, 1ull) + 1ull;  // the first claim wraps to 0
+      const unsigned long long round = item / static_cast<unsigned long long>(a.blobs);
+      const int blob = static_cast<int>(item - round * static_cast<unsigned long long>(a.blobs));
+      blob_s[turn] = blob;
+      base_s[turn] = round * width;
+      open = round * width < load_relaxed(a.best + blob);
     }
-    if (err == cudaSuccess) cached = sms * (per_sm > 0 ? per_sm : 1);
+    const bool claimed = __syncthreads_or(open);
+    const unsigned long long base = base_s[turn];
+    if (!claimed) {
+      // skipped: exit once every blob's best is at or below this round's base
+      bool left = false;
+      for (int b = threadIdx.x; b < a.blobs; b += kGrindThreads) left |= base < load_relaxed(a.best + b);
+      if (!__syncthreads_or(left)) return;
+      continue;
+    }
+    const int blob = blob_s[turn];
+    const uint32_t* st = a.state + 9 * static_cast<size_t>(blob);
+    uint32_t d[8], h[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = st[i];
+    param_iv(h);
+    unsigned long long nonce = base + threadIdx.x;
+#pragma unroll 1
+    for (int j = 0; j < a.nonces; ++j, nonce += kGrindThreads) {
+      const uint32_t m[16] = {d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7],
+                              static_cast<uint32_t>(nonce), static_cast<uint32_t>(nonce >> 32), 0u, 0u, 0u, 0u, 0u, 0u};
+      uint32_t w[8];
+      blake2s_compress(h, m, 40u, true, w);
+      if (trailing_zeros128(w) >= a.pow_bits) {
+        atomicMin(a.best + blob, nonce);
+        break;
+      }
+    }
   }
-  *blocks = cached;
-  return err;
 }
 
 }  // namespace
@@ -246,25 +259,31 @@ extern "C" int frieda_transcript(void* state, int mix_u64, unsigned long long u6
   FRIEDA_LAUNCH_RESULT();
 }
 
-// Blocks of the grind's grid (one channel's form): as many as the card holds
-// at once.
-extern "C" int frieda_grind_blocks(int* blocks) { return static_cast<int>(grind_blocks<true>(blocks)); }
-
-// state: blobs x 9 words, the channels (each digest is read); best: one u64
-// a blob, 2^64 - 1 on entry, the blob's minimum qualifying nonce on exit.
-// 0 <= pow_bits <= 128.
-extern "C" int frieda_grind(const void* state, int pow_bits, void* best, int blobs, void* stream) {
-  if (pow_bits < 0 || pow_bits > 128 || blobs < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  const cudaError_t err = blobs == 1 ? grind_blocks<true>(&blocks) : grind_blocks<false>(&blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* st = static_cast<const uint32_t*>(state);
-  unsigned long long* b = static_cast<unsigned long long*>(best);
-  if (blobs == 1) {
-    grind_kernel<true><<<blocks, kGrindThreads, 0, s>>>(st, pow_bits, b, 1);
-  } else {
-    grind_kernel<false><<<blocks, kGrindThreads, 0, s>>>(st, pow_bits, b, blobs);
+// The card's SM count and the grind blocks an SM holds at once (the plan's
+// inputs: ops/channel.grind_plan).
+extern "C" int frieda_grind_shape(int* sms, int* blocks_per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, grind_kernel, kGrindThreads, 0);
   }
+  return static_cast<int>(err);
+}
+
+// state: blobs x 9 words, the channels (each digest is read); best: blobs + 1
+// u64, all 2^64 - 1 on entry: blob b's minimum qualifying nonce in best[b] on
+// exit, the item counter in best[blobs]. The plan (ops/channel.grind_plan):
+// blocks, threads (kGrindThreads) and k nonces a thread an item.
+// 0 <= pow_bits <= 128.
+extern "C" int frieda_grind(const void* state, int pow_bits, void* best, int blobs, int blocks, int threads,
+                            int nonces, void* stream) {
+  if (state == nullptr || best == nullptr || pow_bits < 0 || pow_bits > 128 || blobs < 1 || blocks < 1 ||
+      blocks > kGrindMaxBlocks || threads != kGrindThreads || nonces < 1 || nonces > kGrindMaxNonces) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const GrindArgs a{static_cast<const uint32_t*>(state), static_cast<unsigned long long*>(best), blobs, pow_bits,
+                    nonces};
+  grind_kernel<<<blocks, kGrindThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   FRIEDA_LAUNCH_RESULT();
 }

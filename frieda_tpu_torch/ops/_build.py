@@ -49,8 +49,8 @@ _SIGNATURES = {
     "frieda_fri_fold": (_VP, _VP, _VP, _VP, _LL, _I, _LL, _LL, _VP),
     "frieda_transcript": (_VP, _I, ctypes.c_ulonglong, _VP, _VP, _VP, _I, _VP, ctypes.c_uint, _VP, _I, _I, _I,
                           _VP),
-    "frieda_grind": (_VP, _I, _VP, _I, _VP),
-    "frieda_grind_blocks": (ctypes.POINTER(_I),),
+    "frieda_grind": (_VP, _I, _VP, _I, _I, _I, _I, _VP),
+    "frieda_grind_shape": (ctypes.POINTER(_I), ctypes.POINTER(_I)),
 }
 
 _lib = None

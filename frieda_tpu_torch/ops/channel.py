@@ -31,6 +31,7 @@ launch, and `grind` finds each blob's own minimum nonce.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -195,23 +196,100 @@ def grind_plain(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
     return torch.tensor(nonces, dtype=torch.int64, device=state.device).view(torch.int32).view(_lead(state) + (2,))
 
 
+GRIND_THREADS = 256  # a block (csrc/channel.cu kGrindThreads)
+# k, the nonces a thread hashes an item, and at most GRIND_BLOCKS_PER_BLOB
+# blocks an SM for each channel (of the 4 an SM holds at the kernel's 62
+# registers): from a sweep over 1-4 blocks an SM and k = 1-16 at 1, 8 and
+# 64 channels (tools/torch_grind_times.py; PERF.md section 6, NVIDIA H100
+# 80GB HBM3 at 700 W). Smaller items pay the block's claim more often;
+# larger items, or more blocks a channel, put more nonces in flight past a
+# blob's minimum before its hit is seen: one channel's grind ran up to 4x
+# its preset time at 4 blocks an SM, none at 2.
+GRIND_NONCES = 4
+GRIND_BLOCKS_PER_BLOB = 2
+
+
+class GrindPlan(NamedTuple):
+    """The grind's grid: `blocks` of `threads` that claim items of
+    `width` = threads x `nonces` (k) nonces (csrc/channel.cu)."""
+
+    blocks: int
+    threads: int
+    nonces: int
+
+    @property
+    def width(self) -> int:
+        return self.threads * self.nonces
+
+    def item(self, i: int, blobs: int) -> tuple:
+        """Item i of a batch of `blobs`: (blob, base), the nonces
+        [base, base + width) of blob i mod blobs, round i // blobs."""
+        return i % blobs, i // blobs * self.width
+
+
+def grind_plan(blobs: int, sms: int | None = None, blocks_per_sm: int | None = None, device=None) -> GrindPlan:
+    """The plan of one grind launch over `blobs` channels: on each of the
+    card's `sms` SMs, GRIND_BLOCKS_PER_BLOB blocks a channel, at most the
+    `blocks_per_sm` an SM holds at once; k = GRIND_NONCES. `sms` and
+    `blocks_per_sm` default to those of the CUDA `device` (the current one
+    by default; `frieda_grind_shape`, read once a device)."""
+    if blobs < 1:
+        raise ValueError(f"blobs must be >= 1, got {blobs}")
+    if sms is None or blocks_per_sm is None:
+        sms, blocks_per_sm = _grind_shape(torch.device("cuda", torch.cuda.current_device()) if device is None
+                                          else torch.device(device))
+    if sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"sms and blocks_per_sm must be >= 1, got {sms}, {blocks_per_sm}")
+    return GrindPlan(sms * min(blocks_per_sm, GRIND_BLOCKS_PER_BLOB * blobs), GRIND_THREADS, GRIND_NONCES)
+
+
+@functools.cache
+def _grind_shape(device: torch.device) -> tuple:
+    """(SMs, grind blocks an SM holds at once) of a CUDA device."""
+    sms, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.check_launch(_build.library().frieda_grind_shape(ctypes.byref(sms), ctypes.byref(per_sm)))
+    return sms.value, per_sm.value
+
+
+def grind_buffer(blobs: int, device) -> torch.Tensor:
+    """A grind launch's (blobs + 1,) int64 words, all 2^64 - 1: each blob's
+    best, then the item counter."""
+    return torch.full((blobs + 1,), -1, dtype=torch.int64, device=device)
+
+
+def grind_launch(state: torch.Tensor, pow_bits: int, best: torch.Tensor, plan: GrindPlan) -> None:
+    """One grind launch over the (B, STATE_WORDS) CUDA `state`, into `best`
+    (`grind_buffer(B)`, or each blob's best set lower), with `plan`
+    (`grind_plan`'s, or another grid or k: the C entry checks it)."""
+    _check_state(state)
+    blobs = state.shape[0]
+    if state.dim() != 2 or best.dtype != torch.int64 or tuple(best.shape) != (blobs + 1,) or not best.is_contiguous():
+        raise ValueError(f"grind_launch: expected (B, {STATE_WORDS}) states and (B + 1,) int64 words, got "
+                         f"{tuple(state.shape)} and {tuple(best.shape)} {best.dtype}")
+    _build.check_same_device(state, best)
+    _build.check_launch(_build.library().frieda_grind(
+        state.data_ptr(), pow_bits, best.data_ptr(), blobs, plan.blocks, plan.threads, plan.nonces,
+        _build.stream_of(state)))
+    grind.launches += 1
+
+
 def grind(state: torch.Tensor, pow_bits: int) -> torch.Tensor:
     """The minimum nonce whose mix into the channel `state` clears pow_bits
     (0 <= pow_bits <= 60), as (2,) int32 words (lo, hi) on the state's
     device; for a batch of channels, (B, STATE_WORDS), each blob's own
-    minimum as (B, 2). One kernel launch, the search on the card, for a
-    CUDA state; the plain version for a CPU state."""
+    minimum as (B, 2). One kernel launch (`grind_plan`), the search on the
+    card, for a CUDA state; the plain version for a CPU state."""
     if not 0 <= pow_bits <= 60:
         raise ValueError(f"pow_bits must be in [0, 60], got {pow_bits}")
     if not state.is_cuda:
         return grind_plain(state, pow_bits)
     _check_state(state)
     lead = _lead(state)
-    best = torch.full(lead or (1,), -1, dtype=torch.int64, device=state.device)  # 2^64 - 1 a blob
-    _build.check_launch(_build.library().frieda_grind(
-        state.data_ptr(), pow_bits, best.data_ptr(), best.numel(), _build.stream_of(state)))
-    grind.launches += 1
-    return best.view(torch.int32).view(lead + (2,))
+    rows = state.view(-1, STATE_WORDS)
+    best = grind_buffer(rows.shape[0], state.device)
+    grind_launch(rows, pow_bits, best, grind_plan(rows.shape[0], device=state.device))
+    return best[:-1].view(torch.int32).view(lead + (2,))
 
 
 grind.launches = 0

@@ -8,6 +8,8 @@ by this checkout's bounds: `profiling`).
 - `device_ms`: CUDA events around a replayed CUDA graph of the calls (device
   time: the launches alone);
 - `host_ms`: the host clock, synchronized at both ends;
+- `clocks_beside`: nvidia-smi's SM clock, power and temperature sampled
+  while a call runs back to back;
 - `device_busy_us`: the device's busy time in a torch.profiler trace;
 - `profiling`: this checkout's `frieda_tpu_torch/utils/profiling.py` (the
   kernels' bounds), loaded from its file;
@@ -111,6 +113,37 @@ def host_ms(fn, reps: int = 9) -> float:
     return statistics.median(times)
 
 
+def clocks_beside(fn, seconds: float = 0.4) -> str:
+    """Run fn back to back for ~seconds (synchronizing every 10 calls) while
+    `nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu`
+    samples card 0 every 20 ms; returns the samples' min/median/max."""
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
+                            "--format=csv,noheader,nounits", "-lms", "20"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.15)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        time.sleep(0.05)
+    finally:
+        smi.terminate()
+    rows = [[float(x) for x in line.split(",")] for line in smi.communicate()[0].splitlines()
+            if line.count(",") == 3 and "N/A" not in line]
+    if not rows:
+        return "no nvidia-smi samples"
+    cols = list(zip(*rows))
+
+    def stat(c):
+        return f"{min(c):g}/{statistics.median(c):g}/{max(c):g}"
+
+    return (f"{len(rows)} nvidia-smi samples (the first ~0.15 s before the work): clocks.sm MHz min/median/max "
+            f"{stat(cols[0])}, power.draw W {stat(cols[1])} of {cols[2][0]:g}, temperature C {stat(cols[3])}")
+
+
 def device_busy_us(prof) -> tuple:
     """(us, records): the time the device's own records (kernels, copies,
     fills) cover in a finished `torch.profiler.profile`, the union of their
@@ -147,15 +180,15 @@ def proof_collapse_widths(collapse_max: int = 4096) -> list:
     return out
 
 
-def package_copies(out: pathlib.Path, variants) -> list:
-    """Copy this checkout's package under `out/<name>/` for each (name,
-    [(file in the package, text, replacement), ...]) of `variants`, with
-    those edits made. Returns the copies' roots."""
+def package_copies(out: pathlib.Path, variants, checkout: pathlib.Path = REPO) -> list:
+    """Copy the package of `checkout` (this one by default) under
+    `out/<name>/` for each (name, [(file in the package, text, replacement),
+    ...]) of `variants`, with those edits made. Returns the copies' roots."""
     shutil.rmtree(out, ignore_errors=True)
     roots = []
     for name, edits in variants:
         pkg = out / name / "frieda_tpu_torch"
-        shutil.copytree(REPO / "frieda_tpu_torch", pkg, ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copytree(checkout / "frieda_tpu_torch", pkg, ignore=shutil.ignore_patterns("__pycache__"))
         for rel, old, new in edits:
             src = (pkg / rel).read_text()
             if old not in src:

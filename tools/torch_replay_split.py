@@ -9,8 +9,9 @@ the records of its CUDA graph's replay in a torch.profiler trace.
 For the staged proofs of chip_smoke.py phase 9 (2^20 felts / 64 queries and
 2^24 felts / 20 queries, pow_bits 20, log_blowup 4, seed 7): three warm
 proofs through `fri.dispatch_commit_phase`, then N replays (default 7),
-each alone under `torch.profiler` (the device's activity only) and
-finished after it. Per cell: the median over the replays of the span from
+each counted in a `torch.profiler` trace of its own (the device's activity
+only) behind a warm replay (chip_smoke.py's `traced_run`) and finished
+after it. Per cell: the median over the replays of the span from
 the first device record to the end of the last, and for each kernel (the
 port's by name, PyTorch's as "torch") the median of its records' summed
 durations and of the idle gaps after them; then "the channel": the
@@ -70,14 +71,10 @@ def split(root: pathlib.Path, replays: int) -> None:
             fri.finish_proof(fri.dispatch_commit_phase(words, log_total, 7, cfg), log_total, cfg)
         spans, runs = [], []
         for _ in range(replays):
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                cs.lead_in()
-                committed = fri.dispatch_commit_phase(words, log_total, 7, cfg)
-                torch.cuda.synchronize()
+            prof, committed = cs.traced_run(lambda: fri.dispatch_commit_phase(words, log_total, 7, cfg),  # noqa: B023
+                                            lambda c: fri.finish_proof(c, log_total, cfg))  # noqa: B023
             fri.finish_proof(committed, log_total, cfg)
-            events = [e for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == torch.autograd.DeviceType.CUDA and cs.LEAD_IN not in e.name()]
+            events = cs.counted_events(prof)
             if not events:
                 raise SystemExit("torch_replay_split: the trace of a replay holds no device record")
             first = min(e.start_ns() for e in events)
