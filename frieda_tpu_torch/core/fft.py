@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import circle as hostcircle
 from .field import m31_add, m31_mul, m31_sub
 
@@ -36,19 +37,21 @@ def stage_twiddles(n: int, device) -> torch.Tensor:
     """All stage tables of the domain of log size n as ONE flat int32 tensor
     on `device`, indexed by bit: T_p = tw[2^p - 1 : 2^(p+1) - 1] (length
     2^p). The same values as JAX `fft.stage_twiddles(n)` (a tuple indexed by
-    depth), concatenated from p = 0 up. Cached per (n, device)."""
+    depth), concatenated from p = 0 up. Cached per (n, device); a miss is
+    the span "setup/tables"."""
     device = torch.device(device)
     key = (n, str(device))
     cached = _stage_twiddles_dev.get(key)
     if cached is not None:
         return cached
-    flat = np.zeros((1 << n) - 1, np.uint32)
-    if n >= 1:
-        tw = hostcircle.get_twiddles(n)
-        for p in range(n):
-            flat[(1 << p) - 1 : (1 << (p + 1)) - 1] = tw.eval_stage_twiddle(n - 1 - p)
-    # every twiddle is < P < 2^31: the int32 view holds the value itself
-    table = torch.from_numpy(flat.view(np.int32)).to(device)
+    with span("setup/tables"):
+        flat = np.zeros((1 << n) - 1, np.uint32)
+        if n >= 1:
+            tw = hostcircle.get_twiddles(n)
+            for p in range(n):
+                flat[(1 << p) - 1 : (1 << (p + 1)) - 1] = tw.eval_stage_twiddle(n - 1 - p)
+        # every twiddle is < P < 2^31: the int32 view holds the value itself
+        table = torch.from_numpy(flat.view(np.int32)).to(device)
     _stage_twiddles_dev[key] = table
     return table
 

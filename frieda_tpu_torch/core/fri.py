@@ -132,14 +132,16 @@ _fold_tables: dict = {}
 
 def fold_tables(n: int, device):
     """(ys_inv, [xs_layers_inv[l]]) of the domain of log size n as int32
-    tensors on `device` (one upload, cached per (n, device))."""
+    tensors on `device` (one upload, cached per (n, device); a miss is the
+    span "setup/tables")."""
     key = (n, str(torch.device(device)))
     if key not in _fold_tables:
-        tw = hostcircle.get_twiddles(n)
-        host = [tw.ys_inv] + tw.xs_layers_inv
-        flat = from_numpy_u32(np.concatenate(host), device)
-        parts = torch.split(flat, [len(h) for h in host])
-        _fold_tables[key] = (parts[0], list(parts[1:]))
+        with span("setup/tables"):
+            tw = hostcircle.get_twiddles(n)
+            host = [tw.ys_inv] + tw.xs_layers_inv
+            flat = from_numpy_u32(np.concatenate(host), device)
+            parts = torch.split(flat, [len(h) for h in host])
+            _fold_tables[key] = (parts[0], list(parts[1:]))
     return _fold_tables[key]
 
 
@@ -760,25 +762,28 @@ class _CommitGraph(_Instance):
     With `warm` (a key's first instance) one eager `commit` runs first, on a
     side stream: it builds every table of the key (a mesh's block tables
     too) and sets the kernels' one-time attributes, none of which may happen
-    inside a capture. A capture or replay error raises."""
+    inside a capture. A capture or replay error raises. The construction is
+    the span "setup/graph", the warm-up "setup/warm" and the capture
+    "setup/capture" inside it."""
 
     def __init__(self, device: torch.device, n_words: int, has_seed: bool, commit, tables, warm: bool,
                  batch: int | None = None):
         lead = () if batch is None else (batch,)
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), span("setup/graph"):
             self.words = torch.zeros(lead + (n_words,), dtype=torch.int32, device=device)
             self.seed = torch.zeros(lead + (2,), dtype=torch.int32, device=device) if has_seed else None
             if warm:
-                side = torch.cuda.Stream(device)
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side):
-                    commit(self.words, self.seed)
-                torch.cuda.current_stream(device).wait_stream(side)
+                with span("setup/warm"):
+                    side = torch.cuda.Stream(device)
+                    side.wait_stream(torch.cuda.current_stream(device))
+                    with torch.cuda.stream(side):
+                        commit(self.words, self.seed)
+                    torch.cuda.current_stream(device).wait_stream(side)
             self.tables = tables()  # cached again here if a cache was cleared since the warm-up
             before, steps = ops.launch_counts(), merkle_ops.merkle_collapse.steps
             self.graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(self.graph):
+                with span("setup/capture"), torch.cuda.graph(self.graph):
                     self.committed = commit(self.words, self.seed)
             finally:
                 self.launches = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
@@ -1086,25 +1091,27 @@ def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Ro
         with clock("decommit_open"):
             vals, nodes = opening.run(route.open)
     with clock("decommit_assemble"), span("prove/assemble"):
-        if not gathered:
-            node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
-            evaluations = _qm31s(vals, eval_sl)
-            layers = [(_qm31s(vals, wit_sl),
-                       [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)])
-                      for wit_sl, node_sls in plan]
-        else:
-            evaluations, layers = _assemble(c._words, c.query_words, c.layout)
-        layer_proofs = [
-            FriLayerProof(fri_witness=wit, decommitment=MerkleDecommitment(hashes), commitment=c.roots[t])
-            for t, (wit, hashes) in enumerate(layers)
-        ]
-        proof = Proof(
-            proof=FriProof(layer_proofs[0], layer_proofs[1:], c.last_layer_poly),
-            proof_of_work=c.nonce,
-            pcs_config=pcs_config,
-            log_size_bound=log_total - 2,
-            evaluations=evaluations,
-        )
+        with span("assemble/select"):
+            if not gathered:
+                node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
+                evaluations = _qm31s(vals, eval_sl)
+                layers = [(_qm31s(vals, wit_sl),
+                           [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)])
+                          for wit_sl, node_sls in plan]
+            else:
+                evaluations, layers = _assemble(c._words, c.query_words, c.layout)
+        with span("assemble/objects"):
+            layer_proofs = [
+                FriLayerProof(fri_witness=wit, decommitment=MerkleDecommitment(hashes), commitment=c.roots[t])
+                for t, (wit, hashes) in enumerate(layers)
+            ]
+            proof = Proof(
+                proof=FriProof(layer_proofs[0], layer_proofs[1:], c.last_layer_poly),
+                proof_of_work=c.nonce,
+                pcs_config=pcs_config,
+                log_size_bound=log_total - 2,
+                evaluations=evaluations,
+            )
     return c.roots[0], proof
 
 

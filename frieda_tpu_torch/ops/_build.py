@@ -22,6 +22,8 @@ import tempfile
 
 import torch
 
+from ..utils.profiling import span
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("common.cuh", "blake2s.cuh", "fft.cu", "ingest.cu", "merkle.cu", "fri.cu", "channel.cu")
@@ -119,16 +121,18 @@ def build() -> pathlib.Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; the first call is the
+    span "setup/kernels")."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.frieda_error_string.argtypes = [ctypes.c_int]
-        lib.frieda_error_string.restype = ctypes.c_char_p
+        with span("setup/kernels"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.frieda_error_string.argtypes = [ctypes.c_int]
+            lib.frieda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

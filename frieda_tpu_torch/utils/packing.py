@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def ceil_log2(n: int) -> int:
     """Exact integer ceil(log2(n)), n >= 1."""
@@ -32,13 +34,16 @@ def stack_words(datas, log_total: int, pin: bool = False) -> torch.Tensor:
     word pair is in range for `ingest_rev`. Each blob's bytes are written
     straight into one buffer (one host memcpy, no bit work); `pin` puts that
     buffer in page-locked host memory (PyTorch's caching host allocator keeps
-    it for the next call), so the upload is one DMA."""
+    it for the next call), so the upload is one DMA. Spans "ingest/pin" (the
+    allocation) and "ingest/copy" (the rows)."""
     nw = words_for(log_total)
-    host = torch.empty((len(datas), nw), dtype=torch.int32, pin_memory=pin)
-    rows = host.numpy().view(np.uint8)
-    for row, data in zip(rows, datas):
-        row[: len(data)] = np.frombuffer(data, np.uint8)
-        row[len(data):] = 0
+    with span("ingest/pin"):
+        host = torch.empty((len(datas), nw), dtype=torch.int32, pin_memory=pin)
+    with span("ingest/copy"):
+        rows = host.numpy().view(np.uint8)
+        for row, data in zip(rows, datas):
+            row[: len(data)] = np.frombuffer(data, np.uint8)
+            row[len(data):] = 0
     return host
 
 
@@ -48,14 +53,14 @@ def upload_words(datas, log_total: int, device, out: torch.Tensor | None = None)
     device. A page-locked block is not handed out again before its copy has
     run (PyTorch's caching host allocator records the copy). `out`, a (B, nw)
     int32 tensor on `device` (a captured commit phase's static input),
-    receives the copy in place of a new tensor."""
+    receives the copy in place of a new tensor. The copy's enqueue is the
+    span "ingest/upload"."""
     device = torch.device(device)
     host = stack_words(datas, log_total, pin=device.type == "cuda")
-    if out is None:
-        return host, host.to(device, non_blocking=True)
-    if out.shape != host.shape or out.dtype != host.dtype:
+    if out is not None and (out.shape != host.shape or out.dtype != host.dtype):
         raise ValueError(f"out: expected {tuple(host.shape)} int32, got {tuple(out.shape)} {out.dtype}")
-    return host, out.copy_(host, non_blocking=True)
+    with span("ingest/upload"):
+        return host, host.to(device, non_blocking=True) if out is None else out.copy_(host, non_blocking=True)
 
 
 def pad_to_words(data: bytes, log_total: int) -> np.ndarray:

@@ -24,6 +24,26 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   clock (`fri._Clock`, only when the caller passes a `stats` dict) adds one
   span a stage.
 
+  The port's own spans, which the JAX package has not: inside
+  "commit/ingest" and "prove/ingest" (and wherever `utils/packing.
+  upload_words` runs), "ingest/pin" (the host buffer's allocation,
+  page-locked for the card), "ingest/copy" (the blobs' bytes into it and
+  the zero tail) and "ingest/upload" (the enqueue of the copy to the
+  device); inside "prove/assemble", "assemble/select" (the witnesses picked
+  from the fetched vector) and "assemble/objects" (the proof objects). Set-up
+  spans fire on a cache miss only: "setup/kernels" (`ops/_build.library`'s
+  first call: the sources' hash, a build if any, the load), "setup/tables"
+  (a miss of `fft.stage_twiddles` or `fri.fold_tables`) and "setup/graph"
+  (a captured commit phase's construction, `fri._CommitGraph`), which holds
+  "setup/warm" (its eager warm-up commit) and "setup/capture" (the CUDA
+  graph's capture).
+
+* `span_totals()`: every span, when it closes, adds its wall to an
+  in-memory table, {name: (count, seconds)} since the process started or
+  since `reset_span_totals()`. It is the one record of the set-up spans
+  that a benchmark can read after its warm-up, before which no profiler
+  runs.
+
 * The roofline: the least time a card could take for a function's work, the
   larger of its bytes over the card's memory rate and its integer
   instructions over the card's instruction rate. The work is the
@@ -111,15 +131,32 @@ def spans_enabled() -> bool:
 
 
 _SENTINEL = object()
+_TOTALS: dict = {}  # name -> [count, seconds] of every span closed (`span_totals`)
+
+
+class SpanTotal(NamedTuple):
+    count: int
+    seconds: float
+
+
+def span_totals() -> dict:
+    """{name: SpanTotal(count, seconds)}: every span closed since the process
+    started or since `reset_span_totals`, a copy."""
+    return {name: SpanTotal(*t) for name, t in _TOTALS.items()}
+
+
+def reset_span_totals() -> None:
+    """Empty the table of `span_totals`."""
+    _TOTALS.clear()
 
 
 @contextlib.contextmanager
 def span(name: str, out=_SENTINEL):
     """A named phase: a `torch.profiler.record_function` range while a
     profiler runs (outside one it records nothing and costs ~20 us of host
-    time, so it is skipped), an NVTX range where CUDA is available, and its
-    host wall time printed to `out` (by default stderr under FRIEDA_SPANS).
-    Never synchronizes."""
+    time, so it is skipped), an NVTX range where CUDA is available, its host
+    wall time added to `span_totals` and printed to `out` (by default stderr
+    under FRIEDA_SPANS). Never synchronizes."""
     if out is _SENTINEL:
         out = sys.stderr if spans_enabled() else None
     nvtx = torch.cuda.is_available()
@@ -134,6 +171,12 @@ def span(name: str, out=_SENTINEL):
             dt = time.perf_counter() - t0
             if nvtx:
                 torch.cuda.nvtx.range_pop()
+            total = _TOTALS.get(name)
+            if total is None:
+                _TOTALS[name] = [1, dt]
+            else:
+                total[0] += 1
+                total[1] += dt
             if out is not None:
                 print(f"[span] {name}: {dt * 1e3:.2f} ms", file=out, flush=True)
 

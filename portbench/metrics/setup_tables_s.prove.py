@@ -1,0 +1,15 @@
+"""setup_tables_s.prove: seconds of the program's spans `setup/tables` since
+the process started (the misses of the stage-twiddle and fold tables: built
+on the host, uploaded once), read from the program's in-memory table
+`utils/profiling.span_totals`, since no profiler runs during set-up. The
+port is imported here and not when this file loads."""
+
+SPAN = "setup/tables"
+
+
+def read(run):
+    from frieda_tpu_torch.utils import profiling
+
+    totals = getattr(profiling, "span_totals", None)
+    total = totals and totals().get(SPAN)
+    return total.seconds if total else None

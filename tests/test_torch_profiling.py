@@ -1,20 +1,24 @@
 """Port's `utils/profiling.py` against the JAX package's: the span names and
 their order on commit, prove and verify (the JAX package run under
 FRIEDA_SPANS=1 for commit and verify; its `span("...")` literals for the
-prove, whose first trace costs seconds on the CPU), FRIEDA_SPANS parsing, a
-span that never synchronizes, the roofline's counts (the JAX package's
-hashes and butterflies) and each kernel bound at the shapes of PERF.md
-section 6, on the named H100. Tolerance: exact names and counts; bounds
-equal to the table's printed digits."""
+prove, whose first trace costs seconds on the CPU), with the port's own
+spans (`PORT_SPANS`) exactly where they nest; the set-up spans once a
+cache miss; the in-memory table of every span's count and seconds;
+FRIEDA_SPANS parsing, a span that never synchronizes, the roofline's counts
+(the JAX package's hashes and butterflies) and each kernel bound at the
+shapes of PERF.md section 6, on the named H100. Tolerance: exact names and
+counts; bounds equal to the table's printed digits."""
 
 import pytest
 
 pytest.importorskip("torch")
 
+import contextlib  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import pathlib  # noqa: E402
 import re  # noqa: E402
+import types  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -22,9 +26,10 @@ from frieda_tpu import api as japi  # noqa: E402
 from frieda_tpu.core.proof import Proof as JProof  # noqa: E402
 from frieda_tpu.utils import profiling as jprofiling  # noqa: E402
 from frieda_tpu_torch import api  # noqa: E402
-from frieda_tpu_torch.config import PcsConfig  # noqa: E402
-from frieda_tpu_torch.core import fri  # noqa: E402
+from frieda_tpu_torch.config import FriConfig, PcsConfig  # noqa: E402
+from frieda_tpu_torch.core import fft, fri  # noqa: E402
 from frieda_tpu_torch.core.proof import Proof  # noqa: E402
+from frieda_tpu_torch.ops import _build  # noqa: E402
 from frieda_tpu_torch.parallel import sharding  # noqa: E402
 from frieda_tpu_torch.utils import profiling  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, upload_words, words_for  # noqa: E402
@@ -38,11 +43,84 @@ H100 = "NVIDIA H100 80GB HBM3"
 # tree on the card (ROADMAP C, deliberate differences).
 NOT_PORTED = ["commit/host_tree_top"]
 STAGES = {"lde_trees", "folds", "transcript", "grind", "decommit_gather", "decommit_assemble"}
+# The port's own spans, which the JAX package has not, by the span each nests
+# in: the ingest's three steps inside either ingest span, the assembly's two
+# parts inside "prove/assemble". A span prints when it closes, so a parent's
+# children print just before it, in this order.
+PORT_SPANS = {
+    "commit/ingest": ["ingest/pin", "ingest/copy", "ingest/upload"],
+    "prove/ingest": ["ingest/pin", "ingest/copy", "ingest/upload"],
+    "prove/assemble": ["assemble/select", "assemble/objects"],
+}
+PORT_NAMES = {name for children in PORT_SPANS.values() for name in children}
+# Set-up spans fire on a cache miss only, so whether a call prints them
+# depends on what ran before it in the process: left out of the comparisons.
+SETUP = "setup/"
+# 24-byte blobs: 8 felts, a 2^3 domain (n = 3), one FRI layer
+TINY_CFG = PcsConfig(pow_bits=2, fri_config=FriConfig(2, 0, 3))
+TINY_N = 3
+
+
+def printed(capsys) -> list:
+    """The names of the `[span] name: x ms` lines printed to stderr so far."""
+    return re.findall(r"^\[span\] (.+): [0-9.]+ ms$", capsys.readouterr().err, re.M)
 
 
 def span_names(capsys) -> list:
-    """The names of the `[span] name: x ms` lines printed to stderr so far."""
-    return re.findall(r"^\[span\] (.+): [0-9.]+ ms$", capsys.readouterr().err, re.M)
+    """`printed` without the set-up spans."""
+    return [n for n in printed(capsys) if not n.startswith(SETUP)]
+
+
+def setup_names(capsys) -> list:
+    """`printed`'s set-up spans alone."""
+    return [n for n in printed(capsys) if n.startswith(SETUP)]
+
+
+def clear_table_caches() -> None:
+    fft._stage_twiddles_dev.clear()
+    fri._fold_tables.clear()
+
+
+class FakeLibrary:
+    """A loaded library whose every entry point is a namespace (the argtypes
+    and restype `_build.library` sets)."""
+
+    def __getattr__(self, name):
+        fn = types.SimpleNamespace()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.fixture
+def no_card_calls(monkeypatch):
+    """torch.cuda's device, stream and graph calls, and the kernel library's
+    build and load, as stand-ins that do nothing, so that a
+    `fri._CommitGraph` is built on the CPU (its warm-up and its capture run
+    the commit phase eagerly; the capture itself needs the card,
+    chip_smoke.py phase 13) and `_build.library` loads nothing. The graphs
+    built are dropped at the end."""
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: types.SimpleNamespace(reset=lambda: None))
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda: pathlib.Path("libfake.so"))
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLibrary())
+    yield
+    fri.clear_commit_graphs()
+
+
+def jax_names_of(names: list) -> list:
+    """The port's span names without its own."""
+    return [n for n in names if n not in PORT_NAMES]
+
+
+def nested(jax_names: list) -> list:
+    """The JAX package's names with the port's own spans where they nest."""
+    return [n for name in jax_names for n in PORT_SPANS.get(name, []) + [name]]
 
 
 def jax_prove_literals() -> list:
@@ -67,7 +145,8 @@ def test_commit_and_verify_spans_match_jax(spans_on, capsys):
     assert api.commit(data, 1, device="cpu") == want_root
     names = span_names(capsys)
     assert [n for n in jax_names if n not in names] == NOT_PORTED
-    assert names == [n for n in jax_names if n not in NOT_PORTED]
+    assert jax_names_of(names) == [n for n in jax_names if n not in NOT_PORTED]
+    assert names == nested([n for n in jax_names if n not in NOT_PORTED])
 
     case = CASES["dryrun_960B"]
     wire = bytes.fromhex(case["wire_hex"])
@@ -86,13 +165,16 @@ def test_prove_spans_equal_the_jax_literals(spans_on, capsys):
     capsys.readouterr()
     _, proof = api.commit_and_prove(data, case["seed"], cfg, device="cpu")
     assert proof.to_bytes().hex() == case["wire_hex"] and api.verify(proof, case["seed"])
-    assert span_names(capsys) == literals
+    names = span_names(capsys)
+    assert jax_names_of(names) == literals and names == nested(literals)
 
     out = api.prove_many([data, data], [1, 2], cfg, device="cpu")  # both enqueued, then both finished
-    assert span_names(capsys) == prove[:2] * 2 + prove[2:] * 2
+    names = span_names(capsys)
+    assert jax_names_of(names) == prove[:2] * 2 + prove[2:] * 2 and names == nested(prove[:2] * 2 + prove[2:] * 2)
     mesh = sharding.make_mesh(1, 2, devices=["cpu"] * 2)
     assert sharding.sharded_commit_and_prove(data, 1, cfg, mesh)[1].to_bytes() == out[0][1].to_bytes()
-    assert span_names(capsys) == prove
+    names = span_names(capsys)
+    assert jax_names_of(names) == prove and names == nested(prove)
 
 
 def test_stage_clock_adds_a_span_a_stage(spans_on, capsys):
@@ -104,9 +186,11 @@ def test_stage_clock_adds_a_span_a_stage(spans_on, capsys):
     capsys.readouterr()
     fri.prove_words(words, log_total, case["seed"], cfg, stats=stats)
     names = span_names(capsys)
-    assert set(names) == STAGES | set(jax_prove_literals()[1:-1]) and set(stats["stage_s"]) == STAGES
+    assert set(jax_names_of(names)) == STAGES | set(jax_prove_literals()[1:-1]) and set(stats["stage_s"]) == STAGES
+    assert set(names) - set(jax_names_of(names)) == set(PORT_SPANS["prove/assemble"])
     fri.prove_words(words, log_total, case["seed"], cfg)
-    assert span_names(capsys) == jax_prove_literals()[1:-1]
+    names = span_names(capsys)
+    assert jax_names_of(names) == jax_prove_literals()[1:-1] and names == nested(jax_prove_literals()[1:-1])
 
 
 @pytest.mark.parametrize("value", [None, "", "0", "1"])
@@ -118,11 +202,58 @@ def test_spans_enabled_parses_like_jax(monkeypatch, value):
     assert profiling.spans_enabled() == jprofiling.spans_enabled() == (value == "1")
 
 
-def test_a_span_never_synchronizes(monkeypatch):
+def test_set_up_spans_once_a_cache_miss(spans_on, capsys, no_card_calls):
+    """Each cache's miss is one set-up span, and its hit none: the kernel
+    library's first load, each table cache's new key, and a captured commit
+    phase's new key ("setup/graph", with its warm-up and its capture
+    inside it, which print before it)."""
+    clear_table_caches()
+    capsys.readouterr()
+    lib = _build.library()
+    assert setup_names(capsys) == ["setup/kernels"]
+    assert _build.library() is lib and printed(capsys) == []
+    for table in (fft.stage_twiddles, fri.fold_tables):
+        first = table(TINY_N, "cpu")
+        assert printed(capsys) == ["setup/tables"]
+        assert table(TINY_N, "cpu") is first and printed(capsys) == []
+    log_total = log_total_for(24)
+    graph = fri._fri_commit_fn(log_total, TINY_CFG, True, torch.device("cpu"))
+    assert setup_names(capsys) == ["setup/warm", "setup/capture", "setup/graph"]
+    assert fri._fri_commit_fn(log_total, TINY_CFG, True, torch.device("cpu")) is graph
+    assert printed(capsys) == []
+
+
+def test_span_totals_count_and_sum_every_span():
+    """Each span adds one count and its wall to the table, nested spans
+    each their own; the table is a copy; a reset empties it."""
+    profiling.reset_span_totals()
+    with profiling.span("outer", out=None):
+        for _ in range(3):
+            with profiling.span("inner", out=None):
+                pass
+    with profiling.span("outer", out=None):
+        pass
+    totals = profiling.span_totals()
+    assert {k: v.count for k, v in totals.items()} == {"inner": 3, "outer": 2}
+    assert 0 < totals["inner"].seconds <= totals["outer"].seconds
+    totals["outer"] = None
+    assert profiling.span_totals()["outer"].count == 2
+    with pytest.raises(ValueError), profiling.span("raised", out=None):
+        raise ValueError
+    assert profiling.span_totals()["raised"].count == 1
+    profiling.reset_span_totals()
+    assert profiling.span_totals() == {}
+
+
+def test_a_span_never_synchronizes(monkeypatch, no_card_calls):
     """A span on a CUDA build: an NVTX range and, while a profiler runs, a
     profiler range around its body, its wall printed, and no
     synchronization; the stage clock without `stats` neither synchronizes
-    nor adds a span."""
+    nor adds a span. The port's own sites too, under the profiler: a
+    proof's ingest and assembly, and the set-up spans of a load, a table's
+    miss and a commit phase's construction, each pushed and popped inside
+    the span it nests in (the trace of the proof's plain versions holds
+    ~10^5 events, too many to read here)."""
     ranges = []
 
     def no_sync(*_):
@@ -147,6 +278,27 @@ def test_a_span_never_synchronizes(monkeypatch):
     assert re.fullmatch(r"\[span\] prove/assemble: [0-9.]+ ms\n", out.getvalue())
     traced = [e.name for e in prof.events()]
     assert "prove/assemble" in traced and "lde_trees" not in traced
+
+    ranges.clear()
+    clear_table_caches()
+    data = bytes(range(24))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _build.library()
+        api.commit_and_prove(data, 5, TINY_CFG, device="cpu")
+        fri._fri_commit_fn(log_total_for(len(data)), TINY_CFG, True, torch.device("cpu"))
+    stack, parent = [], {}
+    for r in ranges:  # the NVTX ranges nest: each pop closes the latest push
+        if r[0] == "push":
+            parent.setdefault(r[1], stack[-1] if stack else None)
+            stack.append(r[1])
+        else:
+            stack.pop()
+    assert stack == []
+    want = {"setup/kernels": None, "setup/tables": "prove/device_dispatch(lde+merkle+transcript+grind)",
+            "setup/graph": None, "setup/warm": "setup/graph", "setup/capture": "setup/graph",
+            **{child: "prove/ingest" if child.startswith("ingest/") else name
+               for name, children in PORT_SPANS.items() for child in children if name != "commit/ingest"}}
+    assert {name: parent[name] for name in want} == want
 
 
 def test_ceilings_only_for_a_known_card(monkeypatch):
