@@ -129,7 +129,8 @@ Phases, each printed as it runs:
      beside the spread of the second, and an empty span's host cost; at
      2^20 felts a torch.profiler trace of `api.commit`,
      `api.commit_and_prove`, the staged prove and `api.verify` on the card
-     holds every span name (`SPANS`);
+     holds every span name (`SPANS`), with `packing.copy_counts()` over its
+     calls (the blob copied whole or split over threads);
  10. every kernel's launch count over each path: the commit phases (4-5,
      checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
      `merkle_level` forms) and the prove phases (8-9): each must be > 0,
@@ -2825,12 +2826,16 @@ def span_trace(dev, data: bytes, words, log_total: int, cfg) -> None:
     """One `api.commit`, `api.commit_and_prove`, staged prove and `api.verify`
     of the blob under torch.profiler on the card: every name of `SPANS` is a
     range in the trace (each span also pushed and popped an NVTX range), and
-    the card ran kernels in it."""
+    the card ran kernels in it. Beside them, `packing.copy_counts()` over
+    the calls: the two blob copies (the staged prove takes words) split
+    over threads exactly when the blob holds `SPLIT_BYTES` or more."""
     import torch
 
     from frieda_tpu_torch import api
+    from frieda_tpu_torch.utils import packing
 
     torch.cuda.synchronize()
+    before = packing.copy_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         api.commit(data, LOG_BLOWUP, device=dev)
@@ -2838,16 +2843,21 @@ def span_trace(dev, data: bytes, words, log_total: int, cfg) -> None:
         _, proof = api.commit_and_prove_staged(words, log_total, 7, cfg)
         check(api.verify(proof, 7), "the traced staged proof does not verify")
         torch.cuda.synchronize()
+    copies = {k: v - before[k] for k, v in packing.copy_counts().items()}
     names = [e.name for e in prof.events()]
     missing = [n for n in SPANS if n not in names]
     busy_us, records = device_busy_us(prof)
     check(not missing and records > 0, f"torch.profiler trace on the card: spans {missing} missing, "
           f"{records} device records")
+    split = len(data) >= packing.SPLIT_BYTES and len(os.sched_getaffinity(0)) > 1
+    check(copies["whole"] + copies["split"] == 2 and copies["split"] == 2 * split,
+          f"copy_counts over api.commit and api.commit_and_prove of {len(data)} bytes: {copies}")
     say(f"[9] torch.profiler trace of api.commit, api.commit_and_prove, the staged prove and api.verify "
         f"(2^20 felts, 64 queries) on the card: every span name present, each "
         f"{[names.count(n) for n in SPANS]} times ({', '.join(SPANS)}: the host's ranges and, where a range "
         f"enqueued device work, its annotation on the device's timeline); NVTX ranges pushed and popped "
-        f"without error; {records} device records, busy {busy_us:.0f} us")
+        f"without error; {records} device records, busy {busy_us:.0f} us; copy_counts {copies} (the blob "
+        f"{len(data)} bytes, SPLIT_BYTES {packing.SPLIT_BYTES})")
 
 
 def wire_note(proof) -> str:

@@ -10,10 +10,30 @@ every felt is < 2^30 and canonical by construction (SURVEY.md A.1).
 
 from __future__ import annotations
 
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
+
 import numpy as np
 import torch
 
 from .profiling import span
+
+# The blobs' copy into the host buffer runs at one core's memory rate. A call
+# whose blobs hold SPLIT_BYTES or more is copied in chunks on up to
+# MAX_COPY_THREADS threads (the calling thread one of them), as many as the
+# process's CPU affinity allows; below it the calling thread copies alone. Each
+# chunk is numpy slice assignments, which release the interpreter lock.
+# Measured on two H100 hosts (8 CPUs each; tools/torch_copy_times.py): a
+# 62,914,560-byte blob into page-locked memory took a median 9.1-10.3 ms on
+# one thread, 5.5-8.8 on 2, 3.4-5.8 on 4, 3.4-4.5 on 8 (95th percentiles
+# 6.7-8.0 on 4, 9.0-11.1 on 8: a copy ends with its slowest chunk) and
+# 3.8-5.0 on 16. A chunk's hand-off to an idle worker took 0.05-0.1 ms; split
+# over 4 or 8 threads, a copy won at 16 MiB and above on both hosts, and lost
+# below 4 MiB.
+SPLIT_BYTES = 16 << 20
+MAX_COPY_THREADS = 4
+CHUNK_ALIGN = 1 << 12  # chunk boundaries in the rows' byte stream fall on multiples of a page
 
 
 def ceil_log2(n: int) -> int:
@@ -28,22 +48,114 @@ def log_total_for(data_len: int) -> int:
     return max(ceil_log2(max(n_felts, 1)), 2)
 
 
+def copy_chunks(sizes, parts: int) -> list:
+    """The rows' bytes (`sizes[k]` in row k), taken as one stream in row
+    order, cut into at most `parts` runs of about equal length whose
+    boundaries fall on multiples of CHUNK_ALIGN: a list of chunks, each a
+    list of (row, start, end) pieces. Every byte lies in exactly one piece."""
+    step = max(-(-sum(sizes) // max(parts, 1)), 1)
+    step = -(-step // CHUNK_ALIGN) * CHUNK_ALIGN
+    chunks, chunk, room = [], [], step
+    for k, size in enumerate(sizes):
+        a = 0
+        while a < size:
+            b = min(size, a + room)
+            chunk.append((k, a, b))
+            room -= b - a
+            a = b
+            if room == 0:
+                chunks.append(chunk)
+                chunk, room = [], step
+    return chunks + [chunk] if chunk else chunks
+
+
+def _copy_chunk(rows, srcs, chunk) -> None:
+    for k, a, b in chunk:
+        rows[k][a:b] = srcs[k][a:b]
+
+
+class RowCopier:
+    """Copies blobs' bytes into the rows of a host buffer: whole on the
+    calling thread below `split_bytes` in all, else in `copy_chunks` over
+    the calling thread and a pool of worker threads, made at the first split
+    copy. `threads` (None: the CPUs of the process's affinity, at most
+    MAX_COPY_THREADS, read at each call) bounds the threads of a copy. A
+    forked child drops the parent's pool, whose threads it does not have,
+    and makes its own. `counts`: calls copied whole, calls split, and the
+    chunks of the split calls."""
+
+    def __init__(self, split_bytes: int = SPLIT_BYTES, threads: int | None = None):
+        self.split_bytes, self.threads = split_bytes, threads
+        self.counts = {"whole": 0, "split": 0, "chunks": 0}
+        self._lock = threading.Lock()
+        self._pool = None
+
+    def after_fork(self) -> None:
+        self._lock = threading.Lock()
+        self._pool = None
+
+    def _threads(self) -> int:
+        if self.threads is not None:
+            return self.threads
+        return min(len(os.sched_getaffinity(0)), MAX_COPY_THREADS)
+
+    def copy(self, rows, srcs) -> None:
+        """rows[k][:len(srcs[k])] = srcs[k] for every k (uint8 arrays)."""
+        threads = self._threads()
+        if threads < 2 or sum(s.size for s in srcs) < self.split_bytes:
+            for row, src in zip(rows, srcs):
+                row[: src.size] = src
+            with self._lock:
+                self.counts["whole"] += 1
+            return
+        chunks = copy_chunks([s.size for s in srcs], threads)
+        with self._lock:
+            if self._pool is None:
+                workers = (self.threads or MAX_COPY_THREADS) - 1  # started as chunks come
+                self._pool = ThreadPoolExecutor(workers, thread_name_prefix="frieda-copy")
+            pool = self._pool
+            self.counts["split"] += 1
+            self.counts["chunks"] += len(chunks)
+        futures = [pool.submit(_copy_chunk, rows, srcs, chunk) for chunk in chunks[1:]]
+        try:
+            _copy_chunk(rows, srcs, chunks[0])
+        finally:
+            wait(futures)  # the rows outlive no worker's writes
+        for f in futures:
+            f.result()
+
+
+_COPIER = RowCopier()
+os.register_at_fork(after_in_child=_COPIER.after_fork)
+
+
+def copy_counts() -> dict:
+    """{"whole", "split", "chunks"}: `stack_words` calls since the process
+    started (a forked child goes on from its parent's counts) whose bytes
+    the calling thread copied alone, calls split over threads, and the
+    chunks of the split calls."""
+    with _COPIER._lock:
+        return dict(_COPIER.counts)
+
+
 def stack_words(datas, log_total: int, pin: bool = False) -> torch.Tensor:
     """(B, words_for(log_total)) int32 tensor: row k is the little-endian
     uint32 words of `datas[k]`, zero-padded so that every felt's (lo, hi)
     word pair is in range for `ingest_rev`. Each blob's bytes are written
-    straight into one buffer (one host memcpy, no bit work); `pin` puts that
-    buffer in page-locked host memory (PyTorch's caching host allocator keeps
-    it for the next call), so the upload is one DMA. Spans "ingest/pin" (the
-    allocation) and "ingest/copy" (the rows)."""
+    straight into one buffer (memcpy, no bit work; split over host threads
+    when the blobs hold SPLIT_BYTES or more, see `RowCopier`); `pin` puts
+    that buffer in page-locked host memory (PyTorch's caching host allocator
+    keeps it for the next call), so the upload is one DMA. Spans
+    "ingest/pin" (the allocation) and "ingest/copy" (the rows)."""
     nw = words_for(log_total)
     with span("ingest/pin"):
         host = torch.empty((len(datas), nw), dtype=torch.int32, pin_memory=pin)
     with span("ingest/copy"):
         rows = host.numpy().view(np.uint8)
-        for row, data in zip(rows, datas):
-            row[: len(data)] = np.frombuffer(data, np.uint8)
-            row[len(data):] = 0
+        srcs = [np.frombuffer(data, np.uint8) for data in datas]
+        _COPIER.copy(rows, srcs)
+        for row, src in zip(rows, srcs):
+            row[src.size:] = 0
     return host
 
 

@@ -27,9 +27,9 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   The port's own spans, which the JAX package has not: inside
   "commit/ingest" and "prove/ingest" (and wherever `utils/packing.
   upload_words` runs), "ingest/pin" (the host buffer's allocation,
-  page-locked for the card), "ingest/copy" (the blobs' bytes into it and
-  the zero tail) and "ingest/upload" (the enqueue of the copy to the
-  device); inside "prove/assemble", "assemble/select" (the witnesses picked
+  page-locked for the card), "ingest/copy" (the blobs' bytes into it, over
+  host threads from `packing.SPLIT_BYTES` on, and the zero tail) and
+  "ingest/upload" (the enqueue of the copy to the device); inside "prove/assemble", "assemble/select" (the witnesses picked
   from the fetched vector) and "assemble/objects" (the proof objects). Set-up
   spans fire on a cache miss only: "setup/kernels" (`ops/_build.library`'s
   first call: the sources' hash, a build if any, the load), "setup/tables"
