@@ -1080,10 +1080,33 @@ def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = D
         committed.release()
 
 
+class GrindTotal(NamedTuple):
+    proofs: int  # proofs whose nonce reached the host
+    nonces: int  # the sum of their (nonce + 1): the compressions a search from nonce 0 needs
+
+
+_GRIND_TOTALS = [0, 0]  # [proofs, sum of nonce + 1] (`grind_totals`)
+
+
+def grind_totals() -> GrindTotal:
+    """GrindTotal(proofs, sum of nonce + 1) of every proof that
+    `finish_proof` fetched since the process started or since
+    `reset_grind_totals`: the grind's useful work, whatever the kernel
+    hashed past each minimum."""
+    return GrindTotal(*_GRIND_TOTALS)
+
+
+def reset_grind_totals() -> None:
+    """Zero the counts of `grind_totals`."""
+    _GRIND_TOTALS[:] = [0, 0]
+
+
 def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Route, clock):
     clock = clock or _Clock(c.layers[0].device, None)
     with clock("transcript"):
         c.fetch()
+    _GRIND_TOTALS[0] += 1
+    _GRIND_TOTALS[1] += c.nonce + 1
     gathered = c.opening_cls is None
     if not gathered:
         with clock("decommit_plan"):

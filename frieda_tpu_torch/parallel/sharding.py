@@ -26,6 +26,7 @@ import torch
 from ..config import PcsConfig
 from ..core import fft, fri, merkle
 from ..utils.packing import log_total_for, upload_words
+from ..utils.profiling import span
 from .fft_sharded import sharded_evaluate
 from .mesh import Mesh
 
@@ -157,7 +158,7 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     (`frieda_tpu/core/fri.py:199-205`): a row's shards are one buffer on one
     device, and the packed outputs equal one device's. A batch larger than
     the card's share (`core/fri.safe_batch`) runs as consecutive batched
-    dispatches.
+    dispatches. A batch's finishes are the span "batch/finish".
 
     Otherwise (shards on several devices, or a process-group mesh) the
     batch takes the per-blob route, `prove_many_per_blob`."""
@@ -179,7 +180,8 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
         out = []
         for i in range(0, len(datas), chunk):
             committed = fri.dispatch_batch(datas[i : i + chunk], log_total, seeds[i : i + chunk], pcs_config, device)
-            out.extend(fri.finish_proof(c, log_total, pcs_config) for c in committed)
+            with span("batch/finish"):  # the first finish's fetch waits for the batch's replay
+                out.extend(fri.finish_proof(c, log_total, pcs_config) for c in committed)
         return out
     return prove_many_per_blob(datas, seeds, log_total, pcs_config, mesh)
 

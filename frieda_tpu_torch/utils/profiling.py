@@ -30,7 +30,10 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   page-locked for the card), "ingest/copy" (the blobs' bytes into it, over
   host threads from `packing.SPLIT_BYTES` on, and the zero tail) and
   "ingest/upload" (the enqueue of the copy to the device); inside "prove/assemble", "assemble/select" (the witnesses picked
-  from the fetched vector) and "assemble/objects" (the proof objects). Set-up
+  from the fetched vector) and "assemble/objects" (the proof objects);
+  around a one-device batch's finishes in `parallel/sharding.
+  prove_many_sharded`, "batch/finish" (its one fetch, which waits for the
+  batch's replay, and every proof's assembly). Set-up
   spans fire on a cache miss only: "setup/kernels" (`ops/_build.library`'s
   first call: the sources' hash, a build if any, the load), "setup/tables"
   (a miss of `fft.stage_twiddles` or `fri.fold_tables`) and "setup/graph"
