@@ -163,8 +163,9 @@ Phases, each printed as it runs:
      decommitted as a row of several blocks (`merkle.ShardedOpening` after
      the fetch: one `merkle_open`, the same bytes); `prove_many_sharded` on
      phase 11's 8 x 2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's
-     proofs; one batched commit phase, phase 14: each kernel's launches those
-     of one proof, and the 8 finishes one fetch, no launch), the per-blob
+     proofs; two batched commit phases of 4 blobs, phase 14: each kernel's
+     launches those of two proofs, and a dispatch's 8 finishes no
+     synchronizing call (an event wait), no launch), the per-blob
      route of meshes over several devices or a process group
      (`prove_many_per_blob`) on the same mesh (== phase 11's proofs, verify;
      each kernel's launches those of 8 proofs, a block's folds one launch
@@ -204,8 +205,8 @@ Phases, each printed as it runs:
      share, peak allocated and reserved memory.
  14. the batched commit phase (`fri.commit_phase_batched`, the JAX
      package's `_fri_commit_fn(..., batched=True)`), which
-     `prove_many_sharded` runs as ONE graph replay when every shard of its
-     mesh lies on the card: each kernel's blob axis against a loop of its
+     `prove_many_sharded` runs as two graph replays of half the blobs each
+     when every shard of its mesh lies on the card: each kernel's blob axis against a loop of its
      plain version at B = 1, 3 and 8 on phase 11's 2^20-felt / 64-query
      shapes, bit-equal (`fri_fold` with a shared table, a table a blob, one
      alpha and a table a row; the collapse with a channel step a blob, with
@@ -219,10 +220,15 @@ Phases, each printed as it runs:
      packed row == `commit_phase`'s), each timed at B = 8 beside 8 one-blob
      launches and its bound; `prove_many_sharded` of 8 x 2^20 / 64 q over the
      card's (8, 1) and (2, 4) meshes: bytes == phase 11's, verify True,
-     tampered False, one replay a batch, one capture for both (one key),
-     launches per batch beside 8 single replays' (each kernel once a layer);
-     `dispatch_batch` under sync debug mode "error", its 8 finishes one
-     synchronizing fetch and no launch; device ms of one batched replay
+     tampered False, two replays of 4 blobs a call, two captures for both
+     (one key, an instance a dispatch in flight), `sharding.pipeline_counts()`
+     (1 call, 2 dispatches, 4 overlapped finishes) printed beside
+     `packing.copy_counts()`, each dispatch's fetch read from its copy
+     ahead, the first dispatch's rows == a lone batch's, launches per call
+     beside 8 single replays' (each kernel once a layer a dispatch); two
+     `dispatch_batch` calls with their copies ahead under sync debug mode
+     "error", their 8 finishes no synchronizing call (an event wait a
+     dispatch) and no launch; device ms of one batched replay
      against 8 single replays, a trace of one batched replay behind a warm
      one holding each recorded launch, and whole-call ms of
      `prove_many_sharded` against `prove_many` (median of 5 in turns), idle
@@ -1884,22 +1890,22 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
           "differs from phase 11's proofs")
     check(all(api.verify(p, s) for (_, p), s in zip(out, seeds)), "a prove_many_sharded proof does not verify")
     check(not api.verify(tampered(out[0][1]), seeds[0]), "a tampered prove_many_sharded proof verifies")
-    # every shard on one card: the whole batch as one batched commit phase (phase 14), each kernel once a
-    # layer (the batch's) and not once a blob
+    # every shard on one card: the batch as two batched commit phases of 4 blobs (phase 14), each kernel
+    # once a layer a dispatch and not once a blob
     folds = log_total_for(len(datas[0])) - 2
     launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
-    check(used["fri_fold"] == folds and used["grind"] == 1 and used["merkle_open_queries"] == 1
-          and used["transcript"] == 2 and used.get(STEPS) == folds,
-          f"prove_many_sharded: launches {used}, want for the batch fri_fold {folds}, grind and "
-          f"merkle_open_queries 1, transcript 2, channel steps {folds}")
+    check(used["fri_fold"] == 2 * folds and used["grind"] == 2 and used["merkle_open_queries"] == 2
+          and used["transcript"] == 4 and used.get(STEPS) == 2 * folds,
+          f"prove_many_sharded: launches {used}, want for its two dispatches fri_fold {2 * folds}, grind and "
+          f"merkle_open_queries 2, transcript 4, channel steps {2 * folds}")
     log_total20 = log_total_for(len(datas[1]))
     syncs, opened = 0, {}
     for b, c in enumerate(fri.dispatch_batch(datas, log_total20, seeds, cfg64, dev)):
         s, finished, o = finish_counted(fri, c, log_total20, cfg64)
         syncs, opened = syncs + s, {**opened, **o}
         check(finished == many_out[b][1], f"prove_many_sharded's batch, row {b}: bytes != phase 11's")
-    check(syncs == 1 and not opened, f"prove_many_sharded's 8 finish_proof calls: {syncs} synchronizing "
-          f"operations, launches {opened}; want 1 and none")
+    check(syncs == 0 and not opened, f"a dispatch_batch's 8 finish_proof calls: {syncs} synchronizing "
+          f"operations, launches {opened}; want none (an event wait for its copy ahead) and none")
     # the per-blob route of meshes over several devices or a process group (`prove_many_per_blob`),
     # driven on the same one-card (2, 4) mesh: each blob's commit phase element-sharded over its row,
     # a graph replay a blob, every fold of a block of 4 shards in one fri_fold launch
@@ -1955,8 +1961,9 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
               f"us of {wall_us:.0f} us")
         busy[kind] = f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}"
     say(f"[12] prove_many_sharded 8 x 2^20 felts / 64 queries over a (2, 4) mesh: every commitment and wire "
-        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used} (one batched "
-        f"commit phase); its 8 finish_proof calls after the replay: 1 synchronizing fetch, no launch; walls in "
+        f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used} (two batched "
+        f"commit phases); a dispatch_batch's 8 finish_proof calls: no synchronizing call (an event wait), no "
+        f"launch; walls in "
         f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']} (the "
         f"first two against prove_many, the last two against the per-blob route); one profiled call each: "
         f"prove_many {busy['prove_many']}, prove_many_sharded {busy['prove_many_sharded']}")
@@ -2302,7 +2309,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     from frieda_tpu_torch.ops import fri as fri_ops
     from frieda_tpu_torch.ops import merkle as merkle_ops
     from frieda_tpu_torch.parallel import sharding
-    from frieda_tpu_torch.utils import profiling
+    from frieda_tpu_torch.utils import packing, profiling
     from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen
     from frieda_tpu_torch.utils.packing import log_total_for, upload_words
 
@@ -2530,56 +2537,87 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     lap_ms = (time.perf_counter() - t_phase)
     say(f"[14] kernels checked in {lap_ms:.1f} s")
 
-    # prove_many_sharded over one card's (8, 1) and (2, 4) meshes: one batched
-    # replay, against phase 11's proofs
+    # prove_many_sharded over one card's (8, 1) and (2, 4) meshes: two batched
+    # replays of 4 blobs, against phase 11's proofs
     if many_out is None:
         many_out = [(c, p.to_bytes()) for c, p in (api.commit_and_prove(d, s, cfg, device=dev)
                                                     for d, s in zip(datas, seeds))]
-    replays = [0]
-    run = fri._CommitGraph.run
+    replays, fetches = [0], []
+    run, dispatch = fri._CommitGraph.run, fri.dispatch_batch
 
     def counting_run(self, seed):
         replays[0] += 1
         return run(self, seed)
 
-    fri._CommitGraph.run = counting_run
+    def recording_dispatch(*args, **kwargs):
+        committed = dispatch(*args, **kwargs)
+        fetches.append((committed[0].batch[0], committed[0].batch[0]._ahead is not None))  # its copy ahead
+        return committed
+
+    fri._CommitGraph.run, fri.dispatch_batch = counting_run, recording_dispatch
     try:
         captures0 = fri.commit_graphs()[0]
         main_used = None
         for shape in ((8, 1), (2, 4)):
             mesh = sharding.make_mesh(*shape, devices=[dev] * 8)
-            sharding.prove_many_sharded(datas, seeds, cfg, mesh)  # the key's warm-up and capture (once)
-            replays[0] = 0
+            sharding.prove_many_sharded(datas, seeds, cfg, mesh)  # the key's warm-up and captures (once)
+            replays[0], copies0 = 0, packing.copy_counts()
+            fetches.clear()
+            sharding.reset_pipeline_counts()
             out, used = counted(lambda: sharding.prove_many_sharded(datas, seeds, cfg, mesh))  # noqa: B023
+            pipeline = sharding.pipeline_counts()
+            copies = {k: v - copies0[k] for k, v in packing.copy_counts().items()}
             check([(c, p.to_bytes()) for c, p in out] == many_out,
                   f"prove_many_sharded 8 x 2^20 felts over one card's {shape} mesh != phase 11's proofs")
             check(all(api.verify(p, s) for (_, p), s in zip(out, seeds)) and not api.verify(tampered(out[0][1]), 1),
                   f"prove_many_sharded over {shape}: a proof does not verify, or a tampered copy does")
-            check(replays[0] == 1, f"prove_many_sharded over {shape}: {replays[0]} graph replays, want 1")
+            check(replays[0] == 2, f"prove_many_sharded over {shape}: {replays[0]} graph replays, want 2")
+            check(pipeline == {"calls": 1, "dispatches": 2, "overlapped": 4},
+                  f"prove_many_sharded over {shape}: pipeline_counts {pipeline}, want 1 call, 2 dispatches, "
+                  f"4 overlapped finishes")
+            check([(f.host.shape[0], ahead) for f, ahead in fetches] == [(4, True), (4, True)],
+                  f"prove_many_sharded over {shape}: its dispatches' fetches "
+                  f"{[(None if f.host is None else f.host.shape, ahead) for f, ahead in fetches]}, want two of "
+                  f"4 rows, each with its copy enqueued ahead")
+            say(f"[14] prove_many_sharded over {shape}: pipeline_counts {pipeline}, copy_counts {copies}")
             main_used = main_used or used
         captures = fri.commit_graphs()[0] - captures0
-        check(captures == 1, f"prove_many_sharded over two meshes of one card: {captures} captures, want 1 (one key)")
+        instances = {k: v for k, v in fri.commit_graphs()[1].items() if k[-1] == 4}
+        check(captures == 2 and list(instances.values()) == [2], f"prove_many_sharded over two meshes of one "
+              f"card: {captures} captures, keys of 4 blobs {instances}; want 2 (one key, an instance a dispatch)")
+        # the first dispatch's rows, read from its copy ahead, == a lone batch's of the same blobs
+        firsts = [fetches[0][0].host[b].copy() for b in range(4)]
+        lone = fri.dispatch_batch(datas[:4], log_total, seeds[:4], cfg, dev)
+        check(all(np.array_equal(lone[b].batch[0].row(b), firsts[b]) for b in range(4)),
+              "the first dispatch's packed rows differ from a lone batch's of its 4 blobs")
+        for b, c in enumerate(lone):
+            check(fri.finish_proof(c, log_total, cfg)[1].to_bytes() == many_out[b][1], f"lone batch row {b} differs")
+        del lone
         # 8 single replays (prove_many's instances captured in phase 11 or here)
         api.prove_many(datas, seeds, cfg, device=dev)
         _, single_used = counted(lambda: api.prove_many(datas, seeds, cfg, device=dev))
     finally:
-        fri._CommitGraph.run = run
-    want_used = {"fri_fold": layers, "transcript": 2, STEPS: layers, "grind": 1, "merkle_open_queries": 1, "ingest": 1}
+        fri._CommitGraph.run, fri.dispatch_batch = run, dispatch
+    want_used = {"fri_fold": 2 * layers, "transcript": 4, STEPS: 2 * layers, "grind": 2, "merkle_open_queries": 2,
+                 "ingest": 2}
     check(all(main_used.get(k) == v for k, v in want_used.items())
-          and all(8 * main_used.get(k, 0) == v for k, v in single_used.items()),
-          f"prove_many_sharded launches per batch {main_used}: want {want_used} and 1/8 of 8 single replays' "
+          and all(4 * main_used.get(k, 0) == v for k, v in single_used.items()),
+          f"prove_many_sharded launches per call {main_used}: want {want_used} and 1/4 of 8 single replays' "
           f"{single_used}")
     say(f"[14] prove_many_sharded 8 x 2^20 felts / 64 queries over one card's (8, 1) and (2, 4) meshes: every "
-        f"commitment and wire byte == phase 11's, each verifies, a tampered copy does not; 1 graph replay a "
-        f"batch, {captures} capture for both meshes (one key: log_size 20, batch 8); launches per batch "
-        f"{main_used} (each batched kernel once a layer); 8 single replays (prove_many) {single_used}")
+        f"commitment and wire byte == phase 11's, each verifies, a tampered copy does not; 2 graph replays of 4 "
+        f"blobs a call, {captures} captures for both meshes (one key: log_size 20, batch 4; an instance a "
+        f"dispatch in flight); the first dispatch's rows == a lone batch's; launches per call {main_used} (each "
+        f"batched kernel once a layer a dispatch); 8 single replays (prove_many) {single_used}")
 
-    # the dispatch under sync debug mode "error", then one synchronizing fetch
-    # for the 8 finishes and no launch
+    # a call's two dispatches and their copies ahead under sync debug mode
+    # "error", then their 8 finishes: no synchronizing call (each dispatch's
+    # first finish waits on its copy's event) and no launch
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        committed = fri.dispatch_batch(datas, log_total, seeds, cfg, dev)
+        committed = (fri.dispatch_batch(datas[:4], log_total, seeds[:4], cfg, dev)
+                     + fri.dispatch_batch(datas[4:], log_total, seeds[4:], cfg, dev))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs, launched = 0, {}
@@ -2588,11 +2626,12 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         syncs += s
         launched.update(opened)
         check(wire == many_out[b][1], f"dispatch_batch row {b}: bytes != phase 11's")
-    check(syncs == 1 and not launched, f"the 8 finishes of a batch: {syncs} synchronizing operations, launches "
-          f"{launched}; want 1 and none")
+    check(syncs == 0 and not launched, f"the 8 finishes of two dispatches: {syncs} synchronizing operations, "
+          f"launches {launched}; want none (an event wait a dispatch) and none")
     del committed
-    say("[14] dispatch_batch (upload, seeds, replay) under sync debug mode 'error': no synchronization; its 8 "
-        "finish_proof calls: 1 synchronizing fetch in all, no launch")
+    say("[14] two dispatch_batch calls of 4 blobs (upload, seeds, replay, the rows' copy ahead and its event) "
+        "under sync debug mode 'error': no synchronization; their 8 finish_proof calls: no synchronizing call "
+        "(an event wait a dispatch), no launch")
 
     # device ms: one batched replay against 8 single replays (median of 5 in
     # turns), the words already on the card
@@ -2680,7 +2719,8 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         kernels[form] = dict(source=BATCH_FORMS[form][1], replaces=BATCH_FORMS[form][2],
                              max_abs_err=errs[form], **e)
         say(f"[14] {form}: device {e['ms']:.4f} ms, bound {e['bound_ms']:.6g} ms ({e['bound_by']}; share "
-            f"{e['bound_ms'] / e['ms']:.3f}); launches on the main path (the counted prove_many_sharded) "
+            f"{e['bound_ms'] / e['ms']:.3f}); launches on the main path (the counted prove_many_sharded, two "
+            f"dispatches) "
             f"{main_used.get(BATCH_FORMS[form][0], 0)}")
     say(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return main_used

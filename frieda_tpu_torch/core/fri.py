@@ -396,16 +396,43 @@ class BatchFetch:
     """The packed vectors of a batched commit phase, (B, layout.total) int32
     on the device, fetched in one copy at the first `row` (then every row
     is read from the host copy) and the host buffer its words were uploaded
-    from (`staging`), kept until then."""
+    from (`staging`), kept until then.
+
+    On a CUDA device `dispatch_batch` enqueues that copy right behind the
+    batch's replay (`copy_ahead`: into page-locked memory, an event after
+    it), so the first `row` waits on the event for this batch's replay
+    alone, not for a later dispatch enqueued behind it: the host finishes
+    one sub-batch of `parallel/sharding.prove_many_sharded` while the next
+    one's replay runs. Without `copy_ahead` (the CPU) `row` copies."""
 
     def __init__(self, packed: torch.Tensor):
         self.packed = packed
         self.staging = None
         self.host = None
+        self._ahead = None  # (page-locked copy, event after it) from `copy_ahead`
+
+    def copy_ahead(self) -> None:
+        """On a CUDA device, enqueue the copy of every row into page-locked
+        host memory behind the work enqueued so far, and an event after it;
+        nothing waits. A no-op elsewhere."""
+        if not self.packed.is_cuda:
+            return
+        with torch.cuda.device(self.packed.device):
+            pinned = torch.empty(self.packed.shape, dtype=self.packed.dtype, pin_memory=True)
+            pinned.copy_(self.packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self._ahead = (pinned, event)
 
     def row(self, b: int) -> np.ndarray:
         if self.host is None:
-            self.host = to_numpy_u32(self.packed)
+            if self._ahead is None:
+                self.host = to_numpy_u32(self.packed)
+            else:
+                pinned, event = self._ahead
+                event.synchronize()
+                self.host = pinned.numpy().view(np.uint32)
+                self._ahead = None
             self.staging = None
         return self.host[b]
 
@@ -1013,11 +1040,15 @@ def dispatch_batch(datas, log_total: int, seeds, pcs_config: PcsConfig, device) 
     device the B rows staged in one page-locked buffer and uploaded in one
     copy straight into the static words of a free captured instance of
     `commit_phase_batched` for B (`_fri_commit_fn(..., batch=B)`; captured
-    on first use), the B seeds written by a fill each, one graph replay;
-    nothing waits for the device. Returns the B `Committed`s, which hold the
-    instance until the last of them is finished. The CPU runs
-    `commit_phase_batched` eagerly on the plain versions; the bytes are the
-    same. The host buffer stays with the batch until its fetch."""
+    on first use), the B seeds written by a fill each, one graph replay,
+    then the rows' copy to the host and an event after it
+    (`BatchFetch.copy_ahead`), so that the batch's fetch waits for this
+    replay and not for a dispatch enqueued after it; nothing waits for the
+    device. Returns the B `Committed`s, which hold the instance until the
+    last of them is finished. The CPU runs `commit_phase_batched` eagerly
+    on the plain versions; the bytes are the same. The host buffer stays
+    with the batch until its fetch. `parallel/sharding.prove_many_sharded`
+    makes two of these a call of two or more blobs."""
     datas = list(datas)
     has_seed = batch_has_seed(seeds, len(datas))
     graph = _batch_graph(log_total, pcs_config, has_seed, device, len(datas))
@@ -1027,7 +1058,9 @@ def dispatch_batch(datas, log_total: int, seeds, pcs_config: PcsConfig, device) 
         committed = commit_phase_batched(words, log_total, seeds, pcs_config)
     else:
         committed = graph.run(seeds if has_seed else None)
-    committed[0].batch[0].staging = host  # the upload reads it asynchronously: kept until the fetch
+    fetch = committed[0].batch[0]
+    fetch.staging = host  # the upload reads it asynchronously: kept until the fetch
+    fetch.copy_ahead()
     return committed
 
 

@@ -21,6 +21,8 @@ None.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..config import PcsConfig
@@ -140,6 +142,33 @@ def _one_device(mesh: Mesh):
     return devices.pop() if len(devices) == 1 else None
 
 
+def sub_batches(count: int, safe: int) -> list:
+    """(start, stop) of each dispatch of a one-device `prove_many_sharded`
+    call of `count` blobs where `core/fri.safe_batch` is `safe`: two halves,
+    ceil(count/2) then floor(count/2) blobs (one dispatch for one blob), or,
+    for more blobs than `safe`, runs of max(1, safe // 2)."""
+    size = (count + 1) // 2 if count <= safe else max(1, safe // 2)
+    return [(i, min(i + size, count)) for i in range(0, count, size)]
+
+
+_PIPELINE = {"calls": 0, "dispatches": 0, "overlapped": 0}  # `pipeline_counts`
+
+
+def pipeline_counts() -> dict:
+    """{"calls", "dispatches", "overlapped"} since the process started or
+    since `reset_pipeline_counts`: `prove_many_sharded` calls that took the
+    one-device route, their batched dispatches, and their `finish_proof`s
+    that ran while a later dispatch of the same call was enqueued (a block
+    of 9: 1, 2 and 5)."""
+    return dict(_PIPELINE)
+
+
+def reset_pipeline_counts() -> None:
+    """Zero the counts of `pipeline_counts`."""
+    for key in _PIPELINE:
+        _PIPELINE[key] = 0
+
+
 def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     """[(commitment, Proof)] of each blob under its seed, in input order,
     bit-identical to the single-device proofs; each blob keeps its own
@@ -150,15 +179,23 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
 
     Where every shard of the mesh lies on one device and the carrier is
     in-process (a mesh of one card's virtual shards, or of the CPU), the
-    batch is that one dispatch here too (`core/fri.dispatch_batch`): the rows
-    uploaded in one copy, one batched commit phase (on the card one graph
-    replay), then a `finish_proof` a blob, the first of which makes the one
-    fetch. Each blob's layers are then whole, as the JAX batched program
-    keeps its auto-sharded XLA stage loop rather than the shard_map path
-    (`frieda_tpu/core/fri.py:199-205`): a row's shards are one buffer on one
-    device, and the packed outputs equal one device's. A batch larger than
-    the card's share (`core/fri.safe_batch`) runs as consecutive batched
-    dispatches. A batch's finishes are the span "batch/finish".
+    batch runs as batched dispatches here too (`core/fri.dispatch_batch`:
+    the rows uploaded in one copy, one batched commit phase, on the card one
+    graph replay and the rows' copy to the host behind it), then a
+    `finish_proof` a blob, the first of a dispatch's waiting for its fetch.
+    A call of B >= 2 blobs makes two dispatches, of ceil(B/2) and floor(B/2)
+    blobs (`sub_batches`: 9 -> 5 + 4), both enqueued before the first
+    finish, so the host finishes the first while the card replays the
+    second; one blob is one dispatch. A batch larger than the card's share
+    (`core/fri.safe_batch`) runs as dispatches of at most half that share,
+    at most two in flight (one where the share is one blob), so what is in
+    flight never holds more than the share. Each dispatch's finishes are
+    one span "batch/finish"; `pipeline_counts` counts the calls, their
+    dispatches and the finishes that overlapped a later dispatch. Each
+    blob's layers are whole, as the JAX batched program keeps its
+    auto-sharded XLA stage loop rather than the shard_map path
+    (`frieda_tpu/core/fri.py:199-205`): a row's shards are one buffer on
+    one device, and the packed outputs equal one device's.
 
     Otherwise (shards on several devices, or a process-group mesh) the
     batch takes the per-blob route, `prove_many_per_blob`."""
@@ -175,13 +212,25 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     if log_total - 2 - 1 - pcs_config.fri_config.log_last_layer_degree_bound < 0:  # n_inner < 0
         raise ValueError("config unsatisfiable for this blob size")
     device = _one_device(mesh)
-    if device is not None:  # batched dispatches of at most `safe_batch` blobs, each finished before the next
-        chunk = fri.safe_batch(log_total - 2, pcs_config.fri_config, device)
-        out = []
-        for i in range(0, len(datas), chunk):
-            committed = fri.dispatch_batch(datas[i : i + chunk], log_total, seeds[i : i + chunk], pcs_config, device)
-            with span("batch/finish"):  # the first finish's fetch waits for the batch's replay
+    if device is not None:
+        safe = fri.safe_batch(log_total - 2, pcs_config.fri_config, device)
+        in_flight = 2 if safe >= 2 else 1  # two dispatches in flight hold at most `safe` blobs
+        out, pending = [], collections.deque()
+        _PIPELINE["calls"] += 1
+
+        def finish(committed: list) -> None:
+            with span("batch/finish"):  # the first finish's fetch waits for this dispatch's replay
                 out.extend(fri.finish_proof(c, log_total, pcs_config) for c in committed)
+            if pending:  # a later dispatch of this call was enqueued behind this one meanwhile
+                _PIPELINE["overlapped"] += len(committed)
+
+        for start, stop in sub_batches(len(datas), safe):
+            if len(pending) == in_flight:
+                finish(pending.popleft())
+            pending.append(fri.dispatch_batch(datas[start:stop], log_total, seeds[start:stop], pcs_config, device))
+            _PIPELINE["dispatches"] += 1
+        while pending:
+            finish(pending.popleft())
         return out
     return prove_many_per_blob(datas, seeds, log_total, pcs_config, mesh)
 

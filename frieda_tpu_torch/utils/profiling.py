@@ -31,9 +31,10 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   host threads from `packing.SPLIT_BYTES` on, and the zero tail) and
   "ingest/upload" (the enqueue of the copy to the device); inside "prove/assemble", "assemble/select" (the witnesses picked
   from the fetched vector) and "assemble/objects" (the proof objects);
-  around a one-device batch's finishes in `parallel/sharding.
-  prove_many_sharded`, "batch/finish" (its one fetch, which waits for the
-  batch's replay, and every proof's assembly). Set-up
+  around the finishes of each dispatch of a one-device `parallel/sharding.
+  prove_many_sharded` call (two a call of two or more blobs),
+  "batch/finish" (the dispatch's one fetch, which waits for its replay,
+  and every proof's assembly). Set-up
   spans fire on a cache miss only: "setup/kernels" (`ops/_build.library`'s
   first call: the sources' hash, a build if any, the load), "setup/tables"
   (a miss of `fft.stage_twiddles` or `fri.fold_tables`) and "setup/graph"
@@ -46,6 +47,14 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   since `reset_span_totals()`. It is the one record of the set-up spans
   that a benchmark can read after its warm-up, before which no profiler
   runs.
+
+* The program's counters besides: `core/fri.grind_totals()` (proofs whose
+  nonce reached the host, and the sum of nonce + 1; `reset_grind_totals`),
+  `utils/packing.copy_counts()` (the ingest's copies made whole or split
+  over host threads, and the chunks) and `parallel/sharding.
+  pipeline_counts()` (one-device `prove_many_sharded` calls, their
+  dispatches, and the finishes that ran while a later dispatch of the same
+  call was enqueued; `reset_pipeline_counts`).
 
 * The roofline: the least time a card could take for a function's work, the
   larger of its bytes over the card's memory rate and its integer

@@ -357,15 +357,16 @@ def spy(monkeypatch) -> list:
 @pytest.mark.parametrize("shape", [(2, 4), (4, 1), (1, 1)])
 def test_prove_many_sharded_on_one_device_is_one_batch(monkeypatch, looped, shape):
     """A mesh whose shards all lie on one device proves the whole batch as
-    one batched commit phase; the proofs == a loop of commit_and_prove, and
-    the frozen case's bytes at its shape."""
+    two batched commit phases (3 + 2 blobs; one for one blob); the proofs
+    == a loop of commit_and_prove, and the frozen case's bytes at its
+    shape."""
     calls = spy(monkeypatch)
     mesh = sharding.make_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
     out = sharding.prove_many_sharded(DATAS, SEEDS, CFG, mesh)
-    assert [p.to_bytes() for _, p in out] == looped and calls == [5]
+    assert [p.to_bytes() for _, p in out] == looped and calls == [3, 2]
     datas, seeds, cfg, _ = blobs_of("dryrun_960B")
     got = sharding.prove_many_sharded(datas[:1], seeds[:1], cfg, mesh)
-    assert got[0][1].to_bytes().hex() == CASES["dryrun_960B"]["wire_hex"] and calls == [5, 1]
+    assert got[0][1].to_bytes().hex() == CASES["dryrun_960B"]["wire_hex"] and calls == [3, 2, 1]
 
 
 @pytest.mark.parametrize("shape,devices", [
@@ -418,8 +419,8 @@ def test_one_device_names_a_card_once(monkeypatch):
 def test_a_batch_larger_than_the_budget_runs_in_parts(monkeypatch, looped):
     """With the device's memory made small, `safe_batch` is the largest B
     whose instance and warm-up fit MEMORY_SHARE, and the batch runs as
-    consecutive batched commit phases of that many blobs; the bytes do not
-    change."""
+    consecutive batched commit phases of half that many blobs (two in
+    flight hold at most the share); the bytes do not change."""
     domain = 1 << (log_total_for(512) - 2 + 2)
     per_blob = (fri.RESIDENT_BYTES_PER_ELEMENT + fri.ACTIVE_BYTES_PER_ELEMENT) * domain
     monkeypatch.setattr(fri, "device_memory_bytes", lambda device: int(2.5 * per_blob / fri.MEMORY_SHARE) + 1)
@@ -427,7 +428,7 @@ def test_a_batch_larger_than_the_budget_runs_in_parts(monkeypatch, looped):
     calls = spy(monkeypatch)
     mesh = sharding.make_mesh(1, 2, devices=["cpu"] * 2)
     out = sharding.prove_many_sharded(DATAS, SEEDS, CFG, mesh)
-    assert [p.to_bytes() for _, p in out] == looped and calls == [2, 2, 1]
+    assert [p.to_bytes() for _, p in out] == looped and calls == [1, 1, 1, 1, 1]
     monkeypatch.setattr(fri, "device_memory_bytes", lambda device: 0)
     assert fri.safe_batch(8, CFG.fri_config, torch.device("cpu")) == 1
 
@@ -484,9 +485,10 @@ def test_a_batch_holds_its_instance_until_its_last_proof(monkeypatch, looped):
     gc.collect()
     assert all(i.free for i in cache.keys[(log_total, True, 3)][1])
     mesh = sharding.make_mesh(1, 1, devices=["cpu"])
-    out = sharding.prove_many_sharded(DATAS[:3], SEEDS[:3], CFG, mesh)  # a free instance runs again
-    assert [p.to_bytes() for _, p in out] == looped[:3] and inst.runs == 2
-    assert len(cache.keys[(log_total, True, 3)][1]) == 2 and cache.keys[(log_total, True, 3)][1][0] is inst
+    out = sharding.prove_many_sharded(DATAS[:3] * 2, SEEDS[:3] * 2, CFG, mesh)  # two dispatches of 3 blobs
+    insts = cache.keys[(log_total, True, 3)][1]
+    assert [p.to_bytes() for _, p in out] == looped[:3] * 2 and inst.runs == 2  # a free instance runs again
+    assert len(insts) == 2 and insts[0] is inst and insts[1].runs == 2  # the other dispatch takes the other
 
 
 def test_batch_errors_equal_the_jax_packages():
