@@ -102,12 +102,12 @@ Phases, each printed as it runs:
      one FRI witness felt flipped and the proof under another seed;
   9. the staged prove (`api.commit_and_prove_staged`, words on the card) at
      2^20 felts / 64 queries and 2^24 felts / 20 queries (pow_bits 20,
-     log_blowup 4): at 2^24 the kernel path's proof bytes equal the plain
-     path's (the same prover on the plain versions); the median prove time
-     of three runs with the stage clock, each run's stage split (the
-     decommitment as the gather inside the commit phase and the assembly
-     after the fetch), kernel launches per proof (`merkle_open_queries` once,
-     in the gather stage, `merkle_open` never, nothing in the assembly;
+     log_blowup 4): at 2^24 the kernel path's root and proof bytes equal
+     `portbench/reference/fri.prove`'s for the same blob and seed; the
+     median prove time of three runs of a dispatch and its `finish_proof`,
+     the decommitment's launches counted around each (`ops.launch_counts`),
+     kernel launches per proof (`merkle_open_queries` once, in the commit
+     phase, `merkle_open` never, nothing in `finish_proof`;
      `fri_fold` once a layer, `transcript` twice, a channel step in each
      layer's collapse (`merkle_collapse.steps` == layers), `grind` once) and
      peak device
@@ -124,7 +124,7 @@ Phases, each printed as it runs:
      (`torch.cuda.memory_allocated` around `fri.commit_phase`) and the
      prove_many window that gives; `api.verify` accepts the proof and
      rejects a tampered copy, with verify's host ms (median of 5); ten whole
-     proves without the stage clock with the spans (`utils/profiling.span`)
+     proves with the spans (`utils/profiling.span`)
      and ten with a no-op in their place, in turns, the median of the first
      beside the spread of the second, and an empty span's host cost; at
      2^20 felts a torch.profiler trace of `api.commit`,
@@ -159,7 +159,8 @@ Phases, each printed as it runs:
      == phase 9's proof, verify True, tampered copy False; one `fri_fold`
      launch a fold, a block of 8 shards in one), its commit phase
      under sync debug mode "error", its `finish_proof` after a graph replay
-     with one synchronizing fetch and no launch, and the same commit phase
+     with no synchronizing call (an event wait for the row's copy ahead) and
+     no launch, and the same commit phase
      decommitted as a row of several blocks (`merkle.ShardedOpening` after
      the fetch: one `merkle_open`, the same bytes); `prove_many_sharded` on
      phase 11's 8 x 2^20 felts / 64 queries over a (2, 4) mesh (== phase 11's
@@ -169,7 +170,7 @@ Phases, each printed as it runs:
      route of meshes over several devices or a process group
      (`prove_many_per_blob`) on the same mesh (== phase 11's proofs, verify;
      each kernel's launches those of 8 proofs, a block's folds one launch
-     each; a blob's finish one fetch, no launch), and
+     each; a blob's finish an event wait, no launch), and
      `commit_roots_batch` on 16 x 2^20 felts over (2, 4) (== `api.commit_many`).
      Host (enqueue) and device ms of each beside the single-device path's, in
      turns in this phase (the sharded proof eager and as a graph replay), and
@@ -178,12 +179,13 @@ Phases, each printed as it runs:
      `merkle_open` only in the decommitment of several blocks. The sharded
      proofs' launches are read from a second call: the first runs the eager
      warm-up and the capture of the commit phase's graph (phase 13).
- 13. the commit phase as one dispatch (`fri.dispatch_commit_phase`: a CUDA
-     graph captured once per configuration and replayed; phases 8, 9, 11
-     and 12 already prove through it) against the eager `fri.commit_phase`,
-     at 2^20 felts / 64 queries, 2^24 felts / 20 queries and the 2^24 / 20 q
-     proof over 8 virtual shards: proof bytes == eager's == the anchor
-     (2^20), phase 9's (2^24, itself == the plain route) and the single
+ 13. the commit phase as one dispatch (`fri.dispatch_words`: a CUDA graph
+     captured once per configuration and blob count and replayed; phases
+     8, 9, 11 and 12 already prove through it) against the eager
+     `fri.commit_phase`, at 2^20 felts / 64 queries, 2^24 felts / 20
+     queries and the 2^24 / 20 q proof over 8 virtual shards: proof bytes
+     == eager's == the anchor (2^20), phase 9's (2^24, itself ==
+     `portbench/reference`'s) and the single
      device's (sharded: its decommitment in the graph too); two `Committed` of one key alive at once (a second
      instance captured: its `torch.cuda.memory_reserved` growth per domain
      element beside `fri.RESIDENT_BYTES_PER_ELEMENT`), finished in reverse
@@ -194,8 +196,9 @@ Phases, each printed as it runs:
      launch), the replayed
      proof's nonce and its `grind` record's device ms and share of
      `grind_bound`; the dispatch (copy,
-     seed fill, replay) under sync debug mode "error", then a `finish_proof`
-     with one synchronizing fetch and no launch; host enqueue, device
+     seed fill, replay, the row's copy ahead) under sync debug mode "error",
+     then a `finish_proof` with no synchronizing call (an event wait) and no
+     launch; host enqueue, device
      and whole-prove ms of both, median of 5 in turns, and the words' copy.
      Then 9 keys (2^10 felts, 1-9 queries): the 9th evicts the least
      recently used, and the first is captured again; the cached tables
@@ -203,7 +206,7 @@ Phases, each printed as it runs:
      `prove_many` on phase 11's 8 x 2^20 felts: bytes == a loop, instances
      of its key <= its window, proofs/s against the loop in turns, idle
      share, peak allocated and reserved memory.
- 14. the batched commit phase (`fri.commit_phase_batched`, the JAX
+ 14. the commit phase over a batch (`fri.commit_phase`, the JAX
      package's `_fri_commit_fn(..., batched=True)`), which
      `prove_many_sharded` runs as two graph replays of half the blobs each
      when every shard of its mesh lies on the card: each kernel's blob axis against a loop of its
@@ -217,16 +220,16 @@ Phases, each printed as it runs:
      and registers, 8 and 64 channels beside as many one-channel launches,
      the SM clock beside the 8; `merkle_open_queries`
      over the batch's real layers, == the batch's packed gathers, every
-     packed row == `commit_phase`'s), each timed at B = 8 beside 8 one-blob
+     packed row == its blob's batch of one's), each timed at B = 8 beside 8 one-blob
      launches and its bound; `prove_many_sharded` of 8 x 2^20 / 64 q over the
      card's (8, 1) and (2, 4) meshes: bytes == phase 11's, verify True,
      tampered False, two replays of 4 blobs a call, two captures for both
-     (one key, an instance a dispatch in flight), `sharding.pipeline_counts()`
+     (one key, an instance a dispatch in flight), `fri.pipeline_counts()`
      (1 call, 2 dispatches, 4 overlapped finishes) printed beside
      `packing.copy_counts()`, each dispatch's fetch read from its copy
      ahead, the first dispatch's rows == a lone batch's, launches per call
      beside 8 single replays' (each kernel once a layer a dispatch); two
-     `dispatch_batch` calls with their copies ahead under sync debug mode
+     `dispatch_blobs` calls with their copies ahead under sync debug mode
      "error", their 8 finishes no synchronizing call (an event wait a
      dispatch) and no launch; device ms of one batched replay
      against 8 single replays, a trace of one batched replay behind a warm
@@ -245,8 +248,8 @@ Without CUDA the script exits nonzero before printing any result.
     python3 chip_smoke.py --prove-fit 26
 
 runs only phases 1-2 and one staged prove of 2^26 felts (20 queries,
-pow_bits 20, log_blowup 4) and prints its time, stage split and peak device
-memory: whether the largest blob the JAX bench names fits one card; then
+pow_bits 20, log_blowup 4) and prints its time and peak device memory:
+whether the largest blob the JAX bench names fits one card; then
 `api.verify` accepts the proof (host ms) and rejects a tampered copy.
 
     python3 chip_smoke.py --commit-graph
@@ -398,34 +401,6 @@ def grind_form(blobs: int) -> str:
             f"W {plan.width}; {BUILT.get('grind_kernel', 'registers not read')}")
 
 
-def plain_route():
-    """The prover's device steps as the kernels' plain PyTorch versions (int64
-    inside, int32 at the edges), on a batch's (B, ...) shapes as the kernels
-    take them: the same pipeline, no kernel launched."""
-    from frieda_tpu_torch.core import fft, fri
-    from frieda_tpu_torch.ops import channel as channel_ops
-    from frieda_tpu_torch.ops import fri as fri_ops
-    from frieda_tpu_torch.ops import ingest as ingest_ops
-    from frieda_tpu_torch.ops import merkle as merkle_ops
-    from frieda_tpu_torch.utils.convert import narrow, widen
-
-    return fri.Route(
-        fold=lambda v, alpha, inv: narrow(fri_ops.fri_fold_plain(widen(v), widen(alpha), widen(inv))),
-        transcript=channel_ops.transcript_plain,
-        grind=channel_ops.grind_plain,
-        ingest=lambda w, log_size: narrow(ingest_ops.ingest_plain(widen(w), log_size)),
-        evaluate=lambda c, tw: narrow(fft.evaluate(widen(c).reshape(-1, c.shape[-1]), tw)).view(
-            *c.shape[:-1], -1),
-        level=lambda x, leaf, fused: narrow(merkle_ops.merkle_level_plain(widen(x), leaf, fused)),
-        collapse=lambda lvl, widths, step=None: [
-            narrow(o) for o in merkle_ops.merkle_collapse_plain(widen(lvl), widths, step)],
-        open=lambda layers, trees, values, nodes: narrow(
-            merkle_ops.merkle_open_plain(layers, trees, values, nodes)),
-        open_queries=lambda layers, trees, words, out: out.copy_(narrow(
-            merkle_ops.merkle_open_queries_plain(layers, trees, words))),
-    )
-
-
 def sass_int_ops(so: pathlib.Path, *name_has: str) -> list:
     """Integer instructions (opcodes with modifiers) of the one SASS function
     whose name contains every string of `name_has`, without loads, stores,
@@ -515,9 +490,9 @@ def prove_fit(log_felts: int) -> int:
         f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB")
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved(dev)
-    first = fri.dispatch_commit_phase(words, log_total, 7, cfg)
+    first = fri.dispatch_words(words[None], log_total, [7], cfg)[0]
     t0 = time.perf_counter()
-    second = fri.dispatch_commit_phase(words, log_total, 7, cfg)  # `first` holds its lease: a second instance
+    second = fri.dispatch_words(words[None], log_total, [7], cfg)[0]  # `first` holds its lease: a second instance
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     grown = torch.cuda.memory_reserved(dev) - reserved0
@@ -533,18 +508,16 @@ def prove_fit(log_felts: int) -> int:
     fri.clear_commit_graphs()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    stats = {}
     t0 = time.perf_counter()
-    _, eager = fri.prove_words(words, log_total, 7, cfg, stats=stats)  # the stage clock runs it eagerly
+    _, eager = fri.finish_proof(fri.commit_phase(words[None], log_total, [7], cfg)[0], log_total, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(graph_bytes == [proof.to_bytes()] * 2 and eager.to_bytes() == proof.to_bytes(),
           f"2^{log_felts} felts: the graph proofs != the eager proof")
     peak = torch.cuda.max_memory_allocated(dev)
     free, total = torch.cuda.mem_get_info(dev)
-    split = " ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items())
     say(f"[fit] eager staged prove 2^{log_felts} felts, 20 queries, pow 20 (domain 2^{log_total - 2 + LOG_BLOWUP}): "
-        f"{wall * 1e3:.3f} ms (synchronized stages, ms: {split}); bytes == the graph's; peak device memory "
+        f"{wall * 1e3:.3f} ms; bytes == the graph's; peak device memory "
         f"{peak} bytes = {peak / 2**30:.3f} GiB of {total / 2**30:.3f} GiB ({peak / domain:.1f} "
         f"bytes per domain element)")
     t0 = time.perf_counter()
@@ -844,7 +817,8 @@ def main() -> int:
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(LOG_BLOWUP, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
         log_total = log_total_for(len(data))
-        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev), log_total, 7, cfg)
+        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev)[None], log_total, [7],
+                                     cfg)[0]
         values, nodes = fri.plan_openings(committed.layers, committed.trees, committed.queries)[0].jobs()
         args = (committed.layers, committed.trees, values, nodes)
         got = merkle_ops.merkle_open(*args)
@@ -1453,7 +1427,7 @@ def main() -> int:
         data = synthetic_data(felt_bytes(log_felts))
         log_total = log_total_for(len(data))
         words = from_numpy_u32(pad_to_words(data, log_total), dev)
-        _, warm = api.commit_and_prove_staged(words, log_total, 7, cfg)  # warm-up: tables, caches
+        warm_root, warm = api.commit_and_prove_staged(words, log_total, 7, cfg)  # warm-up: tables, caches
         wire = warm.to_bytes()
         staged_wires[log_felts] = wire  # phase 12's sharded proof
         torch.cuda.synchronize()
@@ -1481,7 +1455,7 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode("error")
         try:
             with contextlib.redirect_stderr(printed):
-                committed = fri.commit_phase(words, log_total, 7, cfg)
+                committed = fri.commit_phase(words[None], log_total, [7], cfg)[0]
         finally:
             torch.cuda.set_sync_debug_mode(0)
             del os.environ["FRIEDA_SPANS"]
@@ -1499,33 +1473,33 @@ def main() -> int:
             f"{start.elapsed_time(end):.3f} ms (CUDA events from before the first launch); then finish_proof: "
             f"{syncs} synchronizing fetch of {committed.packed.numel()} words, no launch; proof bytes unchanged")
         del committed
-        walls, splits = [], []
+        walls = []
         for _ in range(3):
-            stats = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, proof = fri.prove_words(words, log_total, 7, cfg, stats=stats)
+            before = ops.launch_counts()
+            committed = fri.dispatch_words(words[None], log_total, [7], cfg)[0]
+            between = ops.launch_counts()
+            _, proof = fri.finish_proof(committed, log_total, cfg)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            splits.append(" ".join(f"{k} {v * 1e3:.3f}" for k, v in stats["stage_s"].items()))
             check(proof.to_bytes() == wire, f"2^{log_felts}-felt proof changed between runs")
-            gathered = {k: v for k, v in stats["stage_launches"]["decommit_gather"].items() if v}
-            assembled = {k: v for k, v in stats["stage_launches"]["decommit_assemble"].items() if v}
-            check(gathered == {"merkle_open_queries": 1} and not assembled
-                  and "decommit_plan" not in stats["stage_s"] and "decommit_open" not in stats["stage_s"],
-                  f"2^{log_felts}-felt proof: the decommitment launched {gathered} in its gather, "
-                  f"{assembled} in its assembly; stages {sorted(stats['stage_s'])}")
-        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (stages synchronized): median "
+            gathered = {k: between[k] - before[k] for k in ("merkle_open_queries", "merkle_open")
+                        if between[k] != before[k]}
+            assembled = {k: v - between[k] for k, v in ops.launch_counts().items() if v != between[k]}
+            check(gathered == {"merkle_open_queries": 1} and not assembled,
+                  f"2^{log_felts}-felt proof: the decommitment launched {gathered} in the commit phase, "
+                  f"{assembled} in finish_proof")
+        del committed
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (a dispatch, then finish_proof): median "
             f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
             f"kernel launches per proof {per_proof} (the decommitment: merkle_open_queries "
-            f"{gathered['merkle_open_queries']} in the commit phase's gather stage, nothing in the assembly); "
+            f"{gathered['merkle_open_queries']} in the commit phase, nothing in finish_proof); "
             f"peak device memory allocated {peak} bytes = {peak / 2**30:.3f} GiB (everything live: the graph "
             f"instances' outputs, tables, words, the decommitment), reserved {reserved / 2**30:.3f} GiB (the "
             f"instances' pools of every key so far included); proof {wire_note(warm)}")
-        for i, split in enumerate(splits):
-            say(f"[9]   run {i + 1} stages (ms): {split}")
         whole = {"on": [], "off": []}
-        for kind in ("on", "off", "off", "on") * 5:  # no stage clock: the commit phase runs ahead of the host
+        for kind in ("on", "off", "off", "on") * 5:  # the commit phase runs ahead of the host
             with contextlib.nullcontext() if kind == "on" else no_spans(fri):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1537,7 +1511,7 @@ def main() -> int:
             with profiling.span("chip_smoke/empty"):
                 pass
         span_us = (time.perf_counter() - t0) / 10_000 * 1e6
-        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, no stage clock, in turns: spans on, median "
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, in turns: spans on, median "
             f"{on:.3f} ms of {[round(w, 3) for w in whole['on']]}; spans off (utils/profiling.span a no-op), "
             f"median {statistics.median(off):.3f} ms of {[round(w, 3) for w in off]}; the median with spans "
             f"{'lies' if min(off) <= on <= max(off) else 'does NOT lie'} within the spread without them; "
@@ -1546,7 +1520,7 @@ def main() -> int:
             span_trace(dev, data, words, log_total, cfg)
         torch.cuda.synchronize()
         before_bytes = torch.cuda.memory_allocated(dev)
-        committed = fri.commit_phase(words, log_total, 7, cfg)
+        committed = fri.commit_phase(words[None], log_total, [7], cfg)[0]
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated(dev) - before_bytes
         del committed
@@ -1565,12 +1539,14 @@ def main() -> int:
         if log_felts == 24:
             del warm, proof
             torch.cuda.empty_cache()
+            from portbench.reference import fri as ref
+
             t0 = time.perf_counter()
-            _, plain_proof = fri.prove_words(words, log_total, 7, cfg, route=plain_route())
-            plain_wire = plain_proof.to_bytes()
-            check(plain_wire == wire, "2^24-felt proof: kernel path bytes != plain path bytes")
-            say(f"[9] 2^24-felt proof: kernel path wire bytes == plain path wire bytes "
-                f"(blake2s {hashlib.blake2s(wire).hexdigest()}; plain path "
+            (ref_root, ref_wire), = ref.prove([data], [7], ref.Protocol(LOG_BLOWUP, 0, nq, 20), dev)
+            check(ref_wire == wire and ref_root == warm_root, "2^24-felt proof: kernel path bytes != "
+                  "portbench/reference's")
+            say(f"[9] 2^24-felt proof: kernel path wire bytes and root == portbench/reference's "
+                f"(blake2s {hashlib.blake2s(wire).hexdigest()}; reference "
                 f"{time.perf_counter() - t0:.2f} s)")
         del words
         torch.cuda.empty_cache()
@@ -1825,11 +1801,11 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
           f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {folds} (a block of "
           f"8 shards in one launch a fold; {8 * folds} before), transcript 2, channel steps {folds} (every "
           "layer's on its top tree's collapse), grind, merkle_open_queries and ingest 1")
-    syncs, finished, opened = finish_counted(fri, fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8),
+    syncs, finished, opened = finish_counted(fri, fri.dispatch_words(words[None], log_total, [7], cfg, mesh8)[0],
                                              log_total, cfg)
-    check(syncs == 1 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
-          f"graph replay: {syncs} synchronizing operations, launches {opened}, bytes == phase 9's "
-          f"{finished == wire24}")
+    check(syncs == 0 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
+          f"graph replay: {syncs} synchronizing operations (want none: an event wait for its copy ahead), "
+          f"launches {opened}, bytes == phase 9's {finished == wire24}")
     again = fri.finish_proof(fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0), log_total, cfg)[1]
     check(again.to_bytes() == wire24, "sharded staged proof differs from phase 9's")
     host, dev_ms, committed = enqueue_and_device(
@@ -1859,14 +1835,14 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         f"the warm-up and the capture: {first:.3f} s); eager commit phase under sync debug mode 'error': "
         f"no synchronization (host enqueue "
         f"{host:.3f} ms, device {dev_ms:.3f} ms), then {syncs} synchronizing fetch; launches per proof {used}; "
-        f"finish_proof after a graph replay: 1 synchronizing fetch, no launch; the same commit phase "
+        f"finish_proof after a graph replay: no synchronizing call (an event wait), no launch; the same commit phase "
         f"decommitted as a row of several blocks (merkle.ShardedOpening after the fetch): bytes == phase 9's, "
         f"launches {opened}")
     del committed
     rows = {"single": [], "sharded": [], "sharded graph": []}
-    commit = {"single": lambda: fri.commit_phase(words, log_total, 7, cfg),
+    commit = {"single": lambda: fri.commit_phase(words[None], log_total, [7], cfg)[0],
               "sharded": lambda: fri.commit_phase_sharded(words, log_total, 7, cfg, mesh8, 0),
-              "sharded graph": lambda: fri.dispatch_commit_phase(words, log_total, 7, cfg, mesh8)}
+              "sharded graph": lambda: fri.dispatch_words(words[None], log_total, [7], cfg, mesh8)[0]}
     for kind in ("single", "sharded", "sharded graph", "sharded graph", "sharded", "single"):  # in turns
         t0 = time.perf_counter()
         host, dev_ms, committed = enqueue_and_device(commit[kind])
@@ -1900,11 +1876,11 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
           f"merkle_open_queries 2, transcript 4, channel steps {2 * folds}")
     log_total20 = log_total_for(len(datas[1]))
     syncs, opened = 0, {}
-    for b, c in enumerate(fri.dispatch_batch(datas, log_total20, seeds, cfg64, dev)):
+    for b, c in enumerate(fri.dispatch_blobs(datas, log_total20, seeds, cfg64, dev)):
         s, finished, o = finish_counted(fri, c, log_total20, cfg64)
         syncs, opened = syncs + s, {**opened, **o}
         check(finished == many_out[b][1], f"prove_many_sharded's batch, row {b}: bytes != phase 11's")
-    check(syncs == 0 and not opened, f"a dispatch_batch's 8 finish_proof calls: {syncs} synchronizing "
+    check(syncs == 0 and not opened, f"a dispatch_blobs' 8 finish_proof calls: {syncs} synchronizing "
           f"operations, launches {opened}; want none (an event wait for its copy ahead) and none")
     # the per-blob route of meshes over several devices or a process group (`prove_many_per_blob`),
     # driven on the same one-card (2, 4) mesh: each blob's commit phase element-sharded over its row,
@@ -1924,8 +1900,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
           f"in one launch a fold), grind and merkle_open_queries {len(datas)}, transcript {2 * len(datas)}, "
           f"channel steps {len(datas) * folds}")
     syncs_blob, finished, opened_blob = finish_counted(
-        fri, fri.dispatch_blob(datas[1], log_total20, seeds[1], cfg64, dev, mesh24, 0), log_total20, cfg64)
-    check(syncs_blob == 1 and not opened_blob and finished == many_out[1][1], f"a prove_many_per_blob blob's "
+        fri, fri.dispatch_blobs([datas[1]], log_total20, [seeds[1]], cfg64, dev, mesh24, 0)[0], log_total20, cfg64)
+    check(syncs_blob == 0 and not opened_blob and finished == many_out[1][1], f"a prove_many_per_blob blob's "
           f"finish_proof: {syncs_blob} synchronizing operations, launches {opened_blob}, bytes == phase 11's "
           f"{finished == many_out[1][1]}")
     blobs = [synthetic_data(felt_bytes(20), k) for k in range(16)]
@@ -1962,7 +1938,7 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
         busy[kind] = f"device busy {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}"
     say(f"[12] prove_many_sharded 8 x 2^20 felts / 64 queries over a (2, 4) mesh: every commitment and wire "
         f"byte == phase 11's prove_many, each verifies, a tampered copy does not; launches {used} (two batched "
-        f"commit phases); a dispatch_batch's 8 finish_proof calls: no synchronizing call (an event wait), no "
+        f"commit phases); a dispatch_blobs' 8 finish_proof calls: no synchronizing call (an event wait), no "
         f"launch; walls in "
         f"turns, ms: prove_many {walls['prove_many']}, prove_many_sharded {walls['prove_many_sharded']} (the "
         f"first two against prove_many, the last two against the per-blob route); one profiled call each: "
@@ -1970,7 +1946,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     say(f"[12] prove_many_per_blob (the route of meshes over several devices or a process group) 8 x 2^20 "
         f"felts / 64 queries over the same (2, 4) mesh: every commitment and wire byte == phase 11's, each "
         f"verifies, a tampered copy does not; launches {used_blob} (a graph replay a blob); a blob's "
-        f"finish_proof after its graph replay: {syncs_blob} synchronizing fetch, launches {opened_blob}; walls "
+        f"finish_proof after its graph replay: {syncs_blob} synchronizing calls (an event wait), launches "
+        f"{opened_blob}; walls "
         f"in turns with prove_many_sharded, ms: {walls['prove_many_per_blob']}; one profiled call: "
         f"{busy['prove_many_per_blob']}")
     say(f"[12] commit_roots_batch 16 x 2^20 felts over a (2, 4) mesh: every root == api.commit_many's; "
@@ -1985,8 +1962,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
 
 
 def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) -> None:
-    """Phase 13: the commit phase as one dispatch (`fri.dispatch_commit_phase`,
-    a cached CUDA graph) against the eager `fri.commit_phase`, at the two
+    """Phase 13: the commit phase as one dispatch (`fri.dispatch_words`, a
+    cached CUDA graph) against the eager `fri.commit_phase`, at the two
     prove cells and the sharded proof; the cache's keys, leases and tables;
     `prove_many` through it. wire24: phase 9's 2^24-felt proof; many_out:
     phase 11's prove_many [(commitment, wire bytes)] (None when this phase
@@ -2047,11 +2024,11 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
 
         def eager(w=words, seed=7):
             if mesh is None:
-                return fri.commit_phase(w, log_total, seed, cfg)
+                return fri.commit_phase(w[None], log_total, [seed], cfg)[0]
             return fri.commit_phase_sharded(w, log_total, seed, cfg, mesh, 0)  # noqa: B023
 
         def graph(w=words, seed=7):
-            return fri.dispatch_commit_phase(w, log_total, seed, cfg, mesh)  # noqa: B023
+            return fri.dispatch_words(w[None], log_total, [seed], cfg, mesh)[0]  # noqa: B023
 
         def finish(c):
             return fri.finish_proof(c, log_total, cfg)[1].to_bytes()  # noqa: B023
@@ -2075,7 +2052,7 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
         if mesh is None and log_felts == 20:
             check(hashlib.blake2s(got).hexdigest() == anchor20, f"{what}: graph proof != the JAX anchor")
         if log_felts == 24 and wire24 is not None:
-            check(got == wire24, f"{what}: graph proof != phase 9's (the plain route's bytes)")
+            check(got == wire24, f"{what}: graph proof != phase 9's (portbench/reference's bytes)")
         n1 = captures()
         repeated, graph_counts = counted(lambda: [finish(graph()) for _ in range(3)])
         check(all(r == want for r in repeated) and captures() == n1,
@@ -2110,8 +2087,9 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
         finally:
             torch.cuda.set_sync_debug_mode(0)
         syncs, finished, opened = finish_counted(fri, committed, log_total, cfg)
-        check(syncs == 1 and not opened and finished == want, f"{what}: finish_proof after the dispatch made "
-              f"{syncs} synchronizing operations and launched {opened}, or its proof differs")
+        check(syncs == 0 and not opened and finished == want, f"{what}: finish_proof after the dispatch made "
+              f"{syncs} synchronizing operations (want none: an event wait for its copy ahead) and launched "
+              f"{opened}, or its proof differs")
         del committed
         rows = {"eager": [], "graph": []}
         for r in range(5):  # in turns
@@ -2127,8 +2105,9 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
             f"fri.RESIDENT_BYTES_PER_ELEMENT {fri.RESIDENT_BYTES_PER_ELEMENT}); both proofs == eager, finished in "
             f"reverse order; 3 repeated proofs: no capture, launches per proof == eager's {eager_counts}; a "
             f"torch.profiler trace of one replay holds each recorded launch: {traced}; "
-            f"the dispatch under sync debug mode 'error': no synchronization, then finish_proof: {syncs} "
-            f"synchronizing fetch{'es' if syncs > 1 else ''}, launches {opened or 'none'}")
+            f"the dispatch (copy, seed fill, replay, the row's copy ahead) under sync debug mode 'error': no "
+            f"synchronization, then finish_proof: {syncs} synchronizing calls (an event wait), launches "
+            f"{opened or 'none'}")
         for kind, runs in rows.items():
             say(f"[13]   {what}, {kind} commit phase, 5 in turns: host enqueue ms "
                 f"{[round(x[0], 3) for x in runs]} (median {med[kind][0]:.3f}), device ms "
@@ -2160,7 +2139,7 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
     check(all(ref() is not None for ref in held), "a live graph's tables were freed with the caches")
     check(api.commit_and_prove_staged(words, log_total, 7, cfgs[0])[1].to_bytes() == firsts[0],
           "a live graph's proof changed after the caches were cleared")
-    check(fri.finish_proof(fri.commit_phase(words, log_total, 7, cfgs[0]), log_total, cfgs[0])[1].to_bytes()
+    check(fri.finish_proof(fri.commit_phase(words[None], log_total, [7], cfgs[0])[0], log_total, cfgs[0])[1].to_bytes()
           == firsts[0], "the eager proof changed after the caches were cleared (tables uploaded again)")
     say(f"[13] 9 keys (2^10 felts, 1-9 queries): 9 captures, 8 keys kept; the first key captured again on "
         f"its return, proof unchanged; the fold and stage tables' caches cleared: the live graph still holds "
@@ -2243,7 +2222,7 @@ def graph_phase(dev, wire24: bytes | None = None, many_out: list | None = None) 
         proofs = [p for _, p in api.prove_many(datas, seeds, cfg, device=dev)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        eager = fri.prove_words(words0, log_total, seeds[0], cfg, stats={})[1]  # the stage clock: eager
+        eager = fri.finish_proof(fri.commit_phase(words0[None], log_total, seeds[:1], cfg)[0], log_total, cfg)[1]
         check(proofs[0].to_bytes() == eager.to_bytes(), f"prove_many 2^24 felts / {nq} q seeded {seeded}: "
               "proof 0 != the eager proof")
         check(all(api.verify(p, s) for p, s in zip(proofs, seeds)), f"prove_many 2^24 / {nq} q: a proof fails")
@@ -2288,7 +2267,7 @@ BATCH_FORMS = {
 
 
 def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
-    """Phase 14: the batched commit phase (`fri.commit_phase_batched`, the
+    """Phase 14: the commit phase over a batch (`fri.commit_phase`, the
     JAX package's `_fri_commit_fn(..., batched=True)`) that
     `prove_many_sharded` runs as one graph replay over a mesh of one card.
     Each batched kernel against its plain version at B = 1, 3 and 8 on
@@ -2500,7 +2479,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     # merkle_open_queries over a batch's real layers and trees
     for B in (1, 3, 8):
         _, words = upload_words(datas[:B], log_total, dev)
-        cs = fri.commit_phase_batched(words, log_total, seeds[:B], cfg)
+        cs = fri.commit_phase(words, log_total, seeds[:B], cfg)
         cols = [torch.stack([c.layers[t] for c in cs]) for t in range(layers)]
         trees = [[c.trees[t] for c in cs] for t in range(layers)]
         packed = cs[0].batch[0].packed
@@ -2512,9 +2491,9 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
               f"merkle_open_queries B = {B} differs from a loop of the plain version or from the batch's packed "
               "gathers")
         errs["merkle_open_queries[batch]"] = max(errs["merkle_open_queries[batch]"], max_abs_err(got, want))
-        for b, c in enumerate(cs):  # each row == the one-proof commit phase's packed vector
-            single = fri.commit_phase(words[b], log_total, seeds[b], cfg)
-            check(torch.equal(single.packed, packed[b]), f"commit_phase_batched B = {B}: row {b} != commit_phase's")
+        for b, c in enumerate(cs):  # each row == the packed vector of its blob's batch of one
+            single = fri.commit_phase(words[b : b + 1], log_total, seeds[b : b + 1], cfg)[0]
+            check(torch.equal(single.packed, packed[b]), f"commit_phase B = {B}: row {b} != a batch of one's")
         if B == 8:
             q_args = (cols, trees, raw)
             ms = device_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
@@ -2532,8 +2511,8 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
             del rows, q_args
         del cs, cols, trees, packed, raw, got, want, words
         torch.cuda.empty_cache()
-    say("[14] merkle_open_queries B = 1, 3, 8 over commit_phase_batched's layers and trees: bit-equal to a loop "
-        "of the plain version and to the batch's packed gathers; every packed row == commit_phase's")
+    say("[14] merkle_open_queries B = 1, 3, 8 over commit_phase's layers and trees: bit-equal to a loop "
+        "of the plain version and to the batch's packed gathers; every packed row == a batch of one's")
     lap_ms = (time.perf_counter() - t_phase)
     say(f"[14] kernels checked in {lap_ms:.1f} s")
 
@@ -2543,7 +2522,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         many_out = [(c, p.to_bytes()) for c, p in (api.commit_and_prove(d, s, cfg, device=dev)
                                                     for d, s in zip(datas, seeds))]
     replays, fetches = [0], []
-    run, dispatch = fri._CommitGraph.run, fri.dispatch_batch
+    run, dispatch = fri._CommitGraph.run, fri.dispatch_blobs
 
     def counting_run(self, seed):
         replays[0] += 1
@@ -2554,7 +2533,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         fetches.append((committed[0].batch[0], committed[0].batch[0]._ahead is not None))  # its copy ahead
         return committed
 
-    fri._CommitGraph.run, fri.dispatch_batch = counting_run, recording_dispatch
+    fri._CommitGraph.run, fri.dispatch_blobs = counting_run, recording_dispatch
     try:
         captures0 = fri.commit_graphs()[0]
         main_used = None
@@ -2563,9 +2542,9 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
             sharding.prove_many_sharded(datas, seeds, cfg, mesh)  # the key's warm-up and captures (once)
             replays[0], copies0 = 0, packing.copy_counts()
             fetches.clear()
-            sharding.reset_pipeline_counts()
+            fri.reset_pipeline_counts()
             out, used = counted(lambda: sharding.prove_many_sharded(datas, seeds, cfg, mesh))  # noqa: B023
-            pipeline = sharding.pipeline_counts()
+            pipeline = fri.pipeline_counts()
             copies = {k: v - copies0[k] for k, v in packing.copy_counts().items()}
             check([(c, p.to_bytes()) for c, p in out] == many_out,
                   f"prove_many_sharded 8 x 2^20 felts over one card's {shape} mesh != phase 11's proofs")
@@ -2587,7 +2566,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
               f"card: {captures} captures, keys of 4 blobs {instances}; want 2 (one key, an instance a dispatch)")
         # the first dispatch's rows, read from its copy ahead, == a lone batch's of the same blobs
         firsts = [fetches[0][0].host[b].copy() for b in range(4)]
-        lone = fri.dispatch_batch(datas[:4], log_total, seeds[:4], cfg, dev)
+        lone = fri.dispatch_blobs(datas[:4], log_total, seeds[:4], cfg, dev)
         check(all(np.array_equal(lone[b].batch[0].row(b), firsts[b]) for b in range(4)),
               "the first dispatch's packed rows differ from a lone batch's of its 4 blobs")
         for b, c in enumerate(lone):
@@ -2597,7 +2576,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         api.prove_many(datas, seeds, cfg, device=dev)
         _, single_used = counted(lambda: api.prove_many(datas, seeds, cfg, device=dev))
     finally:
-        fri._CommitGraph.run, fri.dispatch_batch = run, dispatch
+        fri._CommitGraph.run, fri.dispatch_blobs = run, dispatch
     want_used = {"fri_fold": 2 * layers, "transcript": 4, STEPS: 2 * layers, "grind": 2, "merkle_open_queries": 2,
                  "ingest": 2}
     check(all(main_used.get(k) == v for k, v in want_used.items())
@@ -2616,8 +2595,8 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        committed = (fri.dispatch_batch(datas[:4], log_total, seeds[:4], cfg, dev)
-                     + fri.dispatch_batch(datas[4:], log_total, seeds[4:], cfg, dev))
+        committed = (fri.dispatch_blobs(datas[:4], log_total, seeds[:4], cfg, dev)
+                     + fri.dispatch_blobs(datas[4:], log_total, seeds[4:], cfg, dev))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs, launched = 0, {}
@@ -2625,25 +2604,25 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         s, wire, opened = finish_counted(fri, c, log_total, cfg)
         syncs += s
         launched.update(opened)
-        check(wire == many_out[b][1], f"dispatch_batch row {b}: bytes != phase 11's")
+        check(wire == many_out[b][1], f"dispatch_blobs row {b}: bytes != phase 11's")
     check(syncs == 0 and not launched, f"the 8 finishes of two dispatches: {syncs} synchronizing operations, "
           f"launches {launched}; want none (an event wait a dispatch) and none")
     del committed
-    say("[14] two dispatch_batch calls of 4 blobs (upload, seeds, replay, the rows' copy ahead and its event) "
+    say("[14] two dispatch_blobs calls of 4 blobs (upload, seeds, replay, the rows' copy ahead and its event) "
         "under sync debug mode 'error': no synchronization; their 8 finish_proof calls: no synchronizing call "
         "(an event wait a dispatch), no launch")
 
     # device ms: one batched replay against 8 single replays (median of 5 in
     # turns), the words already on the card
     _, words8 = upload_words(datas, log_total, dev)
-    inst = fri._fri_commit_fn(log_total, cfg, True, dev, batch=8)
+    inst = fri._fri_commit_fn(log_total, cfg, True, dev, blobs=8)
 
     def batched():
         inst.words.copy_(words8)
         return inst.run(seeds)
 
     def singles():
-        return [fri.dispatch_commit_phase(words8[b], log_total, seeds[b], cfg) for b in range(8)]
+        return [fri.dispatch_words(words8[b : b + 1], log_total, seeds[b : b + 1], cfg)[0] for b in range(8)]
 
     dev_ms = {"batched": [], "8 single": []}
     for kind in ("batched", "8 single", "8 single", "batched") * 2 + ("batched", "8 single"):

@@ -39,22 +39,23 @@ A row over several devices or processes packs the transcript's outputs
 alone and decommits after the fetch (`plan_openings`, one `merkle_open`
 launch a device).
 
-The pipeline's device steps come in a `Route`: the kernel wrappers
-(`KERNELS`) for callers, and any other route of the same signatures (the
-plain versions, in chip_smoke.py) to check the kernels on the card.
+Every device step is a kernel wrapper called through its module at call
+time (`ops.ingest`, `ops.merkle`, `ops.fri`, `ops.channel`, `core.fft`):
+each runs its plain PyTorch version on a CPU tensor, and a test replaces
+one with `monkeypatch.setattr` on its module.
 
-On the card the callers' commit phase is one dispatch, as the JAX package's
-jitted `_fri_commit_fn` is: `dispatch_commit_phase` replays a CUDA graph of
-`commit_phase`, captured once per configuration and cached (at most 8
-keys, and within `MEMORY_SHARE` of a card's memory), with the words in a
-static buffer and the seed as two device words.
-A replay writes over the outputs of the instance's last replay, so an
-instance is leased to the `Committed` it produced until `finish_proof`
-ends with it (or it is collected); a key holds as many instances as were
-leased at once. The commit phase runs eagerly, by design and not as a
-fallback, on the CPU, on another `Route` than the kernels, under the stage
-clock (`stats`, which synchronizes inside the phase) and for a mesh whose
-carrier is a process group or whose row spans more than one device.
+The commit phase has one eager form, `commit_phase`, over B blobs (B = 1
+for one proof), and one dispatch with two entry points, `dispatch_words`
+(staged words) and `dispatch_blobs` (host bytes). `_commit_graph` alone
+decides between the eager form and a cached CUDA graph of it (of
+`commit_phase_sharded` for a mesh row on one card), keyed by configuration
+and B, at most 8 keys within `MEMORY_SHARE` of a card's memory. The CPU, and
+a mesh whose carrier is a process group or whose row spans several
+devices, run eagerly. A dispatch returns B `Committed`s, the rows of one
+`BatchFetch` whose copy to page-locked memory is enqueued behind the
+replay. An instance is leased to the `Committed`s of its last replay until
+`finish_proof` ends with them. `prove_block` is the one-card block
+pipeline: two dispatches, the second enqueued before the first's finishes.
 
 `prove_many` keeps up to a window of commit phases (`Committed`, resident on
 the device) ahead of their decommitments, on one stream: blob k + 1's
@@ -70,14 +71,12 @@ kernel and needs no card.
 from __future__ import annotations
 
 import collections
-import contextlib
 import functools
 import os
 import struct
-import time
 import warnings
 import weakref
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -100,27 +99,6 @@ from .merkle import (MerkleDecommitment, Opening, build_pruned, build_pruned_man
 from .proof import FriLayerProof, FriProof, Proof
 
 _INV2 = (P + 1) // 2
-
-
-class Route(NamedTuple):
-    """The device steps of the pipeline, with the kernel wrappers'
-    signatures (int32 u32-bit tensors in and out). The commit phase calls
-    them on a batch's (B, ...) shapes (B = 1 for one proof)."""
-
-    ingest: Callable  # (words (B, nw), log_size) -> (B, 4, 2^log_size) bit-reversed coefficients
-    evaluate: Callable  # (coeffs, stage_twiddles(n)) -> (B, 4, 2^n) evaluations
-    level: Callable  # (x, leaf, fused) -> Merkle level
-    collapse: Callable  # (level, out_widths, step=) -> [levels]; step: a ChannelStep a blob, run on its root
-    open: Callable  # (layers, trees, values, nodes) -> (4V + 8R,) the reads of an Opening (sharded)
-    open_queries: Callable  # (layers, trees, query_words, out) -> out: the gathers of `_packed_layout`
-    fold: Callable  # (values (B, 4, M), alpha (B, 4), inv (M/2,)) -> (B, 4, M/2); (4, M) too
-    transcript: Callable  # (state, mix_u64=, mix_digest=, mix_felts=, draw_felt=, queries=) -> (alpha, words)
-    grind: Callable  # (state, pow_bits) -> (2,) nonce words (lo, hi); (B, 2) for (B, 9) states
-
-
-KERNELS = Route(ingest_ops.ingest, fft.evaluate_auto, merkle_ops.merkle_level,
-                merkle_ops.merkle_collapse, merkle_ops.merkle_open, merkle_ops.merkle_open_queries,
-                fri_ops.fri_fold, channel_ops.transcript, channel_ops.grind)
 
 
 # ---------------------------------------------------------------------------
@@ -260,40 +238,6 @@ def _merkle_witness_plans(log_n: int, known_leaves) -> list:
 # Prover
 # ---------------------------------------------------------------------------
 
-class _Clock:
-    """Host wall time per stage, synchronized at both ends, when `stats` is a
-    dict (stats["stage_s"][name] accumulates seconds, and
-    stats["stage_launches"][name][kernel] the stage's kernel launches), each
-    stage a `span` of its name from after the first synchronization to after
-    the second; a no-op otherwise."""
-
-    def __init__(self, device: torch.device, stats):
-        self.stats = stats
-        self.sync = device.type == "cuda"
-        if stats is not None:
-            stats["stage_s"] = {}
-            stats["stage_launches"] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.stats is None:
-            yield
-            return
-        if self.sync:
-            torch.cuda.synchronize()
-        before = ops.launch_counts()
-        with span(name):
-            t0 = time.perf_counter()
-            yield
-            if self.sync:
-                torch.cuda.synchronize()
-        stages = self.stats["stage_s"]
-        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
-        launches = self.stats["stage_launches"].setdefault(name, {})
-        for kernel, count in ops.launch_counts().items():
-            launches[kernel] = launches.get(kernel, 0) + count - before[kernel]
-
-
 def _qm31s(cols: np.ndarray, sl: slice) -> list:
     """QM31 tuples of the columns sl of a (4, V) array."""
     return [tuple(int(v) for v in cols[:, j]) for j in range(sl.start, sl.stop)]
@@ -301,38 +245,39 @@ def _qm31s(cols: np.ndarray, sl: slice) -> list:
 
 class Committed:
     """What the commit phase of one proof leaves for its decommitment: the
-    layers and their trees on the device, and `packed`, its outputs on the
-    device (int32, `layout`: the layer roots (8 words each), the last
-    layer's coefficients (4 words each), the degree flag, the nonce (lo,
-    hi), the raw query words, then the gathers of every raw query's pairs
-    and authentication paths). `roots`, `last_layer_poly`, `nonce` and
-    `queries` make the one fetch of `packed` on first use (`fetch`) and
-    keep it; `staging` holds the host buffer the words were uploaded from
-    until then. The commit phase of a mesh row of several blocks packs the
-    head alone (a layout with no gathers) and names the class that reads its
+    layers and their trees on the device, and `batch`, (BatchFetch, row):
+    row `row` of the batch's packed outputs is this proof's (`packed`,
+    int32, `layout`: the layer roots (8 words each), the last layer's
+    coefficients (4 words each), the degree flag, the nonce (lo, hi), the
+    raw query words, then the gathers of every raw query's pairs and
+    authentication paths). Every commit phase makes such rows, one proof a
+    batch of one. `roots`, `last_layer_poly`, `nonce` and `queries` make the
+    fetch of the row on first use (`fetch`: the batch's one copy) and keep
+    it. The commit phase of a mesh row of several blocks packs the head
+    alone (a layout with no gathers) and names the class that reads its
     decommitment after the fetch (`opening_cls`, `merkle.ShardedOpening`);
     set on a `Committed` with gathers, the same class reads it after the
     fetch instead of the gathers (the tests and chip_smoke.py hold the two
-    routes to the same bytes). A row of a batched commit phase
-    (`commit_phase_batched`) names its batch's `BatchFetch` and its row in
-    `batch`: the first fetch of any row copies every row's packed vector
-    in one fetch, and the others read that host copy."""
+    to the same bytes)."""
 
     opening_cls = None
-    batch = None  # (BatchFetch, row) for a row of a batched commit phase
 
-    def __init__(self, layers: list, trees: list, packed: torch.Tensor, bound: int, n_queries: int,
+    def __init__(self, layers: list, trees: list, batch: tuple, bound: int, n_queries: int,
                  layout: PackedLayout | None = None):
         self.layers = layers  # (4, N_t) int32 evaluations of each FRI layer, on the device (or `Sharded`)
         self.trees = trees  # their pruned trees (or `merkle.ShardedTree`)
-        self.packed = packed
+        self.batch = batch  # (BatchFetch, row)
         self.bound = bound  # coefficients of the last layer
         self.n_queries = n_queries
         self.layout = layout
-        self.staging = None
         self._host = None
         self._words = None  # the fetched vector
         self._lease = None  # the captured commit phase whose outputs these are (`_Instance.lend`)
+
+    @property
+    def packed(self) -> torch.Tensor:
+        """This proof's packed outputs on the device: its row of the batch's."""
+        return self.batch[0].packed[self.batch[1]]
 
     def release(self) -> None:
         """End the lease on the captured commit phase whose replay wrote this
@@ -349,7 +294,7 @@ class Committed:
         if self._host is not None:
             return
         with span("prove/fetch_packed"):
-            words = to_numpy_u32(self.packed) if self.batch is None else self.batch[0].row(self.batch[1])
+            words = self.batch[0].row(self.batch[1])
         head = {key: words[o : o + count] for key, (o, count) in self.layout.head.items()}
         if not head["degree_ok"][0]:
             raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
@@ -359,7 +304,6 @@ class Committed:
                       [tuple(int(v) for v in row) for row in head["last"].reshape(-1, 4)],
                       int(lo) | int(hi) << 32, sorted(set(int(q) for q in raw)), raw)
         self._words = words
-        self.staging = None
 
     @property
     def roots(self) -> list:
@@ -393,17 +337,17 @@ class Committed:
 
 
 class BatchFetch:
-    """The packed vectors of a batched commit phase, (B, layout.total) int32
-    on the device, fetched in one copy at the first `row` (then every row
-    is read from the host copy) and the host buffer its words were uploaded
+    """The packed vectors of one commit phase, (B, layout.total) int32 on
+    the device, fetched in one copy at the first `row` (then every row is
+    read from the host copy), and the host buffer its words were uploaded
     from (`staging`), kept until then.
 
-    On a CUDA device `dispatch_batch` enqueues that copy right behind the
-    batch's replay (`copy_ahead`: into page-locked memory, an event after
-    it), so the first `row` waits on the event for this batch's replay
-    alone, not for a later dispatch enqueued behind it: the host finishes
-    one sub-batch of `parallel/sharding.prove_many_sharded` while the next
-    one's replay runs. Without `copy_ahead` (the CPU) `row` copies."""
+    On a CUDA device a dispatch enqueues that copy right behind its replay
+    (`copy_ahead`: into page-locked memory, an event after it), so the
+    first `row` waits on the event for this replay alone, not for a later
+    dispatch enqueued behind it: `prove_block` finishes one sub-batch while
+    the next one's replay runs. Without `copy_ahead` (the CPU) `row`
+    copies."""
 
     def __init__(self, packed: torch.Tensor):
         self.packed = packed
@@ -542,135 +486,89 @@ def batch_seed_words(seeds, blobs: int, device) -> torch.Tensor | None:
     return write_seeds(torch.empty((blobs, 2), dtype=torch.int32, device=device), seeds)
 
 
-def commit_phase(words: torch.Tensor, log_total: int, seed,
-                 pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
-                 clock: _Clock | None = None) -> Committed:
-    """The commit phase of `prove_words` for one blob's words: row 0 of
-    `commit_phase_batched` over a batch of one, the same launches (the
-    kernels' blob axis at B = 1). Counterpart of `_fri_commit_fn.run`. seed:
-    None, an int, or its (2,) int32 words on the device (`seed_words`),
-    which layer 0's channel step mixes as a tensor. What the CPU, another
-    route, the stage clock and `dispatch_commit_phase`'s capture run."""
-    seeds = None if seed is None else seed[None] if isinstance(seed, torch.Tensor) else [seed]
-    committed = commit_phase_batched(words[None], log_total, seeds, pcs_config, route, clock)[0]
-    committed.batch = None  # its packed vector is fetched alone
-    return committed
-
-
-def commit_phase_batched(words: torch.Tensor, log_total: int, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
-                         route: Route = KERNELS, clock: _Clock | None = None) -> list:
+def commit_phase(words: torch.Tensor, log_total: int, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG) -> list:
     """The commit phase of B blobs of one size at once, (B, nw) `pad_to_words`
-    rows on the device: the counterpart of the JAX package's
-    `_fri_commit_fn(..., batched=True)` (its `run` under `jax.vmap`), each
-    blob with its own transcript, in the launches of one proof. In order:
-    the ingest and the extension of the (B, ...) batch (as
+    rows on the device (B = 1 for one proof): the counterpart of the JAX
+    package's `_fri_commit_fn` (its `run`, under `jax.vmap` for a batch),
+    each blob with its own transcript, in the launches of one proof. In
+    order: the ingest and the extension of the (B, ...) batch (as
     `api.commit_root_pipeline_batch`); per layer the B pruned trees in the
     launches of one (`merkle.build_pruned_many`), every blob's channel step
     (seed, root, alpha: `ops.channel.ChannelStep`, one preallocated alpha a
-    layer) on the collapse that ends them, and one batched `fri_fold` (the
-    fold tables shared); the last layer's coefficients and degree check per
-    blob; one batched `transcript` for the last-layer felts, one `grind`
-    (each blob's own minimum nonce), one `transcript` for the nonce mixes
-    and query draws; one `merkle_open_queries` for every blob's gathers.
-    Nothing waits for the device (tables not yet cached for this size are
-    uploaded first).
+    layer) on the collapse that ends them, and one batched `fri_fold`
+    (`fold_c`, `fold_l`; the fold tables shared); the last layer's
+    coefficients and degree check per blob; one batched `transcript` for
+    the last-layer felts, one `grind` (each blob's own minimum nonce), one
+    `transcript` for the nonce mixes and query draws; one
+    `merkle_open_queries` for every blob's gathers. Nothing waits for the
+    device (tables not yet cached for this size are uploaded first).
 
     seeds: None, B ints (all set or all None; ValueError otherwise), or
-    their (B, 2) int32 words on the device. Returns B `Committed`s, row b
-    equal to `commit_phase` of row b word for word; their packed vectors
-    are the rows of one (B, layout.total) tensor (`Committed.batch`:
-    the first fetch copies all of them). This is the eager form, each
-    launch issued from Python: what the CPU (on the plain versions), another
-    route and the stage clock run, and what `dispatch_batch` captures. Under
-    the stage clock the layers' channel steps fall in "lde_trees", with
-    their trees. On the kernel route the folds go through this module's
-    `fold_c` and `fold_l` (a caller may replace them); another route's
-    `fold` is called as it is."""
+    their (B, 2) int32 words on the device. Returns B `Committed`s, the rows
+    of one `BatchFetch`. This is the eager form, each launch issued from
+    Python: what the CPU runs (on the plain versions) and what a dispatch
+    captures."""
     log_size, n, n_inner = _layer_sizes(log_total, pcs_config)
     if words.dim() != 2 or not words.shape[0]:
         raise ValueError(f"words: expected (B >= 1, nw) rows, got {tuple(words.shape)}")
     B, device = words.shape[0], words.device
-    clock = clock or _Clock(device, None)
-    circle_fold, line_fold = (fold_c, fold_l) if route.fold is KERNELS.fold else (route.fold, route.fold)
     seeds = batch_seed_words(seeds, B, device)
     with span("prove/device_dispatch(lde+merkle+transcript+grind)"):
         state = channel_ops.new_state(device, blobs=B)
         alphas = torch.empty((n_inner + 1, B, 4), dtype=torch.int32, device=device)
         ys_inv, xs_invs = fold_tables(n, device)
-        with clock("lde_trees"):
-            g = route.evaluate(route.ingest(words, log_size), fft.stage_twiddles(n, device))
+        g = fft.evaluate_auto(ingest_ops.ingest(words, log_size), fft.stage_twiddles(n, device))
         layers, trees, roots = [], [], []
         for t in range(n_inner + 1):
             step = channel_ops.ChannelStep(state, seeds if t == 0 else None, alphas[t])
-            with clock("lde_trees"):  # the trees, their channel steps on their last launch
-                rows, root = build_pruned_many(g, step, route.level, route.collapse, route.transcript)
+            rows, root = build_pruned_many(g, step)  # the channel step on the trees' last launch
             layers.append(g)
             trees.append(rows)
             roots.append(root)
-            with clock("folds"):
-                g = circle_fold(g, alphas[t], ys_inv) if t == 0 else line_fold(g, alphas[t], xs_invs[t - 1])
-        packed, layout, bound = _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, route,
-                                       clock)
-    fetch = BatchFetch(packed)
-    out = []
-    for b in range(B):
-        c = Committed([x[b] for x in layers], [rows[b] for rows in trees], packed[b], bound,
-                      pcs_config.fri_config.n_queries, layout)
-        c.batch = (fetch, b)
-        out.append(c)
-    return out
+            g = fold_c(g, alphas[t], ys_inv) if t == 0 else fold_l(g, alphas[t], xs_invs[t - 1])
+        packed, layout, bound = _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config)
+    fetch, nq = BatchFetch(packed), pcs_config.fri_config.n_queries
+    return [Committed([x[b] for x in layers], [rows[b] for rows in trees], (fetch, b), bound, nq, layout)
+            for b in range(B)]
 
 
-def _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, route, clock,
-                      gather: bool = True) -> Committed:
-    """The end of a commit phase after the last fold (`_close`) for one
-    proof: its `Committed`."""
-    packed, layout, bound = _close(state, g, layers, trees, [t.root.reshape(8) for t in trees], xs_invs, n,
-                                   n_inner, pcs_config, route, clock, gather)
-    return Committed(layers, trees, packed, bound, pcs_config.fri_config.n_queries, layout)
-
-
-def _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, route, clock,
-           gather: bool = True) -> tuple:
+def _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, gather: bool = True) -> tuple:
     """(packed, layout, bound): the end of a commit phase after the last
     fold: the last layer's coefficients and degree check, its transcript
     step, the grind and the query draws, then (with `gather`) the
     decommitment's gathers read with the query words on the device
-    (`route.open_queries`), all packed for the one fetch (`_packed_layout`).
+    (`merkle_open_queries`), all packed for the one fetch (`_packed_layout`).
     A batch (g (B, 4, M), (B, 9) states, each root (B, 8), each layer's
     trees a list of B) packs (B, layout.total), a row a blob."""
     fri_cfg = pcs_config.fri_config
     bound = 1 << fri_cfg.log_last_layer_degree_bound
     lead = tuple(g.shape[:-2])
-    with clock("folds"):
-        coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (..., 2^last_log, 4) int64
-        last_poly = narrow(coeffs[..., :bound, :]).contiguous()
-        degree_ok = (coeffs[..., bound:, :] == 0).reshape(*lead, -1).all(-1).to(torch.int32).reshape(*lead, 1)
-    with clock("transcript"):
-        route.transcript(state, mix_felts=last_poly)
-    with clock("grind"):
-        nonce = route.grind(state, pcs_config.pow_bits)
-    with clock("transcript"):
-        _, query_words = route.transcript(state, mix_u64=nonce, queries=(fri_cfg.n_queries, n))
-        head = list(roots) + [last_poly.reshape(*lead, -1), degree_ok, nonce, query_words]
-        layout = _packed_layout(n, n_inner, bound, fri_cfg.n_queries, gather)
-        packed = torch.empty((*lead, layout.total), dtype=torch.int32, device=query_words.device)
-        torch.cat(head, dim=-1, out=packed[..., : layout.head_words])
+    coeffs = _device_ifft_line(g, xs_invs, n_inner)  # (..., 2^last_log, 4) int64
+    last_poly = narrow(coeffs[..., :bound, :]).contiguous()
+    degree_ok = (coeffs[..., bound:, :] == 0).reshape(*lead, -1).all(-1).to(torch.int32).reshape(*lead, 1)
+    channel_ops.transcript(state, mix_felts=last_poly)
+    nonce = channel_ops.grind(state, pcs_config.pow_bits)
+    _, query_words = channel_ops.transcript(state, mix_u64=nonce, queries=(fri_cfg.n_queries, n))
+    head = list(roots) + [last_poly.reshape(*lead, -1), degree_ok, nonce, query_words]
+    layout = _packed_layout(n, n_inner, bound, fri_cfg.n_queries, gather)
+    packed = torch.empty((*lead, layout.total), dtype=torch.int32, device=query_words.device)
+    torch.cat(head, dim=-1, out=packed[..., : layout.head_words])
     if gather:
-        with clock("decommit_gather"):
-            route.open_queries(layers, trees, query_words, packed[..., layout.head_words :])
+        merkle_ops.merkle_open_queries(layers, trees, query_words, packed[..., layout.head_words :])
     return packed, layout, bound
 
 
 def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig,
                          mesh, row: int) -> Committed:
-    """`commit_phase` over the `elem` axis of mesh row `row` (this process's
-    shards of it; `parallel/mesh.py`), the counterpart of `_fri_commit_fn`
-    with a mesh (`frieda_tpu/core/fri.py:182-205`); the same roots, transcript
-    and outputs as on one device. `words` lie on the row's home device;
-    seed as for `commit_phase`.
+    """`commit_phase` of one blob over the `elem` axis of mesh row `row`
+    (this process's shards of it; `parallel/mesh.py`), the counterpart of
+    `_fri_commit_fn` with a mesh (`frieda_tpu/core/fri.py:182-205`); the
+    same roots, transcript and outputs as on one device. `words` ((nw,)
+    int32) lie on the row's home device; seed: None, an int or its (2,)
+    int32 words (`seed_words`). Returns one `Committed`, row 0 of a batch
+    of one.
 
-    This is the eager form: `dispatch_commit_phase` captures it as one CUDA
+    This is the eager form: a dispatch captures it as one CUDA
     graph when every shard of the row is on one CUDA device and the carrier
     is in-process. A process-group mesh always runs it eagerly, because its
     point-to-point exchanges (`Mesh.swap`, `Mesh.all_gather`) are not
@@ -737,8 +635,10 @@ def commit_phase_sharded(words: torch.Tensor, log_total: int, seed, pcs_config: 
         if isinstance(g, Sharded):
             g = g.gather()  # the last layer, at most 2^(llb + blowup) values: replicated
         one_block = [k for _, k, _ in mesh.blocks(row)] == [S]
-        committed = _close_transcript(state, g, layers, trees, xs_invs, n, n_inner, pcs_config, KERNELS,
-                                      _Clock(home, None), gather=one_block)
+        packed, layout, bound = _close(state, g, layers, trees, [t.root.reshape(8) for t in trees], xs_invs, n,
+                                       n_inner, pcs_config, gather=one_block)
+    committed = Committed(layers, trees, (BatchFetch(packed[None]), 0), bound, pcs_config.fri_config.n_queries,
+                          layout)
     if not one_block:
         committed.opening_cls = ShardedOpening
     return committed
@@ -776,15 +676,14 @@ class _Instance:
 
 class _CommitGraph(_Instance):
     """One captured commit phase: the `torch.cuda.CUDAGraph` of `commit(words,
-    seed)`, in a memory pool of its own (a later capture cannot place its
-    tensors in this one's temporaries); its static inputs, `words` (the
-    `words_for(log_total)` int32 words) and `seed` ((2,) int32, or None for
-    a key without a seed), or a batch's (B, nw) words and (B, 2) seeds;
-    `committed`, the outputs each replay writes (layers, pruned trees,
-    `packed`; a batch's B `Committed`s); `tables`, every cached table the
-    graph reads, held so that clearing a cache cannot free them; `launches`,
-    the kernel launches the capture recorded; and `steps`, the channel steps
-    its collapses carried (`merkle_collapse.steps`).
+    seeds)`, in a memory pool of its own (a later capture cannot place its
+    tensors in this one's temporaries); its static inputs, `words` ((B, nw)
+    int32, `words_for(log_total)` a row) and `seed` ((B, 2) int32, or None
+    for a key without seeds); `committed`, the B `Committed`s each replay
+    writes (layers, pruned trees, packed rows); `tables`, every cached table
+    the graph reads, held so that clearing a cache cannot free them;
+    `launches`, the kernel launches the capture recorded; and `steps`, the
+    channel steps its collapses carried (`merkle_collapse.steps`).
 
     With `warm` (a key's first instance) one eager `commit` runs first, on a
     side stream: it builds every table of the key (a mesh's block tables
@@ -793,12 +692,11 @@ class _CommitGraph(_Instance):
     the span "setup/graph", the warm-up "setup/warm" and the capture
     "setup/capture" inside it."""
 
-    def __init__(self, device: torch.device, n_words: int, has_seed: bool, commit, tables, warm: bool,
-                 batch: int | None = None):
-        lead = () if batch is None else (batch,)
+    def __init__(self, device: torch.device, blobs: int, n_words: int, has_seed: bool, commit, tables,
+                 warm: bool):
         with torch.cuda.device(device), span("setup/graph"):
-            self.words = torch.zeros(lead + (n_words,), dtype=torch.int32, device=device)
-            self.seed = torch.zeros(lead + (2,), dtype=torch.int32, device=device) if has_seed else None
+            self.words = torch.zeros((blobs, n_words), dtype=torch.int32, device=device)
+            self.seed = torch.zeros((blobs, 2), dtype=torch.int32, device=device) if has_seed else None
             if warm:
                 with span("setup/warm"):
                     side = torch.cuda.Stream(device)
@@ -818,25 +716,22 @@ class _CommitGraph(_Instance):
                 self.steps = merkle_ops.merkle_collapse.steps - steps
                 merkle_ops.merkle_collapse.steps = steps
 
-    def run(self, seed):
-        """Write the seed (a batch's B seeds), replay the graph, count its
-        launches; the new `Committed` (over this instance's outputs; a
-        batch's B, which share one `BatchFetch`) holds the lease."""
+    def run(self, seeds) -> list:
+        """Write the B seeds, replay the graph, count its launches; the B new
+        `Committed`s (over this instance's outputs, the rows of a new
+        `BatchFetch`) hold the lease."""
         with torch.cuda.device(self.words.device), span("prove/device_dispatch(lde+merkle+transcript+grind)"):
             if self.seed is not None:
-                write_seeds(self.seed.view(-1, 2), [seed] if self.seed.dim() == 1 else seed)
+                write_seeds(self.seed, seeds)
             self.graph.replay()
         ops.add_launch_counts(self.launches)
         merkle_ops.merkle_collapse.steps += self.steps
-        if isinstance(self.committed, Committed):
-            return self._renew(self.committed, None)
         fetch = BatchFetch(self.committed[0].batch[0].packed)
-        return [self._renew(c, (fetch, b)) for b, c in enumerate(self.committed)]
+        return [self._renew(c, fetch) for c in self.committed]
 
-    def _renew(self, c: Committed, batch) -> Committed:
-        out = Committed(c.layers, c.trees, c.packed, c.bound, c.n_queries, c.layout)
+    def _renew(self, c: Committed, fetch: BatchFetch) -> Committed:
+        out = Committed(c.layers, c.trees, (fetch, c.batch[1]), c.bound, c.n_queries, c.layout)
         out.opening_cls = c.opening_cls
-        out.batch = batch
         self.lend(out)
         return out
 
@@ -925,42 +820,40 @@ _GRAPHS = _GraphCache(8)
 
 
 def _fri_commit_fn(log_total: int, pcs_config: PcsConfig, has_seed: bool, device: torch.device,
-                   mesh=None, row: int = 0, batch: int | None = None) -> _CommitGraph:
-    """A free captured commit phase of one configuration on one CUDA device:
-    the counterpart of the JAX package's `_fri_commit_fn`
+                   blobs: int = 1, mesh=None, row: int = 0) -> _CommitGraph:
+    """A free captured commit phase of `blobs` blobs of one configuration on
+    one CUDA device: the counterpart of the JAX package's `_fri_commit_fn`
     (`frieda_tpu/core/fri.py:150-153`), cached by the same fields (log_size,
-    log_blowup, llb, n_queries, pow_bits, has_seed) and the device, for a
-    mesh by its shape and row (`commit_phase_sharded`, whose shards all lie
-    on `device`), and for a batch by its blob count B (`commit_phase_batched`
-    over static (B, nw) words and (B, 2) seeds: the JAX package's jit
-    retraces its vmapped program per batch shape). A batch's instance keeps
-    B proofs' bytes, and its key's first capture is warmed up by an eager
-    batch of B."""
+    log_blowup, llb, n_queries, pow_bits, has_seed), the device and the blob
+    count B (the JAX package's jit retraces its vmapped program per batch
+    shape), and for a mesh by its shape and row (`commit_phase_sharded`,
+    B = 1, whose shards all lie on `device`). An instance keeps B proofs'
+    bytes, and its key's first capture is warmed up by an eager run of
+    B."""
     fri_cfg = pcs_config.fri_config
     log_size = log_total - 2
     n = log_size + fri_cfg.log_blowup_factor
     key = (log_size, fri_cfg.log_blowup_factor, fri_cfg.log_last_layer_degree_bound, fri_cfg.n_queries,
-           pcs_config.pow_bits, has_seed, device, None if mesh is None else (mesh.n_data, mesh.n_elem, row), batch)
+           pcs_config.pow_bits, has_seed, device, None if mesh is None else (mesh.n_data, mesh.n_elem, row), blobs)
 
-    def commit(words, seed):
-        if batch is not None:
-            return commit_phase_batched(words, log_total, seed, pcs_config)
-        return _eager(words, log_total, seed, pcs_config, mesh, row)
+    def commit(words, seeds) -> list:
+        return _eager(words, log_total, seeds, pcs_config, mesh, row)
 
     def tables() -> list:
         held = [fft.stage_twiddles(n, device), fold_tables(n, device)]
         return held if mesh is None else held + [mesh]  # the mesh keeps its block tables (`Mesh.cached`)
 
-    blobs = batch or 1
-    return _GRAPHS.instance(key, lambda warm: _CommitGraph(device, words_for(log_total), has_seed, commit,
-                                                           tables, warm, batch),
+    return _GRAPHS.instance(key, lambda warm: _CommitGraph(device, blobs, words_for(log_total), has_seed, commit,
+                                                           tables, warm),
                             device, blobs * RESIDENT_BYTES_PER_ELEMENT << n, blobs * ACTIVE_BYTES_PER_ELEMENT << n)
 
 
-def _eager(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig, mesh, row: int) -> Committed:
+def _eager(words: torch.Tensor, log_total: int, seeds, pcs_config: PcsConfig, mesh=None, row: int = 0) -> list:
+    """The eager commit phase of (B, nw) words: `commit_phase`, or for a mesh
+    row (B = 1) `commit_phase_sharded`."""
     if mesh is None:
-        return commit_phase(words, log_total, seed, pcs_config)
-    return commit_phase_sharded(words, log_total, seed, pcs_config, mesh, row)
+        return commit_phase(words, log_total, seeds, pcs_config)
+    return [commit_phase_sharded(words[0], log_total, None if seeds is None else seeds[0], pcs_config, mesh, row)]
 
 
 def _card(device) -> torch.device:
@@ -972,11 +865,12 @@ def _card(device) -> torch.device:
     return device
 
 
-def _commit_graph(log_total: int, pcs_config: PcsConfig, seed, device, mesh=None, row: int = 0):
-    """The free captured commit phase that runs this proof on `device` (a
-    mesh row's home device), or None where the commit phase runs eagerly:
-    on the CPU, and for a mesh whose carrier is a process group or whose row
-    spans more than one device."""
+def _commit_graph(log_total: int, pcs_config: PcsConfig, has_seed: bool, device, blobs: int = 1,
+                  mesh=None, row: int = 0):
+    """The free captured commit phase that runs `blobs` blobs on `device` (a
+    mesh row's home device, one blob), or None where the commit phase runs
+    eagerly: on the CPU, and for a mesh whose carrier is a process group or
+    whose row spans more than one device. The one place that chooses."""
     _layer_sizes(log_total, pcs_config)  # ValueError before any capture
     device = _card(device)
     if device.type != "cuda":
@@ -984,84 +878,128 @@ def _commit_graph(log_total: int, pcs_config: PcsConfig, seed, device, mesh=None
     if mesh is not None and (mesh.group is not None
                              or len({mesh.device(row, e) for e in mesh.local_elems(row)}) > 1):
         return None
-    return _fri_commit_fn(log_total, pcs_config, seed is not None, device, mesh, row)
+    return _fri_commit_fn(log_total, pcs_config, has_seed, device, blobs, mesh, row)
 
 
-def dispatch_commit_phase(words: torch.Tensor, log_total: int, seed,
-                          pcs_config: PcsConfig = DEFAULT_CONFIG, mesh=None, row: int = 0) -> Committed:
-    """The commit phase of a blob's `pad_to_words` words (int32, on the
-    device; on the home device of mesh row `row` for a mesh) as one
-    dispatch: on a CUDA device, one device-to-device copy of the words into
-    the static buffer of a free captured instance of this configuration
-    (`_fri_commit_fn`; captured on first use), the seed written as two
-    device words, one graph replay; nothing waits for the device. The
-    `Committed` holds the instance until `finish_proof` ends with it.
-    Counterpart of `fri.dispatch_commit_phase_staged`. The CPU and a mesh
-    that `_commit_graph` leaves eager run `commit_phase` /
-    `commit_phase_sharded`; the bytes are the same."""
-    graph = _commit_graph(log_total, pcs_config, seed, words.device, mesh, row)
+def _dispatch(stage, blobs: int, log_total: int, seeds, pcs_config: PcsConfig, device, mesh=None,
+              row: int = 0) -> list:
+    """The commit phase of `blobs` blobs as one dispatch, the body of
+    `dispatch_words` and `dispatch_blobs`. `stage(out)` puts the (B, nw)
+    words into `out`, the static words of a free captured instance
+    (`_commit_graph`; captured on first use), or, for `out` None, where the
+    eager form will read them, and returns (host buffer or None, words).
+    Then one graph replay, the seeds written as two device words a blob (or
+    the eager form), and the rows' copy to the host with an event after it
+    (`BatchFetch.copy_ahead`), so that their fetch waits for this dispatch
+    alone; nothing waits for the device. Returns the B `Committed`s, which
+    hold the instance until the last of them is finished; the host buffer
+    stays with their `BatchFetch` until its fetch."""
+    has_seed = batch_has_seed(seeds, blobs)
+    graph = _commit_graph(log_total, pcs_config, has_seed, device, blobs, mesh, row)
+    host, words = stage(None if graph is None else graph.words)
     if graph is None:
-        return _eager(words, log_total, seed, pcs_config, mesh, row)
-    if words.shape != graph.words.shape or words.dtype != torch.int32:
-        raise ValueError(f"words: expected {tuple(graph.words.shape)} int32 for log_total {log_total}, "
-                         f"got {tuple(words.shape)} {words.dtype}")
-    graph.words.copy_(words)
-    return graph.run(seed)
-
-
-def dispatch_blob(data: bytes, log_total: int, seed, pcs_config: PcsConfig, device,
-                  mesh=None, row: int = 0) -> Committed:
-    """`dispatch_commit_phase` of a blob on the host, for `device` (a mesh
-    row's home device): its words staged in page-locked memory and uploaded
-    straight into the captured instance's static buffer (or into a new
-    tensor where the commit phase runs eagerly); the host buffer stays with
-    the `Committed` until its fetch."""
-    graph = _commit_graph(log_total, pcs_config, seed, device, mesh, row)
-    with span("prove/ingest"):
-        host, words = upload_words([data], log_total, device, out=None if graph is None else graph.words[None])
-    committed = _eager(words[0], log_total, seed, pcs_config, mesh, row) if graph is None else graph.run(seed)
-    committed.staging = host  # the upload reads it asynchronously: kept until the fetch
-    return committed
-
-
-def _batch_graph(log_total: int, pcs_config: PcsConfig, has_seed: bool, device, batch: int):
-    """The free captured batched commit phase of `batch` blobs on `device`,
-    or None on the CPU, where it runs eagerly."""
-    _layer_sizes(log_total, pcs_config)  # ValueError before any capture
-    device = _card(device)
-    if device.type != "cuda":
-        return None
-    return _fri_commit_fn(log_total, pcs_config, has_seed, device, batch=batch)
-
-
-def dispatch_batch(datas, log_total: int, seeds, pcs_config: PcsConfig, device) -> list:
-    """The commit phase of B blobs of one padded size (2^log_total felts)
-    under their seeds (all set or all None), as ONE dispatch: on a CUDA
-    device the B rows staged in one page-locked buffer and uploaded in one
-    copy straight into the static words of a free captured instance of
-    `commit_phase_batched` for B (`_fri_commit_fn(..., batch=B)`; captured
-    on first use), the B seeds written by a fill each, one graph replay,
-    then the rows' copy to the host and an event after it
-    (`BatchFetch.copy_ahead`), so that the batch's fetch waits for this
-    replay and not for a dispatch enqueued after it; nothing waits for the
-    device. Returns the B `Committed`s, which hold the instance until the
-    last of them is finished. The CPU runs `commit_phase_batched` eagerly
-    on the plain versions; the bytes are the same. The host buffer stays
-    with the batch until its fetch. `parallel/sharding.prove_many_sharded`
-    makes two of these a call of two or more blobs."""
-    datas = list(datas)
-    has_seed = batch_has_seed(seeds, len(datas))
-    graph = _batch_graph(log_total, pcs_config, has_seed, device, len(datas))
-    with span("prove/ingest"):
-        host, words = upload_words(datas, log_total, device, out=None if graph is None else graph.words)
-    if graph is None:
-        committed = commit_phase_batched(words, log_total, seeds, pcs_config)
+        committed = _eager(words, log_total, seeds, pcs_config, mesh, row)
     else:
         committed = graph.run(seeds if has_seed else None)
     fetch = committed[0].batch[0]
     fetch.staging = host  # the upload reads it asynchronously: kept until the fetch
     fetch.copy_ahead()
     return committed
+
+
+def dispatch_words(words: torch.Tensor, log_total: int, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
+                   mesh=None, row: int = 0) -> list:
+    """`_dispatch` of B blobs' staged `pad_to_words` words, (B, nw) int32 on
+    their device (a mesh row's home device, B = 1): on the card one
+    device-to-device copy into the instance's static words. seeds: None, or
+    B ints or Nones, all set or all None. Counterpart of
+    `fri.dispatch_commit_phase_staged`."""
+    def stage(out):
+        if out is None:
+            return None, words
+        if words.shape != out.shape or words.dtype != torch.int32:
+            raise ValueError(f"words: expected {tuple(out.shape)} int32 for log_total {log_total}, "
+                             f"got {tuple(words.shape)} {words.dtype}")
+        return None, out.copy_(words)
+
+    return _dispatch(stage, words.shape[0], log_total, seeds, pcs_config, words.device, mesh, row)
+
+
+def dispatch_blobs(datas, log_total: int, seeds, pcs_config: PcsConfig, device, mesh=None, row: int = 0) -> list:
+    """`_dispatch` of B blobs on the host, of one padded size (2^log_total
+    felts), for `device` (a mesh row's home device, B = 1): the rows staged
+    in one page-locked buffer and uploaded in one copy straight into the
+    instance's static words (or into a new tensor where the commit phase
+    runs eagerly), the span "prove/ingest". seeds as for
+    `dispatch_words`."""
+    datas = list(datas)
+
+    def stage(out):
+        with span("prove/ingest"):
+            return upload_words(datas, log_total, device, out=out)
+
+    return _dispatch(stage, len(datas), log_total, seeds, pcs_config, device, mesh, row)
+
+
+def sub_batches(count: int, safe: int) -> list:
+    """(start, stop) of each dispatch of a `prove_block` call of `count`
+    blobs where `safe_batch` is `safe`: two halves, ceil(count/2) then
+    floor(count/2) blobs (one dispatch for one blob), or, for more blobs
+    than `safe`, runs of max(1, safe // 2)."""
+    size = (count + 1) // 2 if count <= safe else max(1, safe // 2)
+    return [(i, min(i + size, count)) for i in range(0, count, size)]
+
+
+_PIPELINE = {"calls": 0, "dispatches": 0, "overlapped": 0}  # `pipeline_counts`
+
+
+def pipeline_counts() -> dict:
+    """{"calls", "dispatches", "overlapped"} since the process started or
+    since `reset_pipeline_counts`: `prove_block` calls, their dispatches,
+    and their `finish_proof`s that ran while a later dispatch of the same
+    call was enqueued (a block of 9: 1, 2 and 5)."""
+    return dict(_PIPELINE)
+
+
+def reset_pipeline_counts() -> None:
+    """Zero the counts of `pipeline_counts`."""
+    for key in _PIPELINE:
+        _PIPELINE[key] = 0
+
+
+def prove_block(datas, log_total: int, seeds, pcs_config: PcsConfig, device) -> list:
+    """[(commitment, Proof)] of B blobs of one padded size (2^log_total
+    felts) under their seeds (all set or all None) on one device, in input
+    order, equal to a loop of `commit_and_generate_proof`: the one-card
+    block pipeline. A call of B >= 2 blobs makes two `dispatch_blobs`, of
+    ceil(B/2) and floor(B/2) blobs (`sub_batches`: 9 -> 5 + 4), both
+    enqueued before the first finish, so the host finishes the first while
+    the card replays the second; one blob is one dispatch. A batch larger
+    than the device's share (`safe_batch`) runs as dispatches of at most
+    half that share, at most two in flight (one where the share is one
+    blob), so what is in flight never holds more than the share. Each
+    dispatch's finishes are one span "batch/finish"; `pipeline_counts`
+    counts the calls, their dispatches and the finishes that overlapped a
+    later dispatch."""
+    safe = safe_batch(log_total - 2, pcs_config.fri_config, device)
+    in_flight = 2 if safe >= 2 else 1  # two dispatches in flight hold at most `safe` blobs
+    out, pending = [], collections.deque()
+    _PIPELINE["calls"] += 1
+
+    def finish(committed: list) -> None:
+        with span("batch/finish"):  # the first finish's fetch waits for this dispatch's replay
+            out.extend(finish_proof(c, log_total, pcs_config) for c in committed)
+        if pending:  # a later dispatch of this call was enqueued behind this one meanwhile
+            _PIPELINE["overlapped"] += len(committed)
+
+    for start, stop in sub_batches(len(datas), safe):
+        if len(pending) == in_flight:
+            finish(pending.popleft())
+        pending.append(dispatch_blobs(datas[start:stop], log_total, seeds[start:stop], pcs_config, device))
+        _PIPELINE["dispatches"] += 1
+    while pending:
+        finish(pending.popleft())
+    return out
 
 
 def commit_graphs() -> tuple:
@@ -1096,19 +1034,18 @@ def plan_openings(layers: list, trees: list, queries, opening_cls=Opening) -> tu
     return opening, eval_sl, plan
 
 
-def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = DEFAULT_CONFIG,
-                 route: Route = KERNELS, clock: _Clock | None = None):
+def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = DEFAULT_CONFIG):
     """(commitment, Proof) of a commit phase: the one fetch of its packed
     outputs (which raises AssertionError for a last layer above its degree
     bound), then the proof assembled on the host from the gathers in it; no
     launch. A `Committed` that names an `opening_cls` (the commit phase of
     a mesh row of several blocks) has its decommitment read after the fetch
-    (`plan_openings`: one `route.open` a device and one fetch each).
+    (`plan_openings`: one `merkle_open` a device and one fetch each).
     Counterpart of `fri._finish_proof`. Ends the lease of a `Committed`
-    from `dispatch_commit_phase` (`Committed.release`), also when it
+    from a captured commit phase (`Committed.release`), also when it
     raises."""
     try:
-        return _finish_proof(committed, log_total, pcs_config, route, clock)
+        return _finish_proof(committed, log_total, pcs_config)
     finally:
         committed.release()
 
@@ -1134,19 +1071,15 @@ def reset_grind_totals() -> None:
     _GRIND_TOTALS[:] = [0, 0]
 
 
-def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig, route: Route, clock):
-    clock = clock or _Clock(c.layers[0].device, None)
-    with clock("transcript"):
-        c.fetch()
+def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig):
+    c.fetch()
     _GRIND_TOTALS[0] += 1
     _GRIND_TOTALS[1] += c.nonce + 1
     gathered = c.opening_cls is None
     if not gathered:
-        with clock("decommit_plan"):
-            opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
-        with clock("decommit_open"):
-            vals, nodes = opening.run(route.open)
-    with clock("decommit_assemble"), span("prove/assemble"):
+        opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
+        vals, nodes = opening.run()
+    with span("prove/assemble"):
         with span("assemble/select"):
             if not gathered:
                 node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
@@ -1210,38 +1143,22 @@ def _assemble(words: np.ndarray, raw: np.ndarray, layout: PackedLayout) -> tuple
     return evaluations, layers
 
 
-def prove_words(words: torch.Tensor, log_total: int, seed,
-                pcs_config: PcsConfig = DEFAULT_CONFIG, route: Route = KERNELS,
-                stats: dict | None = None):
+def prove_words(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig = DEFAULT_CONFIG):
     """(commitment, Proof) for a blob given as its `pad_to_words(data,
-    log_total)` words, int32, on the device that runs the proof: the commit
-    phase, then `finish_proof`. Counterpart of
-    `fri.dispatch_commit_phase_staged` + `fri.finish_proof`.
-
-    With no `stats` on the kernel route the commit phase is
-    `dispatch_commit_phase` (on the card one graph replay after a copy of
-    the words into its static buffer); another route, or `stats`, runs
-    `commit_phase` eagerly.
-
-    stats, when a dict, receives the host wall time of each stage
-    (synchronized at both ends, so the commit phase then waits for the
-    device at every stage: "lde_trees" (each layer's channel step rides on
-    its tree), "folds", "transcript" (the closing steps, with the one
-    fetch), "grind", and the decommitment's "decommit_gather" (the
-    route's `open_queries`, in the commit phase) and "decommit_assemble"
-    (the proof objects)), and each stage's kernel launches."""
-    if stats is None and route is KERNELS:
-        return finish_proof(dispatch_commit_phase(words, log_total, seed, pcs_config), log_total, pcs_config)
-    clock = _Clock(words.device, stats)
-    return finish_proof(commit_phase(words, log_total, seed, pcs_config, route, clock),
-                        log_total, pcs_config, route, clock)
+    log_total)` words, int32, on the device that runs the proof:
+    `dispatch_words` of a batch of one, then `finish_proof`. Counterpart of
+    `fri.dispatch_commit_phase_staged` + `fri.finish_proof`."""
+    committed = dispatch_words(words[None], log_total, [seed], pcs_config)[0]
+    return finish_proof(committed, log_total, pcs_config)
 
 
 def commit_and_generate_proof(data: bytes, seed, pcs_config: PcsConfig, device):
     """(commitment, Proof) of a blob on `device` (reference:
-    src/proof.rs:32-77): `dispatch_blob`, then `finish_proof`."""
+    src/proof.rs:32-77): `dispatch_blobs` of a batch of one, then
+    `finish_proof`."""
     log_total = log_total_for(len(data))
-    return finish_proof(dispatch_blob(data, log_total, seed, pcs_config, device), log_total, pcs_config)
+    committed = dispatch_blobs([data], log_total, [seed], pcs_config, device)[0]
+    return finish_proof(committed, log_total, pcs_config)
 
 
 # ---------------------------------------------------------------------------
@@ -1305,8 +1222,8 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
     """[(commitment, Proof)] of each blob under its seed, in input order, equal
     to a loop of `commit_and_generate_proof`: up to `max_in_flight` finished
     commit phases stay on the device before the oldest is decommitted. On
-    the card each is a graph replay (`dispatch_blob`), so a key holds at
-    most `max_in_flight` captured instances.
+    the card each is a graph replay (`dispatch_blobs` of one blob), so a
+    key holds at most `max_in_flight` captured instances.
 
     None takes min(8, `safe_in_flight` of the largest blob); a larger request
     is clamped to the safe window with a warning. Counterpart of
@@ -1334,7 +1251,7 @@ def prove_many(datas, seeds, pcs_config: PcsConfig = DEFAULT_CONFIG,
         if len(window) >= max_in_flight:
             out.append(finish_proof(*window.pop(0), pcs_config))
         log_total = log_total_for(len(data))
-        window.append((dispatch_blob(data, log_total, seed, pcs_config, device), log_total))
+        window.append((dispatch_blobs([data], log_total, [seed], pcs_config, device)[0], log_total))
     out.extend(finish_proof(c, log_total, pcs_config) for c, log_total in window)
     return out
 

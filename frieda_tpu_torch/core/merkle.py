@@ -220,31 +220,31 @@ class PrunedTree:
         return self.level(self.log_leaves)
 
 
-def _pruned_levels(columns: torch.Tensor, level_fn, collapse_fn, step=None, transcript_fn=None) -> list:
+def _pruned_levels(columns: torch.Tensor, step=None) -> list:
     """[(level k, (..., 8, m) nodes)]: the stored levels of `build_pruned`
     over (4, N) columns, or over a batch (B, 4, N), one tree a blob. A
     channel step (a batch's: one channel a blob) rides on the collapse that
-    makes the root, or is one `transcript_fn` call when the tree ends
+    makes the root, or is one `transcript` launch when the tree ends
     without a collapse (8 leaves or fewer: the leaf pass makes the root)."""
     from ..ops import channel as channel_ops
     from ..ops import merkle as merkle_ops
 
     n = columns.shape[-1]
     fused = n >= 8
-    level = level_fn(columns, True, fused)
+    level = merkle_ops.merkle_level(columns, True, fused)
     lev = 3 if fused else 0
     stored = [(lev, level)]
     while level.shape[-1] > merkle_ops.COLLAPSE_MAX:
-        level = level_fn(level, False, True)
+        level = merkle_ops.merkle_level(level, False, True)
         lev += 3
         stored.append((lev, level))
     m = level.shape[-1]
     if m > 1:
         widths = tail_widths(m)
-        for w, arr in zip(widths, collapse_fn(level, widths, step=step)):
+        for w, arr in zip(widths, merkle_ops.merkle_collapse(level, widths, step=step)):
             stored.append((lev + (m // w).bit_length() - 1, arr))
     elif step is not None:
-        channel_ops.run_step(step, level, transcript_fn)
+        channel_ops.run_step(step, level)
     return stored
 
 
@@ -258,8 +258,7 @@ def _flatten(stored: list) -> tuple:
     return torch.cat([arr.reshape(*arr.shape[:-2], -1) for _, arr in stored], dim=-1), offsets
 
 
-def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None, step=None,
-                 transcript_fn=None) -> PrunedTree:
+def build_pruned(columns: torch.Tensor, step=None) -> PrunedTree:
     """Pruned tree over (4, N) int32 natural-order columns, N a power of two.
 
     Counterpart of `frieda_tpu/core/merkle.py:device_levels_pruned`: the leaf
@@ -273,20 +272,13 @@ def build_pruned(columns: torch.Tensor, level_fn=None, collapse_fn=None, step=No
     build only when N < 8; every other stored level is the same.
 
     step: the layer's channel step (`ops.channel.ChannelStep`), run by the
-    collapse that makes the root, or by one `transcript_fn` call for a tree
-    of 8 leaves or fewer. level_fn / collapse_fn / transcript_fn default to
-    the kernel wrappers (`ops.merkle`, `ops.channel`); the prover passes its
-    own so that one pipeline can run either route."""
-    from ..ops import merkle as merkle_ops
-
-    stored = _pruned_levels(columns, level_fn or merkle_ops.merkle_level,
-                            collapse_fn or merkle_ops.merkle_collapse, step, transcript_fn)
-    flat, offsets = _flatten(stored)
+    collapse that makes the root, or by one `transcript` launch for a tree
+    of 8 leaves or fewer."""
+    flat, offsets = _flatten(_pruned_levels(columns, step))
     return PrunedTree(columns.shape[1].bit_length() - 1, flat, offsets)
 
 
-def build_pruned_many(columns: torch.Tensor, step=None, level_fn=None, collapse_fn=None,
-                      transcript_fn=None) -> tuple:
+def build_pruned_many(columns: torch.Tensor, step=None) -> tuple:
     """(trees, roots): the `build_pruned` trees of a batch (B, 4, N) of
     column sets, in the launches of one tree (the kernels' blob axis), each
     tree's `flat` a row of one (B, total) tensor; roots: (B, 8) root words.
@@ -294,13 +286,8 @@ def build_pruned_many(columns: torch.Tensor, step=None, level_fn=None, collapse_
     step: a batch of B channel steps (`ops.channel.ChannelStep` with (B, ...)
     fields: the batched commit phase's layer), blob b's run on its root by
     the collapse that makes the roots, or, for trees of 8 leaves or fewer,
-    by one batched `transcript_fn` call. level_fn / collapse_fn /
-    transcript_fn as for `build_pruned`."""
-    from ..ops import merkle as merkle_ops
-
-    stored = _pruned_levels(columns, level_fn or merkle_ops.merkle_level,
-                            collapse_fn or merkle_ops.merkle_collapse, step, transcript_fn)
-    flat, offsets = _flatten(stored)
+    by one batched `transcript` launch."""
+    flat, offsets = _flatten(_pruned_levels(columns, step))
     log_leaves = columns.shape[-1].bit_length() - 1
     off = offsets[log_leaves][0]
     return [PrunedTree(log_leaves, row, offsets) for row in flat], flat[:, off : off + 8]
@@ -346,15 +333,14 @@ class Opening:
         return (np.concatenate(self._values or [np.zeros((0, 2), np.int64)]),
                 np.concatenate(self._nodes or [np.zeros((0, 3), np.int64)]))
 
-    def run(self, open_fn=None):
-        """-> (values (4, V), nodes (8, R)) uint32 numpy arrays: one call of
-        `open_fn` (`ops.merkle.merkle_open` or a function of its signature)
-        over every read, one fetch."""
+    def run(self):
+        """-> (values (4, V), nodes (8, R)) uint32 numpy arrays: one
+        `ops.merkle.merkle_open` launch over every read, one fetch."""
         from ..ops import merkle as merkle_ops
         from ..utils.convert import to_numpy_u32
 
         values, nodes = self.jobs()
-        out = to_numpy_u32((open_fn or merkle_ops.merkle_open)(self.columns, self.trees, values, nodes))
+        out = to_numpy_u32(merkle_ops.merkle_open(self.columns, self.trees, values, nodes))
         self.open_calls += 1
         n_val = 4 * len(values)
         return out[:n_val].reshape(4, -1), out[n_val:].reshape(8, -1)
@@ -493,10 +479,9 @@ class ShardedOpening(Opening):
             return home, torch.zeros((4, self.mesh.n_elem), dtype=torch.int32, device=home), self.trees[t].top
         return self.mesh.device(self.row, slot), self.columns[t].part(slot), self.trees[t].shards[slot]
 
-    def run(self, open_fn=None):
+    def run(self):
         """-> (values (4, V), nodes (8, R)) uint32 numpy arrays, in
-        registration order: one call of `open_fn` (`ops.merkle.merkle_open`)
-        a device, over the entries this process holds, one fetch a device."""
+        registration order: one `ops.merkle.merkle_open` launch a device, over the entries this process holds, one fetch a device."""
         from ..ops import merkle as merkle_ops
         from ..utils.convert import to_numpy_u32
 
@@ -516,7 +501,7 @@ class ShardedOpening(Opening):
             codes = np.array([c for c, e in entries.items() if e[0] == dev], np.int64)  # ascending
             sel = {kind: np.isin(reads[kind][0], codes) for kind in reads}
             idx = {kind: np.searchsorted(codes, reads[kind][0][sel[kind]]) for kind in reads}
-            got = to_numpy_u32((open_fn or merkle_ops.merkle_open)(
+            got = to_numpy_u32(merkle_ops.merkle_open(
                 [entries[c][1] for c in codes.tolist()], [entries[c][2] for c in codes.tolist()],
                 np.stack([idx["v"], reads["v"][2][sel["v"]]], 1),
                 np.stack([idx["n"], reads["n"][1][sel["n"]], reads["n"][2][sel["n"]]], 1)))

@@ -63,12 +63,12 @@ def check_step(step: ChannelStep) -> None:
     _build.check_same_device(step.state, step.alpha)
 
 
-def run_step(step: ChannelStep, root: torch.Tensor, transcript_fn=None) -> None:
+def run_step(step: ChannelStep, root: torch.Tensor) -> None:
     """The step on `root` ((8,) or (8, 1) int32 words; a batch's (B, 8) or
-    (B, 8, 1)) as one call of `transcript_fn` (`transcript` by default, or
-    `transcript_plain`), alpha written into `step.alpha`."""
-    alpha, _ = (transcript_fn or transcript)(step.state, mix_u64=step.seed,
-                                             mix_digest=root.reshape(_lead(step.state) + (8,)), draw_felt=True)
+    (B, 8, 1)) as one `transcript` launch, alpha written into
+    `step.alpha`."""
+    alpha, _ = transcript(step.state, mix_u64=step.seed, mix_digest=root.reshape(_lead(step.state) + (8,)),
+                          draw_felt=True)
     step.alpha.copy_(alpha)
 
 

@@ -114,7 +114,7 @@ def _check_widths(m: int, out_widths) -> tuple:
 def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,), step=None) -> list:
     """Plain version: (8, m) int64 level -> [(8, w) level of width w for w in
     out_widths], widths descending and dividing m; with `step`, then
-    `transcript_plain` runs it on the root (`ops.channel.run_step`). A batch
+    `transcript_plain` runs it on the root. A batch
     (B, 8, m) -> [(B, 8, w) ...] runs blob by blob, blob b with row b of a
     batched step."""
     widths = _check_widths(level.shape[-1], out_widths)
@@ -127,8 +127,10 @@ def merkle_collapse_plain(level: torch.Tensor, out_widths=(1,), step=None) -> li
         while level.shape[1] > w:
             level = hash_parents(level)
         outs.append(level)
-    if step is not None:
-        channel_ops.run_step(step, narrow(outs[-1]), channel_ops.transcript_plain)
+    if step is not None:  # `ops.channel.run_step` on the root, by the transcript's plain version
+        alpha, _ = channel_ops.transcript_plain(step.state, mix_u64=step.seed, mix_digest=narrow(outs[-1]).reshape(8),
+                                                draw_felt=True)
+        step.alpha.copy_(alpha)
     return outs
 
 

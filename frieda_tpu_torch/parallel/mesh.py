@@ -38,12 +38,15 @@ import torch
 
 def _check_device(device) -> torch.device:
     """A device a mesh may hold: the CPU, or a CUDA device when CUDA is
-    available (nothing moves to the CPU by itself)."""
+    available (nothing moves to the CPU by itself), a bare "cuda" with the
+    current card's index, so that "cuda" and "cuda:0" name one device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"a mesh on {dev} requested, but CUDA is not available")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -21,14 +21,12 @@ None.
 
 from __future__ import annotations
 
-import collections
-
 import torch
 
 from ..config import PcsConfig
 from ..core import fft, fri, merkle
+from ..ops import ingest as ingest_ops
 from ..utils.packing import log_total_for, upload_words
-from ..utils.profiling import span
 from .fft_sharded import sharded_evaluate
 from .mesh import Mesh
 
@@ -92,7 +90,7 @@ def _blob_root(data: bytes, log_blowup_factor: int, mesh: Mesh, row: int) -> tor
     sharded commit."""
     log_total = log_total_for(len(data))
     words = upload_words([data], log_total, mesh.home(row))[1][0]
-    coeffs = fri.KERNELS.ingest(words, log_total - 2)
+    coeffs = ingest_ops.ingest(words, log_total - 2)
     return sharded_commit_root(coeffs, log_total - 2 + log_blowup_factor, mesh, row)
 
 
@@ -122,51 +120,23 @@ def sharded_commit_and_prove(data: bytes, seed, pcs_config: PcsConfig, mesh: Mes
     bit-identical to the single-device `commit_and_prove`. When the row's
     shards all lie on one CUDA device and the carrier is in-process, the
     commit phase is one replay of its captured CUDA graph
-    (`core/fri.dispatch_blob`), the decommitment's gathers inside it, and
+    (`core/fri.dispatch_blobs`), the decommitment's gathers inside it, and
     `finish_proof` fetches once and launches nothing; a process-group mesh
     runs it eagerly, and a row over several devices or processes decommits
     after the fetch (one `merkle_open` launch a device)."""
     row = mesh.rows()[0]
     log_total = log_total_for(len(data))
-    committed = fri.dispatch_blob(data, log_total, seed, pcs_config, mesh.home(row), mesh, row)
+    committed = fri.dispatch_blobs([data], log_total, [seed], pcs_config, mesh.home(row), mesh, row)[0]
     return fri.finish_proof(committed, log_total, pcs_config)
 
 
 def _one_device(mesh: Mesh):
     """The device that holds every shard of an in-process mesh, or None
-    (several devices, or a process group); "cuda" and "cuda:0" name one card
-    (`core/fri._card`)."""
+    (several devices, or a process group)."""
     if mesh.group is not None:
         return None
-    devices = {fri._card(mesh.device(d, e)) for d in range(mesh.n_data) for e in range(mesh.n_elem)}
+    devices = {mesh.device(d, e) for d in range(mesh.n_data) for e in range(mesh.n_elem)}
     return devices.pop() if len(devices) == 1 else None
-
-
-def sub_batches(count: int, safe: int) -> list:
-    """(start, stop) of each dispatch of a one-device `prove_many_sharded`
-    call of `count` blobs where `core/fri.safe_batch` is `safe`: two halves,
-    ceil(count/2) then floor(count/2) blobs (one dispatch for one blob), or,
-    for more blobs than `safe`, runs of max(1, safe // 2)."""
-    size = (count + 1) // 2 if count <= safe else max(1, safe // 2)
-    return [(i, min(i + size, count)) for i in range(0, count, size)]
-
-
-_PIPELINE = {"calls": 0, "dispatches": 0, "overlapped": 0}  # `pipeline_counts`
-
-
-def pipeline_counts() -> dict:
-    """{"calls", "dispatches", "overlapped"} since the process started or
-    since `reset_pipeline_counts`: `prove_many_sharded` calls that took the
-    one-device route, their batched dispatches, and their `finish_proof`s
-    that ran while a later dispatch of the same call was enqueued (a block
-    of 9: 1, 2 and 5)."""
-    return dict(_PIPELINE)
-
-
-def reset_pipeline_counts() -> None:
-    """Zero the counts of `pipeline_counts`."""
-    for key in _PIPELINE:
-        _PIPELINE[key] = 0
 
 
 def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
@@ -179,20 +149,10 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
 
     Where every shard of the mesh lies on one device and the carrier is
     in-process (a mesh of one card's virtual shards, or of the CPU), the
-    batch runs as batched dispatches here too (`core/fri.dispatch_batch`:
-    the rows uploaded in one copy, one batched commit phase, on the card one
-    graph replay and the rows' copy to the host behind it), then a
-    `finish_proof` a blob, the first of a dispatch's waiting for its fetch.
-    A call of B >= 2 blobs makes two dispatches, of ceil(B/2) and floor(B/2)
-    blobs (`sub_batches`: 9 -> 5 + 4), both enqueued before the first
-    finish, so the host finishes the first while the card replays the
-    second; one blob is one dispatch. A batch larger than the card's share
-    (`core/fri.safe_batch`) runs as dispatches of at most half that share,
-    at most two in flight (one where the share is one blob), so what is in
-    flight never holds more than the share. Each dispatch's finishes are
-    one span "batch/finish"; `pipeline_counts` counts the calls, their
-    dispatches and the finishes that overlapped a later dispatch. Each
-    blob's layers are whole, as the JAX batched program keeps its
+    batch runs as batched dispatches here too: `core/fri.prove_block`, the
+    one-card block pipeline (two dispatches, the second enqueued before the
+    first one's finishes; on the card each one graph replay). Each blob's
+    layers are whole, as the JAX batched program keeps its
     auto-sharded XLA stage loop rather than the shard_map path
     (`frieda_tpu/core/fri.py:199-205`): a row's shards are one buffer on
     one device, and the packed outputs equal one device's.
@@ -200,38 +160,15 @@ def prove_many_sharded(datas, seeds, pcs_config: PcsConfig, mesh: Mesh):
     Otherwise (shards on several devices, or a process-group mesh) the
     batch takes the per-blob route, `prove_many_per_blob`."""
     datas, seeds = list(datas), list(seeds)
-    if len(datas) != len(seeds):
-        raise ValueError(f"{len(datas)} blobs but {len(seeds)} seeds")
-    has_seed = [s is not None for s in seeds]
-    if any(has_seed) != all(has_seed):
-        raise ValueError("seeds must be all None or all set in one batch")
+    fri.batch_has_seed(seeds, len(datas))  # the JAX package's checks and messages, in its order
     log_totals = {log_total_for(len(d)) for d in datas}
     if len(log_totals) != 1:
         raise ValueError("batch must share a padded size")
     log_total = log_totals.pop()
-    if log_total - 2 - 1 - pcs_config.fri_config.log_last_layer_degree_bound < 0:  # n_inner < 0
-        raise ValueError("config unsatisfiable for this blob size")
+    fri._layer_sizes(log_total, pcs_config)  # ValueError for a config this blob size cannot satisfy
     device = _one_device(mesh)
     if device is not None:
-        safe = fri.safe_batch(log_total - 2, pcs_config.fri_config, device)
-        in_flight = 2 if safe >= 2 else 1  # two dispatches in flight hold at most `safe` blobs
-        out, pending = [], collections.deque()
-        _PIPELINE["calls"] += 1
-
-        def finish(committed: list) -> None:
-            with span("batch/finish"):  # the first finish's fetch waits for this dispatch's replay
-                out.extend(fri.finish_proof(c, log_total, pcs_config) for c in committed)
-            if pending:  # a later dispatch of this call was enqueued behind this one meanwhile
-                _PIPELINE["overlapped"] += len(committed)
-
-        for start, stop in sub_batches(len(datas), safe):
-            if len(pending) == in_flight:
-                finish(pending.popleft())
-            pending.append(fri.dispatch_batch(datas[start:stop], log_total, seeds[start:stop], pcs_config, device))
-            _PIPELINE["dispatches"] += 1
-        while pending:
-            finish(pending.popleft())
-        return out
+        return fri.prove_block(datas, log_total, seeds, pcs_config, device)
     return prove_many_per_blob(datas, seeds, log_total, pcs_config, mesh)
 
 
@@ -239,7 +176,7 @@ def prove_many_per_blob(datas, seeds, log_total: int, pcs_config: PcsConfig, mes
     """`prove_many_sharded`'s route for a mesh over several devices or a
     process group, which takes any mesh: the blobs (2^log_total felts each,
     checked by the caller) split over the mesh rows, each blob's commit phase
-    element-sharded over its row with its own transcript (`fri.dispatch_blob`:
+    element-sharded over its row with its own transcript (`fri.dispatch_blobs`:
     a graph replay each where `sharded_commit_and_prove`'s is one, so a
     row's key holds as many captured instances as the row has blobs), every
     commit phase enqueued before the first decommitment. A process-group
@@ -249,6 +186,6 @@ def prove_many_per_blob(datas, seeds, log_total: int, pcs_config: PcsConfig, mes
     for b, (data, seed) in enumerate(zip(datas, seeds)):
         row = _row_of(b, len(datas), mesh)
         if row in local:
-            pending[b] = fri.dispatch_blob(data, log_total, seed, pcs_config, mesh.home(row), mesh, row)
+            pending[b] = fri.dispatch_blobs([data], log_total, [seed], pcs_config, mesh.home(row), mesh, row)[0]
     return [fri.finish_proof(pending[b], log_total, pcs_config) if b in pending else None
             for b in range(len(datas))]

@@ -20,9 +20,7 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   `core/fri.py` has "prove/ingest" (the blob's upload),
   "prove/device_dispatch(lde+merkle+transcript+grind)" (the commit phase's
   enqueue, single or sharded), "prove/fetch_packed" (`Committed.fetch`),
-  "prove/assemble" (the proof objects) and "verify". The prover's stage
-  clock (`fri._Clock`, only when the caller passes a `stats` dict) adds one
-  span a stage.
+  "prove/assemble" (the proof objects) and "verify".
 
   The port's own spans, which the JAX package has not: inside
   "commit/ingest" and "prove/ingest" (and wherever `utils/packing.
@@ -31,8 +29,8 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
   host threads from `packing.SPLIT_BYTES` on, and the zero tail) and
   "ingest/upload" (the enqueue of the copy to the device); inside "prove/assemble", "assemble/select" (the witnesses picked
   from the fetched vector) and "assemble/objects" (the proof objects);
-  around the finishes of each dispatch of a one-device `parallel/sharding.
-  prove_many_sharded` call (two a call of two or more blobs),
+  around the finishes of each dispatch of a `core/fri.prove_block` call
+  (the one-card block pipeline; two a call of two or more blobs),
   "batch/finish" (the dispatch's one fetch, which waits for its replay,
   and every proof's assembly). Set-up
   spans fire on a cache miss only: "setup/kernels" (`ops/_build.library`'s
@@ -51,10 +49,9 @@ Counterpart of `frieda_tpu/utils/profiling.py`, without JAX:
 * The program's counters besides: `core/fri.grind_totals()` (proofs whose
   nonce reached the host, and the sum of nonce + 1; `reset_grind_totals`),
   `utils/packing.copy_counts()` (the ingest's copies made whole or split
-  over host threads, and the chunks) and `parallel/sharding.
-  pipeline_counts()` (one-device `prove_many_sharded` calls, their
-  dispatches, and the finishes that ran while a later dispatch of the same
-  call was enqueued; `reset_pipeline_counts`).
+  over host threads, and the chunks) and `core/fri.pipeline_counts()`
+  (`prove_block` calls, their dispatches, and the finishes that ran while
+  a later dispatch of the same call was enqueued; `reset_pipeline_counts`).
 
 * The roofline: the least time a card could take for a function's work, the
   larger of its bytes over the card's memory rate and its integer

@@ -1,9 +1,9 @@
-"""Port's batched commit phase (`core/fri.commit_phase_batched`, the
+"""Port's commit phase over a batch (`core/fri.commit_phase`, the
 counterpart of the JAX package's `_fri_commit_fn(..., batched=True)`) and
 the blob axis of its kernels' plain versions, on the CPU: proofs against
 the JAX package's vmapped commit phase finished by its `_finish_proof`
 (B = 1, 2, 3 at two frozen shapes, seeds set, 0 and 2^64 - 1, and None),
-the packed rows against a loop of `commit_phase`, every batched wrapper
+the packed rows against a loop of batches of one, every batched wrapper
 against a loop of its one-blob calls, `prove_many_sharded`'s route (the
 batch on a mesh of one device, per blob otherwise), the memory split, the
 lease of a batch's instance and its one fetch, and the errors. Inputs are
@@ -36,6 +36,7 @@ from frieda_tpu_torch.ops import channel as channel_ops  # noqa: E402
 from frieda_tpu_torch.ops import fri as fri_ops  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.parallel import sharding  # noqa: E402
+from frieda_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, upload_words  # noqa: E402
 
@@ -87,7 +88,7 @@ def jax_batches() -> dict:
 def batched_wires(name: str, B: int) -> list:
     datas, seeds, cfg, log_total = blobs_of(name)
     _, words = upload_words(datas[:B], log_total, "cpu")
-    committed = fri.commit_phase_batched(words, log_total, seeds[:B], cfg)
+    committed = fri.commit_phase(words, log_total, seeds[:B], cfg)
     return [fri.finish_proof(c, log_total, cfg)[1].to_bytes() for c in committed]
 
 
@@ -103,16 +104,16 @@ def test_batched_commit_phase_equals_the_jax_batched_commit_phase(jax_batches, n
 
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_packed_rows_equal_a_loop_of_single_commit_phases(name):
-    """Every row of the batch's packed (B, total) vector == `commit_phase`'s
-    packed vector of that blob, and every Committed's layers and trees are
-    the single proof's."""
+    """Every row of the batch's packed (B, total) vector == the packed
+    vector of that blob's batch of one, and every Committed's layers and
+    trees are the single proof's."""
     datas, seeds, cfg, log_total = blobs_of(name)
     _, words = upload_words(datas, log_total, "cpu")
-    committed = fri.commit_phase_batched(words, log_total, seeds, cfg)
+    committed = fri.commit_phase(words, log_total, seeds, cfg)
     packed = committed[0].batch[0].packed
     assert packed.shape == (3, committed[0].layout.total)
     for b, c in enumerate(committed):
-        one = fri.commit_phase(words[b], log_total, seeds[b], cfg)
+        one = fri.commit_phase(words[b : b + 1], log_total, seeds[b : b + 1], cfg)[0]
         assert torch.equal(packed[b], one.packed) and c.packed.data_ptr() == packed[b].data_ptr()
         assert all(torch.equal(x, y) for x, y in zip(c.layers, one.layers))
         assert all(torch.equal(x.flat, y.flat) and x.offsets == y.offsets for x, y in zip(c.trees, one.trees))
@@ -343,14 +344,14 @@ def looped() -> list:
 
 
 def spy(monkeypatch) -> list:
-    """The blob counts of every `commit_phase_batched` call from now on."""
-    calls, inner = [], fri.commit_phase_batched
+    """The blob counts of every `commit_phase` call from now on."""
+    calls, inner = [], fri.commit_phase
 
     def counted(words, *args, **kwargs):
         calls.append(words.shape[0])
         return inner(words, *args, **kwargs)
 
-    monkeypatch.setattr(fri, "commit_phase_batched", counted)
+    monkeypatch.setattr(fri, "commit_phase", counted)
     return calls
 
 
@@ -376,18 +377,19 @@ def test_prove_many_sharded_on_one_device_is_one_batch(monkeypatch, looped, shap
 def test_prove_many_sharded_over_several_devices_stays_per_blob(monkeypatch, looped, shape, devices):
     """A mesh over several devices ("cpu" and "cpu:0" stand for two) keeps
     the per-blob element-sharded path (`prove_many_per_blob`): no batched
-    commit phase, one `dispatch_blob` a blob on its row, the proofs == the
-    loop of commit_and_prove and the frozen case's bytes."""
-    calls, rows, dispatch = spy(monkeypatch), [], fri.dispatch_blob
+    commit phase, a `dispatch_blobs` of one blob for each blob, on its row;
+    the proofs == the loop of commit_and_prove and the frozen case's
+    bytes."""
+    calls, rows, dispatch = spy(monkeypatch), [], fri.dispatch_blobs
 
-    def counted(data, log_total, seed, pcs_config, device, mesh=None, row=0):
-        rows.append(row)
-        return dispatch(data, log_total, seed, pcs_config, device, mesh, row)
+    def counted(datas, log_total, seeds, pcs_config, device, mesh=None, row=0):
+        rows.append((len(datas), row))
+        return dispatch(datas, log_total, seeds, pcs_config, device, mesh, row)
 
-    monkeypatch.setattr(fri, "dispatch_blob", counted)
+    monkeypatch.setattr(fri, "dispatch_blobs", counted)
     mesh = sharding.make_mesh(*shape, devices=devices)
     out = sharding.prove_many_sharded(DATAS, SEEDS, CFG, mesh)
-    assert [p.to_bytes() for _, p in out] == looped and calls == [] and rows == [0, 0, 0, 1, 1]
+    assert [p.to_bytes() for _, p in out] == looped and calls == [] and rows == [(1, r) for r in (0, 0, 0, 1, 1)]
     datas, seeds, cfg, _ = blobs_of("dryrun_960B")
     got = sharding.prove_many_sharded(datas[:2], seeds[:2], cfg, mesh)
     assert got[0][1].to_bytes().hex() == CASES["dryrun_960B"]["wire_hex"] and calls == []
@@ -396,24 +398,18 @@ def test_prove_many_sharded_over_several_devices_stays_per_blob(monkeypatch, loo
 
 def test_one_device_names_a_card_once(monkeypatch):
     """`prove_many_sharded` takes the batch where every shard lies on one
-    device: "cuda" and "cuda:0" are one card (the current one), "cpu" and
-    "cpu:0" stay two, and a process group is never one device."""
-    class Stub:
-        n_data, n_elem = 1, 2
-
-        def __init__(self, devices, group=None):
-            self.devices, self.group = [torch.device(d) for d in devices], group
-
-        def device(self, d, e):
-            return self.devices[d * self.n_elem + e]
-
+    device: "cuda" and "cuda:0" are one card (the current one; the mesh
+    names a bare "cuda" with its index), "cpu" and "cpu:0" stay two, and a
+    process group is never one device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    assert sharding._one_device(Stub(["cuda", "cuda:0"])) == torch.device("cuda", 0)
-    assert sharding._one_device(Stub(["cuda:0", "cuda:1"])) is None
-    assert sharding._one_device(Stub(["cpu", "cpu:0"])) is None
-    assert sharding._one_device(Stub(["cpu", "cpu"])) == torch.device("cpu")
-    assert sharding._one_device(Stub(["cpu", "cpu"], group=object())) is None
+    assert sharding._one_device(Mesh(1, 2, ["cuda", "cuda:0"])) == torch.device("cuda", 0)
+    assert sharding._one_device(Mesh(1, 2, ["cuda:0", "cuda:1"])) is None
+    assert sharding._one_device(Mesh(1, 2, ["cpu", "cpu:0"])) is None
+    assert sharding._one_device(Mesh(1, 2, ["cpu", "cpu"])) == torch.device("cpu")
+    grouped = Mesh(1, 2, ["cpu", "cpu"])
+    grouped.group = object()
+    assert sharding._one_device(grouped) is None
 
 
 def test_a_batch_larger_than_the_budget_runs_in_parts(monkeypatch, looped):
@@ -453,31 +449,31 @@ class CpuBatchGraph(fri._Instance):
 
     def run(self, seeds):
         self.runs += 1
-        out = fri.commit_phase_batched(self.words, self.log_total, seeds, self.pcs_config)
+        out = fri.commit_phase(self.words, self.log_total, seeds, self.pcs_config)
         for c in out:
             self.lend(c)
         return out
 
 
 def test_a_batch_holds_its_instance_until_its_last_proof(monkeypatch, looped):
-    """dispatch_batch through a cached instance: one instance a batch size,
+    """dispatch_blobs through a cached instance: one instance a batch size,
     leased until every one of its Committeds is finished (or collected);
     the first finish fetches the whole batch in one copy, the others read
     that copy."""
     cache = fri._GraphCache(8)
-    monkeypatch.setattr(fri, "_batch_graph", lambda log_total, cfg, has_seed, device, batch: cache.instance(
-        (log_total, has_seed, batch), lambda warm: CpuBatchGraph(log_total, cfg, batch)))
+    monkeypatch.setattr(fri, "_commit_graph", lambda log_total, cfg, has_seed, device, blobs, *mesh: cache.instance(
+        (log_total, has_seed, blobs), lambda warm: CpuBatchGraph(log_total, cfg, blobs)))
     fetches, inner = [], fri.to_numpy_u32
     monkeypatch.setattr(fri, "to_numpy_u32", lambda t: fetches.append(tuple(t.shape)) or inner(t))
     log_total = log_total_for(512)
-    committed = fri.dispatch_batch(DATAS[:3], log_total, SEEDS[:3], CFG, "cpu")
+    committed = fri.dispatch_blobs(DATAS[:3], log_total, SEEDS[:3], CFG, "cpu")
     (_, (inst,), _), = cache.keys.values()
     assert not inst.free and inst.runs == 1
     assert fri.finish_proof(committed[1], log_total, CFG)[1].to_bytes() == looped[1]
     assert fetches == [(3, committed[0].layout.total)] and not inst.free
     assert fri.finish_proof(committed[0], log_total, CFG)[1].to_bytes() == looped[0]
     assert not inst.free and len(fetches) == 1
-    again = fri.dispatch_batch(DATAS[:3], log_total, SEEDS[:3], CFG, "cpu")  # a second instance
+    again = fri.dispatch_blobs(DATAS[:3], log_total, SEEDS[:3], CFG, "cpu")  # a second instance
     assert len(cache.keys[(log_total, True, 3)][1]) == 2
     assert fri.finish_proof(committed[2], log_total, CFG)[1].to_bytes() == looped[2]
     assert inst.free and len(fetches) == 1
@@ -507,8 +503,8 @@ def test_batch_errors_equal_the_jax_packages():
             sharding.prove_many_sharded(datas, seeds, cfg, mesh)
         assert str(err.value) == str(jerr.value)
     with pytest.raises(ValueError, match="all None or all set"):
-        fri.commit_phase_batched(torch.zeros((2, fri.words_for(3)), dtype=torch.int32), 3, [1, None], cfg)
+        fri.commit_phase(torch.zeros((2, fri.words_for(3)), dtype=torch.int32), 3, [1, None], cfg)
     with pytest.raises(ValueError, match="all None or all set"):
-        fri.dispatch_batch([b"a", b"b"], 3, [None, 2], cfg, "cpu")
+        fri.dispatch_blobs([b"a", b"b"], 3, [None, 2], cfg, "cpu")
     with pytest.raises(ValueError, match="3 blobs but 2 seeds"):
-        fri.dispatch_batch([b"a", b"b", b"c"], 3, [1, 2], cfg, "cpu")
+        fri.dispatch_blobs([b"a", b"b", b"c"], 3, [1, 2], cfg, "cpu")

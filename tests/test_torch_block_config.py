@@ -10,9 +10,10 @@ roots and wire bytes against the benchmark's plain reference
 (`fri.grind_totals`) against the proofs' nonces; the span `batch/finish`
 once a dispatch. The call's two dispatches (ceil(B/2) and floor(B/2)
 blobs) come before its first finish, in the recorded order of
-`fri.dispatch_batch` and `fri.finish_proof`, and `sharding.pipeline_counts`
-counts them; past a stubbed `safe_batch` the dispatches of half the share,
-at most two in flight, still give the reference's bytes.
+`fri.dispatch_blobs` and `fri.finish_proof` (`fri.prove_block`, the
+one-card block pipeline), and `fri.pipeline_counts` counts them; past a
+stubbed `safe_batch` the dispatches of half the share, at most two in
+flight, still give the reference's bytes.
 
 The proof of work is 8 bits here, not the configuration's 26: a 26-bit
 search takes ~2^26 compressions a blob, minutes on the CPU. Every other
@@ -87,13 +88,13 @@ def halves(count: int) -> list:
 
 @pytest.mark.parametrize("size, count", [(960, 1), (960, 2), (960, 3), (960, BLOCK), (4096, 1), (4096, BLOCK)])
 def test_a_block_is_one_batch_equal_to_the_reference(want, monkeypatch, size, count):
-    calls, inner = [], fri.dispatch_batch
+    calls, inner = [], fri.dispatch_blobs
 
     def counted(datas, *args, **kwargs):
         calls.append(len(datas))
         return inner(datas, *args, **kwargs)
 
-    monkeypatch.setattr(fri, "dispatch_batch", counted)
+    monkeypatch.setattr(fri, "dispatch_blobs", counted)
     fri.reset_grind_totals()
     profiling.reset_span_totals()
     out = sharding.prove_many_sharded(blobs(size)[:count], SEEDS[:count], CFG, Mesh(1, 1, ["cpu"]))
@@ -140,9 +141,9 @@ def test_a_single_blob_proof_counts_its_grind_without_the_batch_span():
 
 
 def recorded(monkeypatch) -> list:
-    """("dispatch", blobs) of every `fri.dispatch_batch` and ("finish", row)
+    """("dispatch", blobs) of every `fri.dispatch_blobs` and ("finish", row)
     of every `fri.finish_proof` from now on, in call order."""
-    events, dispatch, finish = [], fri.dispatch_batch, fri.finish_proof
+    events, dispatch, finish = [], fri.dispatch_blobs, fri.finish_proof
 
     def dispatched(datas, *args, **kwargs):
         events.append(("dispatch", len(datas)))
@@ -152,7 +153,7 @@ def recorded(monkeypatch) -> list:
         events.append(("finish", committed.batch[1]))
         return finish(committed, *args, **kwargs)
 
-    monkeypatch.setattr(fri, "dispatch_batch", dispatched)
+    monkeypatch.setattr(fri, "dispatch_blobs", dispatched)
     monkeypatch.setattr(fri, "finish_proof", finished)
     return events
 
@@ -164,14 +165,14 @@ def test_both_dispatches_come_before_the_first_finish(want, monkeypatch, count, 
     `pipeline_counts` counts one call, its dispatches and the first
     dispatch's finishes as overlapped."""
     events = recorded(monkeypatch)
-    sharding.reset_pipeline_counts()
+    fri.reset_pipeline_counts()
     out = sharding.prove_many_sharded(blobs(960)[:count], SEEDS[:count], CFG, Mesh(1, 1, ["cpu"]))
     sizes = halves(count)
     assert events == [("dispatch", n) for n in sizes] + [("finish", b) for n in sizes for b in range(n)]
     assert [(r, p.to_bytes()) for r, p in out] == want[960][0][:count]
-    assert sharding.pipeline_counts() == dict(zip(("calls", "dispatches", "overlapped"), counts))
-    sharding.reset_pipeline_counts()
-    assert sharding.pipeline_counts() == {"calls": 0, "dispatches": 0, "overlapped": 0}
+    assert fri.pipeline_counts() == dict(zip(("calls", "dispatches", "overlapped"), counts))
+    fri.reset_pipeline_counts()
+    assert fri.pipeline_counts() == {"calls": 0, "dispatches": 0, "overlapped": 0}
 
 
 @pytest.mark.parametrize("safe", [1, 2, 4])
@@ -184,7 +185,7 @@ def test_past_the_device_s_share_at_most_the_share_is_in_flight(monkeypatch, saf
     monkeypatch.setattr(fri, "safe_batch", lambda *args: safe)
     events = recorded(monkeypatch)
     datas = [synthetic_data(64, k) for k in range(5)]
-    sharding.reset_pipeline_counts()
+    fri.reset_pipeline_counts()
     out = sharding.prove_many_sharded(datas, SEEDS[:5], CFG, Mesh(1, 1, ["cpu"]))
     assert [(r, p.to_bytes()) for r, p in out] == ref.prove(datas, SEEDS[:5], PROTO, "cpu")
     size = max(1, safe // 2)
@@ -196,4 +197,4 @@ def test_past_the_device_s_share_at_most_the_share_is_in_flight(monkeypatch, saf
         most = max(most, held)
     assert most <= safe and held == 0
     overlapped = 0 if safe == 1 else 5 - sizes[-1]  # every finish but the last dispatch's, two in flight
-    assert sharding.pipeline_counts() == {"calls": 1, "dispatches": len(sizes), "overlapped": overlapped}
+    assert fri.pipeline_counts() == {"calls": 1, "dispatches": len(sizes), "overlapped": overlapped}

@@ -148,20 +148,25 @@ def test_build_pruned_step_with_and_without_a_collapse(log_n, monkeypatch):
     cols = from_numpy_u32(_u32(rng, (4, 1 << log_n), P), "cpu")
     state, seed = _u32(rng, 9), _u32(rng, 2)
     calls = {"transcript": 0, "collapse": 0}
+    plain = tm.build_pruned(cols).root
+    transcript, collapse = channel_ops.transcript, merkle_ops.merkle_collapse
 
-    def transcript(*args, **kwargs):
+    def counted_transcript(*args, **kwargs):
         calls["transcript"] += 1
-        return channel_ops.transcript(*args, **kwargs)
+        return transcript(*args, **kwargs)
 
-    def collapse(*args, **kwargs):
+    def counted_collapse(*args, **kwargs):
         calls["collapse"] += 1
-        return merkle_ops.merkle_collapse(*args, **kwargs)
+        return collapse(*args, **kwargs)
 
+    monkeypatch.setattr(channel_ops, "transcript", counted_transcript)
+    monkeypatch.setattr(merkle_ops, "merkle_collapse", counted_collapse)
     step = _step(state, seed)
-    tree = tm.build_pruned(cols, merkle_ops.merkle_level, collapse, step, transcript)
+    tree = tm.build_pruned(cols, step)
+    monkeypatch.undo()
     assert calls == ({"transcript": 0, "collapse": 1} if log_n and log_n != 3 else
                      {"transcript": 1, "collapse": 0})
-    assert torch.equal(tree.root, tm.build_pruned(cols).root)
+    assert torch.equal(tree.root, plain)
     want_state = from_numpy_u32(state, "cpu")
     want_alpha, _ = channel_ops.transcript_plain(want_state, mix_u64=from_numpy_u32(seed, "cpu"),
                                                  mix_digest=tree.root.reshape(8), draw_felt=True)
@@ -169,7 +174,7 @@ def test_build_pruned_step_with_and_without_a_collapse(log_n, monkeypatch):
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c["name"])
-def test_frozen_proofs_through_the_commit_phase(case):
+def test_frozen_proofs_through_the_commit_phase(case, monkeypatch):
     """The frozen wire bytes through `fri.commit_phase` on the CPU, with 2
     transcript calls a proof plus one a tree of 8 leaves or fewer (the last
     tree of dryrun_960B: blowup 2, last-layer bound 2^0), and every other
@@ -178,19 +183,21 @@ def test_frozen_proofs_through_the_commit_phase(case):
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     log_total = log_total_for(len(data))
     calls = {"transcript": 0, "steps": 0}
+    transcript, collapse = channel_ops.transcript, merkle_ops.merkle_collapse
 
-    def transcript(*args, **kwargs):
+    def counted_transcript(*args, **kwargs):
         calls["transcript"] += 1
-        return channel_ops.transcript(*args, **kwargs)
+        return transcript(*args, **kwargs)
 
-    def collapse(level, widths, step=None):
+    def counted_collapse(level, widths, step=None):
         calls["steps"] += step is not None
-        return merkle_ops.merkle_collapse(level, widths, step=step)
+        return collapse(level, widths, step=step)
 
-    route = fri.KERNELS._replace(transcript=transcript, collapse=collapse)
-    committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), "cpu"), log_total,
-                                 case["seed"], cfg, route)
-    _, proof = fri.finish_proof(committed, log_total, cfg, route)
+    monkeypatch.setattr(channel_ops, "transcript", counted_transcript)
+    monkeypatch.setattr(merkle_ops, "merkle_collapse", counted_collapse)
+    committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), "cpu")[None], log_total,
+                                 [case["seed"]], cfg)[0]
+    _, proof = fri.finish_proof(committed, log_total, cfg)
     assert proof.to_bytes().hex() == case["wire_hex"]
     small = sum(tree.log_leaves <= 3 for tree in committed.trees)
     assert small == (case["name"] == "dryrun_960B")

@@ -1,5 +1,6 @@
 """The port's commit phase as one dispatch (`frieda_tpu_torch.core.fri`:
-`_fri_commit_fn`, `dispatch_commit_phase`), in the parts a CPU can run: the
+`_fri_commit_fn`, `dispatch_words`, `dispatch_blobs`), in the parts a CPU
+can run: one blob as a batch of one under a key of B = 1; the
 seed as two device words (`seed_words`) against the int seed and the JAX
 package's `dc_mix_u64_const`; the lease and key bookkeeping of the graph
 cache (`_GraphCache`, `_Instance`, `Committed.release`), with stand-in
@@ -66,16 +67,17 @@ class Stub(fri._Instance):
 
 
 class CpuGraph(fri._Instance):
-    """A stand-in for `fri._CommitGraph` on the CPU: static words, and a run
-    that is the eager commit phase over them, leased as a replay's is."""
+    """A stand-in for `fri._CommitGraph` on the CPU: static words of one
+    blob, and a run that is the eager commit phase over them, leased as a
+    replay's is."""
 
     def __init__(self, log_total: int, pcs_config, warm: bool):
         self.log_total, self.pcs_config, self.warm = log_total, pcs_config, warm
-        self.words = torch.zeros(words_for(log_total), dtype=torch.int32)
+        self.words = torch.zeros((1, words_for(log_total)), dtype=torch.int32)
 
-    def run(self, seed):
-        c = fri.commit_phase(self.words, self.log_total, seed, self.pcs_config)
-        self.lend(c)
+    def run(self, seeds):
+        c = fri.commit_phase(self.words, self.log_total, seeds, self.pcs_config)
+        self.lend(c[0])
         return c
 
 
@@ -86,7 +88,7 @@ def looped():
 
 
 def committed() -> fri.Committed:
-    return fri.Committed([], [], torch.zeros(0, dtype=torch.int32), 1, 1)
+    return fri.Committed([], [], (fri.BatchFetch(torch.zeros((1, 0), dtype=torch.int32)), 0), 1, 1)
 
 
 def test_a_leased_instance_is_never_handed_out():
@@ -106,12 +108,12 @@ def test_a_lease_ends_with_finish_proof_and_with_collection():
     log_total = log_total_for(len(DATAS[0]))
     words = upload_words([DATAS[0]], log_total, "cpu")[1][0]
     inst = fri._Instance()
-    c = fri.commit_phase(words, log_total, 5, CFG)
+    c = fri.commit_phase(words[None], log_total, [5], CFG)[0]
     inst.lend(c)
     assert not inst.free
     want = fri.finish_proof(c, log_total, CFG)
     assert inst.free and c._lease is None
-    c = fri.commit_phase(words, log_total, 5, CFG)
+    c = fri.commit_phase(words[None], log_total, [5], CFG)[0]
     inst.lend(c)
     del c
     gc.collect()
@@ -126,9 +128,8 @@ def test_a_window_holds_that_many_instances_per_key(monkeypatch, looped, window)
     instances; the proofs equal a loop of commit_and_prove."""
     cache = fri._GraphCache(8)
 
-    def commit_graph(log_total, pcs_config, seed, device, mesh=None, row=0):
-        return cache.instance((log_total, seed is not None),
-                              lambda warm: CpuGraph(log_total, pcs_config, warm))
+    def commit_graph(log_total, pcs_config, has_seed, device, blobs=1, mesh=None, row=0):
+        return cache.instance((log_total, has_seed), lambda warm: CpuGraph(log_total, pcs_config, warm))
 
     monkeypatch.setattr(fri, "_commit_graph", commit_graph)
     batch = api.prove_many(DATAS, [1, 2, 3, 4], CFG, max_in_flight=window, device="cpu")
@@ -149,7 +150,7 @@ def test_prove_many_over_several_keys_keeps_within_the_budget(monkeypatch, loope
     monkeypatch.setattr(fri, "device_memory_bytes", lambda d: 1000 if d == device else 1 << 40)
     monkeypatch.setattr(fri, "_GRAPHS", cache)
 
-    def commit_graph(log_total, pcs_config, seed, dev, mesh=None, row=0):
+    def commit_graph(log_total, pcs_config, has_seed, dev, blobs=1, mesh=None, row=0):
         return cache.instance((log_total, pcs_config.fri_config.n_queries), lambda warm: CpuGraph(
             log_total, pcs_config, warm), device, nbytes=100, warm_bytes=100)
 
@@ -162,7 +163,7 @@ def test_prove_many_over_several_keys_keeps_within_the_budget(monkeypatch, loope
             assert batch == looped
         else:
             words = upload_words([DATAS[0]], 3, "cpu")[1][0]
-            assert batch[0] == fri.finish_proof(fri.commit_phase(words, 3, 1, cfg), 3, cfg)[1].to_bytes()
+            assert batch[0] == fri.finish_proof(fri.commit_phase(words[None], 3, [1], cfg)[0], 3, cfg)[1].to_bytes()
         assert len(cache.keys[(3, q)][1]) == 3
         held.append(({k[1]: n for k, n in fri.commit_graphs()[1].items()}, cache.held_bytes(device)))
     # key 5's first capture (with its warm-up) closes two of key 3's, its third the last
@@ -233,7 +234,7 @@ def test_a_bare_cuda_device_and_its_index_share_a_key(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(fri, "_fri_commit_fn", lambda *args: asked.append(args[3]))
     for device in ("cuda", "cuda:0", torch.device("cuda"), torch.device("cuda", 0)):
-        fri._commit_graph(3, CFG, 1, device)
+        fri._commit_graph(3, CFG, True, device)
     assert asked == [torch.device("cuda", 0)] * 4 and len({str(d) for d in asked}) == 1
 
 
@@ -274,11 +275,11 @@ def test_meshes_that_stay_eager():
         return types.SimpleNamespace(group=group, local_elems=lambda row: [0, 1], device=lambda row, e: devices[e])
 
     log_total = log_total_for(len(DATAS[0]))
-    assert log_total == 3 and fri._commit_graph(log_total, CFG, 1, "cpu") is None
-    assert fri._commit_graph(log_total, CFG, 1, cuda, mesh(object(), [cuda, cuda]), 0) is None
-    assert fri._commit_graph(log_total, CFG, 1, cuda, mesh(None, [cuda, torch.device("cuda", 1)]), 0) is None
+    assert log_total == 3 and fri._commit_graph(log_total, CFG, True, "cpu") is None
+    assert fri._commit_graph(log_total, CFG, True, cuda, 1, mesh(object(), [cuda, cuda]), 0) is None
+    assert fri._commit_graph(log_total, CFG, True, cuda, 1, mesh(None, [cuda, torch.device("cuda", 1)]), 0) is None
     with pytest.raises(ValueError, match="unsatisfiable"):
-        fri._commit_graph(2, PcsConfig(4, FriConfig(2, 1, 8)), 1, "cpu")
+        fri._commit_graph(2, PcsConfig(4, FriConfig(2, 1, 8)), True, "cpu")
 
 
 def test_the_cpu_never_captures(monkeypatch):
@@ -293,9 +294,60 @@ def test_the_cpu_never_captures(monkeypatch):
     log_total = log_total_for(len(DATAS[0]))
     words = upload_words([DATAS[0]], log_total, "cpu")[1][0]
     one = fri.prove_words(words, log_total, 9, CFG)
-    assert fri.dispatch_commit_phase(words, log_total, 9, CFG).roots == [
+    assert fri.dispatch_words(words[None], log_total, [9], CFG)[0].roots == [
         layer.commitment for layer in [one[1].proof.first_layer, *one[1].proof.inner_layers]]
     batch = api.prove_many(DATAS[:2], [9, None], CFG, device="cpu")
     assert batch[0][1].to_bytes() == one[1].to_bytes()
     assert api.commit_and_prove(DATAS[1], None, CFG, device="cpu")[1].to_bytes() == batch[1][1].to_bytes()
     assert fri._GRAPHS.captures == captures and not fri._GRAPHS.keys
+
+
+class FakeCapture(fri._Instance):
+    """A stand-in for `fri._CommitGraph`, built as `_fri_commit_fn` builds
+    one: static (B, nw) words and (B, 2) seeds, and a run that writes the
+    seeds and runs the key's eager commit phase over its words on the CPU,
+    leased as a replay's is."""
+
+    def __init__(self, device, blobs, n_words, has_seed, commit, tables, warm):
+        self.words = torch.zeros((blobs, n_words), dtype=torch.int32)
+        self.seed = torch.zeros((blobs, 2), dtype=torch.int32) if has_seed else None
+        self.commit = commit
+
+    def run(self, seeds):
+        if self.seed is not None:
+            fri.write_seeds(self.seed, seeds)
+        out = self.commit(self.words, self.seed)
+        for c in out:
+            self.lend(c)
+        return out
+
+
+@pytest.mark.parametrize("seed", [9, None], ids=str)
+@pytest.mark.parametrize("entry", ["words", "bytes"])
+def test_one_blob_is_a_batch_of_one_under_one_key(monkeypatch, entry, seed):
+    """On a faked card (the device reads as cuda:0 where the dispatch
+    chooses, and the capture is a stand-in that runs eagerly on the CPU),
+    a one-blob dispatch from staged words or from host bytes takes one
+    graph key whose blob count is 1, and its one `Committed` equals row 0
+    of the eager batch of one: the same packed words and wire bytes, which
+    are commit_and_prove's. Its lease ends with its finish."""
+    cache = fri._GraphCache(8)
+    monkeypatch.setattr(fri, "_GRAPHS", cache)
+    monkeypatch.setattr(fri, "_card", lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(fri, "device_memory_bytes", lambda device: 1 << 40)
+    monkeypatch.setattr(fri, "_CommitGraph", FakeCapture)
+    log_total = log_total_for(len(DATAS[0]))
+    words = upload_words(DATAS[:1], log_total, "cpu")[1]
+    if entry == "words":
+        dispatched = fri.dispatch_words(words, log_total, [seed], CFG)
+    else:
+        dispatched = fri.dispatch_blobs(DATAS[:1], log_total, [seed], CFG, "cpu")
+    eager = fri.commit_phase(words, log_total, [seed], CFG)
+    assert len(dispatched) == len(eager) == 1 and torch.equal(dispatched[0].packed, eager[0].packed)
+    (key, (_, insts, _)), = cache.keys.items()
+    assert (key[5], key[6], key[-1]) == (seed is not None, torch.device("cuda", 0), 1)
+    assert len(insts) == cache.captures == 1
+    assert not insts[0].free
+    wire = fri.finish_proof(dispatched[0], log_total, CFG)[1].to_bytes()
+    assert insts[0].free and wire == fri.finish_proof(eager[0], log_total, CFG)[1].to_bytes()
+    assert wire == api.commit_and_prove(DATAS[0], seed, CFG, device="cpu")[1].to_bytes()

@@ -28,8 +28,11 @@ from frieda_tpu.utils.packing import pad_to_words as jpad_to_words  # noqa: E402
 from frieda_tpu_torch import api, ops  # noqa: E402
 from frieda_tpu_torch.config import PcsConfig  # noqa: E402
 from frieda_tpu_torch.core import circle as tcircle  # noqa: E402
-from frieda_tpu_torch.core import fri  # noqa: E402
+from frieda_tpu_torch.core import fft, fri  # noqa: E402
 from frieda_tpu_torch.core import merkle as tm  # noqa: E402
+from frieda_tpu_torch.ops import channel as channel_ops  # noqa: E402
+from frieda_tpu_torch.ops import fri as fri_ops  # noqa: E402
+from frieda_tpu_torch.ops import ingest as ingest_ops  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.utils import convert  # noqa: E402
 from frieda_tpu_torch.utils import profiling  # noqa: E402
@@ -125,11 +128,28 @@ def test_open_queries_checks_its_operands():
         merkle_ops.merkle_open_queries(tcols, trees, words, out=torch.empty(3, dtype=torch.int32))
 
 
+# Every kernel wrapper the prover calls, by module and name.
+DEVICE_STEPS = [(ingest_ops, "ingest"), (fft, "evaluate_auto"), (merkle_ops, "merkle_level"),
+                (merkle_ops, "merkle_collapse"), (merkle_ops, "merkle_open"), (merkle_ops, "merkle_open_queries"),
+                (fri_ops, "fri_fold"), (channel_ops, "transcript"), (channel_ops, "grind")]
+
+
+def refuse_device_steps(monkeypatch) -> None:
+    """Patch every wrapper of `DEVICE_STEPS` to raise; each keeps its launch
+    count for `ops.launch_counts`."""
+    for module, name in DEVICE_STEPS:
+        def refuse(*args, **kwargs):
+            raise AssertionError("finish_proof called a device step")
+
+        refuse.launches = getattr(getattr(module, name), "launches", 0)
+        monkeypatch.setattr(module, name, refuse)
+
+
 def _commit(case_cfg: dict, data: bytes, seed) -> tuple:
     cfg = PcsConfig.from_dict(case_cfg)
     log_total = log_total_for(len(data))
     words = from_numpy_u32(pad_to_words(data, log_total), "cpu")
-    return fri.commit_phase(words, log_total, seed, cfg), cfg, log_total
+    return fri.commit_phase(words[None], log_total, [seed], cfg)[0], cfg, log_total
 
 
 @pytest.mark.parametrize("name", ["dryrun_960B", "mid_4096B_lastlayer2"])
@@ -168,8 +188,8 @@ def test_packed_sections_match_jax_dispatch(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_finish_proof_fetches_once_and_launches_nothing(name, monkeypatch):
     """`finish_proof` after a commit phase: one device-to-host fetch (the
-    packed vector), no kernel launch, no step of its route called; the wire
-    bytes are the frozen proof's."""
+    packed vector), no kernel launch, no kernel wrapper called (each patched
+    to raise); the wire bytes are the frozen proof's."""
     case = CASES[name]
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     committed, cfg, log_total = _commit(case["config"], data, case["seed"])
@@ -179,13 +199,11 @@ def test_finish_proof_fetches_once_and_launches_nothing(name, monkeypatch):
         fetched.append(t.numel())
         return to_numpy_u32(t)
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("finish_proof called a device step")
-
     monkeypatch.setattr(fri, "to_numpy_u32", counting)
     monkeypatch.setattr(convert, "to_numpy_u32", counting)
+    refuse_device_steps(monkeypatch)
     before = ops.launch_counts()
-    com, proof = fri.finish_proof(committed, log_total, cfg, route=fri.Route(*[refuse] * len(fri.Route._fields)))
+    com, proof = fri.finish_proof(committed, log_total, cfg)
     assert fetched == [committed.layout.total] and ops.launch_counts() == before
     assert proof.to_bytes().hex() == case["wire_hex"] and com.hex() == case["commitment"]
 
@@ -251,7 +269,7 @@ def test_assembly_picks_the_first_draw_of_each_position():
             for b in layout.auth_off[t]:  # the (8, nq) nodes
                 for w in range(8):
                     vec[b + w * nq + at] = 0x5A5A5A5A
-        c2.packed = from_numpy_u32(vec, "cpu")
+        c2.batch = (fri.BatchFetch(from_numpy_u32(vec, "cpu")[None]), 0)
         got = fri.finish_proof(c2, log_total, cfg)[1].to_bytes()
         assert (got == want) == same
 

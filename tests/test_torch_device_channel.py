@@ -284,7 +284,7 @@ def test_commit_phase_outputs_match_jax_and_the_host_transcript(name):
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     log_total = log_total_for(len(data))
     words = from_numpy_u32(pad_to_words(data, log_total), "cpu")
-    committed = fri.commit_phase(words, log_total, case["seed"], cfg)
+    committed = fri.commit_phase(words[None], log_total, [case["seed"]], cfg)[0]
     assert committed._host is None  # nothing fetched yet
     head = _jax_head(case)
     packed = to_numpy_u32(committed.packed)
@@ -347,7 +347,7 @@ def test_a_last_layer_above_its_bound_raises_in_finish_proof(monkeypatch):
 
     monkeypatch.setattr(fri, "fold_l", breaking_fold)
     words = from_numpy_u32(pad_to_words(data, log_total), "cpu")
-    committed = fri.commit_phase(words, log_total, 1, cfg)
+    committed = fri.commit_phase(words[None], log_total, [1], cfg)[0]
     with pytest.raises(AssertionError, match="degree bound"):
         fri.finish_proof(committed, log_total, cfg)
     with pytest.raises(AssertionError, match="degree bound"):

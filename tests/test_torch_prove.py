@@ -15,13 +15,12 @@ import pathlib  # noqa: E402
 
 import torch  # noqa: E402
 
-from chip_smoke import PROVE_ANCHORS, plain_route, synthetic_data  # noqa: E402
+from chip_smoke import PROVE_ANCHORS, synthetic_data  # noqa: E402
 from frieda_tpu import api as japi  # noqa: E402
 from frieda_tpu.config import PcsConfig as JPcsConfig  # noqa: E402
 from frieda_tpu.core.proof import Proof as JProof  # noqa: E402
 from frieda_tpu_torch import api  # noqa: E402
 from frieda_tpu_torch.config import PcsConfig  # noqa: E402
-from frieda_tpu_torch.core import fri  # noqa: E402
 from frieda_tpu_torch.core.proof import Proof  # noqa: E402
 from frieda_tpu_torch.utils.convert import from_numpy_u32  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words  # noqa: E402
@@ -76,22 +75,6 @@ def test_generate_proof_and_staged_entry_give_the_same_proof():
     com, staged = api.commit_and_prove_staged(words, log_total, case["seed"], cfg)
     assert staged.to_bytes() == proof.to_bytes() == bytes.fromhex(case["wire_hex"])
     assert com.hex() == case["commitment"]
-
-
-def test_plain_route_gives_the_same_proof_and_stage_stats():
-    """chip_smoke.py's plain route through the same pipeline (on the card it
-    is the yardstick of the kernel route), and the stage timer's keys."""
-    case = BY_NAME["mid_4096B_lastlayer2"]
-    data = synthetic_data(case["data_len"], case["data_seed_offset"])
-    log_total = log_total_for(len(data))
-    words = from_numpy_u32(pad_to_words(data, log_total), "cpu")
-    stats = {}
-    _, proof = fri.prove_words(words, log_total, case["seed"],
-                               PcsConfig.from_dict(case["config"]), route=plain_route(), stats=stats)
-    assert proof.to_bytes().hex() == case["wire_hex"]
-    assert set(stats["stage_s"]) == {"lde_trees", "transcript", "folds", "grind", "decommit_gather",
-                                     "decommit_assemble"}
-    assert not any(stats["stage_launches"]["decommit_assemble"].values())
 
 
 def test_proof_bytes_round_trip_through_both_packages():

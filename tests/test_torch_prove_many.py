@@ -68,7 +68,7 @@ def test_window_orders_commit_phases_and_decommitments(monkeypatch):
 
     def commit_rec(*args, **kwargs):
         c = commit(*args, **kwargs)
-        events.append(("commit", c.roots[0]))
+        events.extend(("commit", row.roots[0]) for row in c)
         return c
 
     def finish_rec(c, *args, **kwargs):

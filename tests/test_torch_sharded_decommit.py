@@ -23,6 +23,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import synthetic_data  # noqa: E402
+from test_torch_decommit import refuse_device_steps  # noqa: E402
 from frieda_tpu.config import PcsConfig as JPcsConfig  # noqa: E402
 from frieda_tpu.core import fri as jfri  # noqa: E402
 from frieda_tpu.parallel import sharding as jsharding  # noqa: E402
@@ -196,7 +197,7 @@ def test_whole_tree_reassembles_the_levels():
 def _prove(data: bytes, seed, cfg: PcsConfig, mesh=None, row: int = 0) -> fri.Committed:
     words, log_total = _words(data)
     if mesh is None:
-        return fri.commit_phase(words, log_total, seed, cfg)
+        return fri.commit_phase(words[None], log_total, [seed], cfg)[0]
     return fri.commit_phase_sharded(words, log_total, seed, cfg, mesh, row)
 
 
@@ -224,57 +225,54 @@ def test_sharded_packed_equals_single_device(name, mesh_shape, row):
 
 def test_sharded_finish_fetches_once_and_calls_no_device_step(monkeypatch):
     """`finish_proof` after the sharded commit phase: one device-to-host
-    fetch (the packed vector), no kernel launch and no step of its route
-    (`route.open` included) called; the wire bytes are the frozen proof's."""
+    fetch (the packed vector), no kernel launch and no kernel wrapper
+    (`merkle_open` included) called; the wire bytes are the frozen proof's."""
     case = CASES["dryrun_960B"]
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     cfg = PcsConfig.from_dict(case["config"])
     c = _prove(data, case["seed"], cfg, _mesh(1, 8))
-    fetched, called = [], []
+    fetched = []
 
     def counting(t):
         fetched.append(t.numel())
         return to_numpy_u32(t)
 
-    def refuse(*args, **kwargs):
-        called.append(args)
-        raise AssertionError("finish_proof called a device step")
-
     monkeypatch.setattr(fri, "to_numpy_u32", counting)
     monkeypatch.setattr(convert, "to_numpy_u32", counting)
+    refuse_device_steps(monkeypatch)
     before = ops.launch_counts()
-    com, proof = fri.finish_proof(c, log_total_for(len(data)), cfg, route=fri.Route(*[refuse] * len(fri.Route._fields)))
-    assert fetched == [c.layout.total] and not called and ops.launch_counts() == before
+    com, proof = fri.finish_proof(c, log_total_for(len(data)), cfg)
+    assert fetched == [c.layout.total] and ops.launch_counts() == before
     assert proof.to_bytes().hex() == case["wire_hex"] and com.hex() == case["commitment"]
 
 
-def test_sharded_opening_keeps_its_bytes():
+def test_sharded_opening_keeps_its_bytes(monkeypatch):
     """`merkle.ShardedOpening` after the fetch gives the same proof bytes:
     set on a one-block row's `Committed` (its gathers then unread; one
-    `route.open` for its one device), and as the decommitment of a row of
+    `merkle_open` for its one device), and as the decommitment of a row of
     several blocks (its shards on devices that differ: "cpu" and "cpu:0"),
     whose commit phase packs the head alone."""
     case = CASES["dryrun_960B"]
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     cfg = PcsConfig.from_dict(case["config"])
     log_total = log_total_for(len(data))
-    opens = []
+    opens, merkle_open = [], merkle_ops.merkle_open
 
     def counted_open(*args):
         opens.append(len(args[0]))
-        return merkle_ops.merkle_open(*args)
+        return merkle_open(*args)
 
-    route = fri.KERNELS._replace(open=counted_open)
+    monkeypatch.setattr(merkle_ops, "merkle_open", counted_open)
     c = _prove(data, case["seed"], cfg, _mesh(1, 8))
     c.opening_cls = merkle.ShardedOpening
-    assert fri.finish_proof(c, log_total, cfg, route)[1].to_bytes().hex() == case["wire_hex"]
+    assert fri.finish_proof(c, log_total, cfg)[1].to_bytes().hex() == case["wire_hex"]
     assert len(opens) == 1
     split = sharding.make_mesh(1, 8, devices=["cpu", "cpu:0"] * 4)
     assert len(split.blocks(0)) == 8
     c = _prove(data, case["seed"], cfg, split)
     assert c.opening_cls is merkle.ShardedOpening and not c.layout.pair_off
     assert c.layout.total == c.layout.head_words
-    assert fri.finish_proof(c, log_total, cfg, route)[1].to_bytes().hex() == case["wire_hex"]
+    assert fri.finish_proof(c, log_total, cfg)[1].to_bytes().hex() == case["wire_hex"]
     assert len(opens) == 3  # one a device
 
 

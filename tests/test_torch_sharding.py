@@ -251,7 +251,7 @@ def test_sharded_commit_phase_shards_every_wide_layer():
             assert layer.shape[1] < 2 * S and isinstance(tree, merkle.PrunedTree)
     assert widths == [("sharded", 1 << k) for k in range(10, 3, -1)] + [("replicated", 8)]
     assert [r.hex() for r in c.roots] == [r.hex() for r in fri.commit_phase(
-        words, log_total, 42, PROVE_CFG).roots]
+        words[None], log_total, [42], PROVE_CFG)[0].roots]
 
 
 def test_prove_many_sharded_matches_single_device_and_frozen():

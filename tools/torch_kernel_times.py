@@ -255,7 +255,8 @@ def time_open(dev) -> None:
         cfg = PcsConfig(pow_bits=20, fri_config=FriConfig(4, 0, nq))
         data = synthetic_data(felt_bytes(log_felts))
         log_total = log_total_for(len(data))
-        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev), log_total, 7, cfg)
+        committed = fri.commit_phase(from_numpy_u32(pad_to_words(data, log_total), dev)[None], log_total, [7],
+                                     cfg)[0]
         if hasattr(merkle_ops, "merkle_open_queries"):
             o = committed.layout.head["qpos"][0]
             args = (committed.layers, committed.trees, committed.packed[o : o + nq])

@@ -8,7 +8,7 @@ the records of its CUDA graph's replay in a torch.profiler trace.
 
 For the staged proofs of chip_smoke.py phase 9 (2^20 felts / 64 queries and
 2^24 felts / 20 queries, pow_bits 20, log_blowup 4, seed 7): three warm
-proofs through `fri.dispatch_commit_phase`, then N replays (default 7),
+proofs through `fri.dispatch_words`, then N replays (default 7),
 each counted in a `torch.profiler` trace of its own (the device's activity
 only) behind a warm replay (chip_smoke.py's `traced_run`) and finished
 after it. Per cell: the median over the replays of the span from
@@ -68,11 +68,12 @@ def split(root: pathlib.Path, replays: int) -> None:
         log_total = log_total_for(len(data))
         words = from_numpy_u32(pad_to_words(data, log_total), dev)
         for _ in range(3):
-            fri.finish_proof(fri.dispatch_commit_phase(words, log_total, 7, cfg), log_total, cfg)
+            fri.finish_proof(fri.dispatch_words(words[None], log_total, [7], cfg)[0], log_total, cfg)
         spans, runs = [], []
         for _ in range(replays):
-            prof, committed = cs.traced_run(lambda: fri.dispatch_commit_phase(words, log_total, 7, cfg),  # noqa: B023
-                                            lambda c: fri.finish_proof(c, log_total, cfg))  # noqa: B023
+            prof, committed = cs.traced_run(
+                lambda: fri.dispatch_words(words[None], log_total, [7], cfg)[0],  # noqa: B023
+                lambda c: fri.finish_proof(c, log_total, cfg))  # noqa: B023
             fri.finish_proof(committed, log_total, cfg)
             events = cs.counted_events(prof)
             if not events:

@@ -60,7 +60,7 @@ def cells(cs, dev):
     words = from_numpy_u32(pad_to_words(data, log24), dev)
     mesh8 = sharding.make_mesh(1, 8, devices=[dev] * 8)
     for name, mesh in (("2^24 felts / 20 q", None), ("2^24 felts / 20 q over 8 virtual shards", mesh8)):
-        out.append((name, lambda mesh=mesh: fri.dispatch_commit_phase(words, log24, 7, cfg24, mesh),
+        out.append((name, lambda mesh=mesh: fri.dispatch_words(words[None], log24, [7], cfg24, mesh)[0],
                     lambda c: fri.finish_proof(c, log24, cfg24)[1].to_bytes(), lambda c: c._lease.launches))
     cfg20 = PcsConfig(pow_bits=20, fri_config=FriConfig(cs.LOG_BLOWUP, 0, 64))
     datas = [cs.synthetic_data(cs.felt_bytes(20), k) for k in range(8)]
@@ -68,7 +68,7 @@ def cells(cs, dev):
     _, words8 = upload_words(datas, log20, dev)
 
     def batched():
-        inst = fri._fri_commit_fn(log20, cfg20, True, dev, batch=8)  # captured on the cell's first call
+        inst = fri._fri_commit_fn(log20, cfg20, True, dev, blobs=8)  # captured on the cell's first call
         inst.words.copy_(words8)
         return inst.run(list(range(1, 9)))
 
