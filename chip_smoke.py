@@ -51,7 +51,10 @@ Phases, each printed as it runs:
      same words at the same proofs' layers element-sharded over one mesh
      row on the card (2^24 / 20 q over S = 8, 2^20 / 64 q on row 1 of a
      (2, 4) mesh; the sharded commit phase's packed vector == one device's,
-     its gathers == plain and == one device's); `fri_fold`, circle and line, at (4, 2^26), at
+     its gathers == plain and == one device's); `order_openings` over the
+     same proofs' gathers of the raw and the repeated words (== plain, and
+     over the raw words == the decommitment the commit phase packs), timed
+     with its bound; `fri_fold`, circle and line, at (4, 2^26), at
      the proof's first line fold (4, 2^25) and at (4, 2^7), under one block,
      and timed at each of the 2^24-felt proof's 22 folds (with their sum);
      `transcript`, every step (seed, root and alpha, last-layer felts, nonce
@@ -106,8 +109,9 @@ Phases, each printed as it runs:
      `portbench/reference/fri.prove`'s for the same blob and seed; the
      median prove time of three runs of a dispatch and its `finish_proof`,
      the decommitment's launches counted around each (`ops.launch_counts`),
-     kernel launches per proof (`merkle_open_queries` once, in the commit
-     phase, `merkle_open` never, nothing in `finish_proof`;
+     kernel launches per proof (`merkle_open_queries` and `order_openings`
+     once, in the commit phase, `merkle_open` never, nothing in
+     `finish_proof`;
      `fri_fold` once a layer, `transcript` twice, a channel step in each
      layer's collapse (`merkle_collapse.steps` == layers), `grind` once) and
      peak device
@@ -126,7 +130,9 @@ Phases, each printed as it runs:
      rejects a tampered copy, with verify's host ms (median of 5); ten whole
      proves with the spans (`utils/profiling.span`)
      and ten with a no-op in their place, in turns, the median of the first
-     beside the spread of the second, and an empty span's host cost; at
+     beside the spread of the second, the host's `assemble/select` ms a
+     proof over them (`profiling.span_totals`) with `fri.select_counts()`
+     (every proof cut from its ordered row), and an empty span's host cost; at
      2^20 felts a torch.profiler trace of `api.commit`,
      `api.commit_and_prove`, the staged prove and `api.verify` on the card
      holds every span name (`SPANS`), with `packing.copy_counts()` over its
@@ -134,8 +140,8 @@ Phases, each printed as it runs:
  10. every kernel's launch count over each path: the commit phases (4-5,
      checked there), `commit_many` (6), `commit_with_tree` (7, the one-level
      `merkle_level` forms) and the prove phases (8-9): each must be > 0,
-     except `merkle_open`, `merkle_open_queries`, `fri_fold`, `transcript`
-     and `grind` outside a proof, `merkle_open` (the sharded decommitment,
+     except `merkle_open`, `merkle_open_queries`, `order_openings`,
+     `fri_fold`, `transcript` and `grind` outside a proof, `merkle_open` (the sharded decommitment,
      phase 12) in the single-device proofs and `merkle_collapse` in
      `commit_with_tree`;
  11. `api.prove_many` on 8 blobs of 2^20 felts (64 queries, seeds 1-8): every
@@ -219,7 +225,8 @@ Phases, each printed as it runs:
      minimum and its one-blob launch's, each case's device ms, share, plan
      and registers, 8 and 64 channels beside as many one-channel launches,
      the SM clock beside the 8; `merkle_open_queries`
-     over the batch's real layers, == the batch's packed gathers, every
+     over the batch's real layers, its `order_openings` == plain == the
+     batch's packed decommitment, every
      packed row == its blob's batch of one's), each timed at B = 8 beside 8 one-blob
      launches and its bound; `prove_many_sharded` of 8 x 2^20 / 64 q over the
      card's (8, 1) and (2, 4) meshes: bytes == phase 11's, verify True,
@@ -235,7 +242,13 @@ Phases, each printed as it runs:
      against 8 single replays, a trace of one batched replay behind a warm
      one holding each recorded launch, and whole-call ms of
      `prove_many_sharded` against `prove_many` (median of 5 in turns), idle
-     share and peak memory of one profiled call each.
+     share and peak memory of one profiled call each, the host's
+     `assemble/select` ms a blob in each and `fri.select_counts()` (every
+     proof cut from its ordered row); then a block at `frida-4844-r2`'s
+     shape (9 blobs of 131,072 bytes, log_blowup 1, 70 queries, pow_bits
+     20) through `prove_many_sharded` on a one-card mesh, 5 calls: roots
+     and wire bytes == `portbench/reference/fri.prove`'s, every proof cut,
+     `assemble/select` ms a blob and `batch/finish` ms a block.
 
 Any mismatch, build failure or launch error exits nonzero. The last line is
 `{"ok": true, "device": {...}}`; the line before it lists the kernels as JSON,
@@ -347,7 +360,8 @@ P = (1 << 31) - 1
 # from utils/profiling.
 EARLIER_BOUNDS = {"ingest": 0.0388, "fft_pass": 0.1404, "fft_exchange": 0.1603, "merkle_level": 0.9046,
                   "merkle_collapse": 0.000118, "merkle_open": 0.000235, "fri_fold": 0.5208,
-                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None, "merkle_collapse+step": None,
+                  "transcript": 5.8e-8, "grind": 0.0427, "merkle_open_queries": None, "order_openings": None,
+                  "merkle_collapse+step": None,
                   **dict.fromkeys(("fri_fold[batch]", "transcript[batch]", "grind[batch]",
                                    "merkle_collapse+step[batch]", "merkle_open_queries[batch]"))}
 # The kernels line's entry for merkle_collapse launches that carry a layer's
@@ -856,10 +870,35 @@ def main() -> int:
             check(torch.equal(got, want), f"merkle_open_queries at the 2^{log_felts}-felt proof's "
                   f"{'repeated ' if words_ is repeated else ''}query words differs from plain")
             err = max(err, max_abs_err(got, want))
-        o_gather = committed.layout.pair_off[0]
-        check(torch.equal(merkle_ops.merkle_open_queries(committed.layers, committed.trees, raw),
-                          committed.packed[o_gather:]),
-              f"merkle_open_queries at 2^{log_felts} felts != the gathers the commit phase packed")
+        # order_openings over those gathers, the raw words and the repeats: == plain, and over the raw
+        # words == the ordered decommitment the commit phase packed after its head
+        sizes, err_o = committed.layout.sizes, 0
+        for words_ in (raw, repeated):
+            o_args = (merkle_ops.merkle_open_queries(committed.layers, committed.trees, words_), words_, sizes)
+            got_o, want_o = merkle_ops.order_openings(*o_args), narrow(merkle_ops.order_openings_plain(*o_args))
+            err_o = max(err_o, max_abs_err(got_o, want_o))
+            check(torch.equal(got_o, want_o),
+                  f"order_openings at the 2^{log_felts}-felt proof's {'repeated ' if words_ is repeated else ''}"
+                  "query words differs from plain")
+        o_args = (merkle_ops.merkle_open_queries(committed.layers, committed.trees, raw), raw, sizes)
+        check(torch.equal(merkle_ops.order_openings(*o_args), committed.packed[committed.layout.head_words :]),
+              f"order_openings at 2^{log_felts} felts != the decommitment the commit phase packed")
+        o_ms = device_ms(lambda: merkle_ops.order_openings(*o_args))  # noqa: B023
+        o_call = cuda_ms(lambda: merkle_ops.order_openings(*o_args))  # noqa: B023
+        o_plain = cuda_ms(lambda: merkle_ops.order_openings_plain(*o_args), reps=3)  # noqa: B023
+        counts = to_numpy_u32(committed.packed[committed.layout.head_words :][: 1 + 2 * len(sizes)]).astype(int)
+        n_values, n_nodes = counts[0] + counts[1 : 1 + len(sizes)].sum(), counts[1 + len(sizes) :].sum()
+        b_ms, b_by = profiling.order_openings_bound(nq, n_values, n_nodes, got_o.numel())
+        say(f"[3] order_openings, 2^{log_felts}-felt / {nq}-query proof: bit-equal to plain over the raw words "
+            f"and the copy with repeats, == the commit phase's packed decommitment ({got_o.numel()} words: "
+            f"{counts[0]} evaluations, {n_values - counts[0]} witness values, {n_nodes} nodes); device "
+            f"{o_ms:.4f} ms, call {o_call:.4f} ms, plain {o_plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}; share "
+            f"{b_ms / o_ms:.3f})")
+        if log_felts == 20:
+            kernels["order_openings"] = dict(
+                source="frieda_tpu_torch/csrc/merkle.cu",
+                replaces="frieda_tpu/core/fri.py:_finish_proof's selection (numpy on the host there)",
+                max_abs_err=err_o, ms=o_ms, call_ms=o_call, plain_ms=o_plain, bound_ms=b_ms, bound_by=b_by)
         q_args = (committed.layers, committed.trees, raw)
         ms = device_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
         call = cuda_ms(lambda: merkle_ops.merkle_open_queries(*q_args))  # noqa: B023
@@ -872,7 +911,7 @@ def main() -> int:
             f"{2 * nq * len(committed.layers)} pair reads, {node_reads} node reads, {compressions} distinct "
             f"compressions, "
             f"{4 * out_words} bytes out, {read_bytes} distinct bytes read): bit-equal over the raw words "
-            f"and over a copy with 4 repeated words, == the commit phase's packed gathers; device {ms:.4f} ms, "
+            f"and over a copy with 4 repeated words; device {ms:.4f} ms, "
             f"call {call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; share "
             f"{b_ms / ms:.3f}); chain floor {gap_ms:.4f} + 3 x {level_ms:.4f} = {gap_ms + 3 * level_ms:.4f} ms")
         if log_felts == 20:
@@ -914,7 +953,7 @@ def main() -> int:
             f"distinct bytes read): bit-equal to plain over the raw words and the copy with repeats, == one "
             f"device's gathers; device {ms:.4f} ms, call {call:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}; share {b_ms / ms:.3f})")
-        del committed, args, got, want, table, raw, repeated, q_args, s_args, sharded, mesh
+        del committed, args, got, want, table, raw, repeated, q_args, s_args, sharded, mesh, o_args, got_o
         torch.cuda.empty_cache()
     # fri_fold: circle and line at (4, 2^26), the proof's first line fold
     # (4, 2^25) and a width under one block; then timed at each of the
@@ -1239,7 +1278,8 @@ def main() -> int:
     commit_counts = ops.launch_counts()
     check(collapse_steps() == 0, f"the commit phases 4-5 ran {collapse_steps()} channel steps")
     say(f"[5] kernel launches in the commit phases 4-5: {commit_counts}; channel steps 0")
-    prove_only = {"merkle_open", "merkle_open_queries", "fri_fold", "transcript", "grind"}  # a proof's
+    # a proof's kernels
+    prove_only = {"merkle_open", "merkle_open_queries", "order_openings", "fri_fold", "transcript", "grind"}
     prove_only |= {"fft_exchange"}  # and the sharded path's exchange stages (phase 12)
     for name, count in commit_counts.items():
         check(count > 0 or name in prove_only, f"kernel {name} was never launched by the commit path")
@@ -1443,7 +1483,8 @@ def main() -> int:
         # every tree (2^5 leaves and more) ends in a collapse, which carries
         # its layer's channel step: 2 transcript launches close the proof
         check(per_proof["fri_fold"] == layers and per_proof["transcript"] == 2 and per_proof[STEPS] == layers
-              and per_proof["grind"] == 1 and per_proof["merkle_open_queries"] == 1 and per_proof["merkle_open"] == 0,
+              and per_proof["grind"] == 1 and per_proof["merkle_open_queries"] == 1 and per_proof["merkle_open"] == 0
+              and per_proof["order_openings"] == 1,
               f"2^{log_felts}-felt proof: launches {per_proof} for {layers} layers")
         # the warm commit phase waits for nothing; then one fetch
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1484,21 +1525,24 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             check(proof.to_bytes() == wire, f"2^{log_felts}-felt proof changed between runs")
-            gathered = {k: between[k] - before[k] for k in ("merkle_open_queries", "merkle_open")
+            gathered = {k: between[k] - before[k] for k in ("merkle_open_queries", "order_openings", "merkle_open")
                         if between[k] != before[k]}
             assembled = {k: v - between[k] for k, v in ops.launch_counts().items() if v != between[k]}
-            check(gathered == {"merkle_open_queries": 1} and not assembled,
+            check(gathered == {"merkle_open_queries": 1, "order_openings": 1} and not assembled,
                   f"2^{log_felts}-felt proof: the decommitment launched {gathered} in the commit phase, "
                   f"{assembled} in finish_proof")
         del committed
         say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, pow 20 (a dispatch, then finish_proof): median "
             f"{statistics.median(walls) * 1e3:.3f} ms of {[round(w * 1e3, 3) for w in walls]}; "
             f"kernel launches per proof {per_proof} (the decommitment: merkle_open_queries "
-            f"{gathered['merkle_open_queries']} in the commit phase, nothing in finish_proof); "
+            f"{gathered['merkle_open_queries']} and order_openings {gathered['order_openings']} in the commit "
+            f"phase, nothing in finish_proof); "
             f"peak device memory allocated {peak} bytes = {peak / 2**30:.3f} GiB (everything live: the graph "
             f"instances' outputs, tables, words, the decommitment), reserved {reserved / 2**30:.3f} GiB (the "
             f"instances' pools of every key so far included); proof {wire_note(warm)}")
         whole = {"on": [], "off": []}
+        profiling.reset_span_totals()
+        fri.reset_select_counts()
         for kind in ("on", "off", "off", "on") * 5:  # the commit phase runs ahead of the host
             with contextlib.nullcontext() if kind == "on" else no_spans(fri):
                 torch.cuda.synchronize()
@@ -1511,6 +1555,15 @@ def main() -> int:
             with profiling.span("chip_smoke/empty"):
                 pass
         span_us = (time.perf_counter() - t0) / 10_000 * 1e6
+        select = profiling.span_totals()["assemble/select"]
+        proofs = len(whole["on"]) + len(off)
+        check(select.count == len(whole["on"]) and fri.select_counts() == {"cut": proofs, "planned": 0},
+              f"2^{log_felts}-felt staged proves: {select.count} assemble/select spans, select_counts "
+              f"{fri.select_counts()}; want {len(whole['on'])} spans (the spans-on turns) and all {proofs} proofs "
+              "cut from their ordered rows")
+        say(f"[9] staged prove 2^{log_felts} felts, {nq} queries: assemble/select "
+            f"{select.seconds / select.count * 1e3:.4f} ms a proof over the {select.count} spans-on turns (profiling.span_totals); select_counts "
+            f"{fri.select_counts()}")
         say(f"[9] staged prove 2^{log_felts} felts, {nq} queries, in turns: spans on, median "
             f"{on:.3f} ms of {[round(w, 3) for w in whole['on']]}; spans off (utils/profiling.span a no-op), "
             f"median {statistics.median(off):.3f} ms of {[round(w, 3) for w in off]}; the median with spans "
@@ -1797,10 +1850,10 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     folds = log_total - 2
     launched_all_but_exchange(used, "sharded_commit_and_prove 2^24 felts over S = 8")
     check(used["fri_fold"] == folds and used["transcript"] == 2 and used.get(STEPS) == folds and used["grind"] == 1
-          and used["merkle_open_queries"] == 1 and used["ingest"] == 1,
+          and used["merkle_open_queries"] == 1 and used["order_openings"] == 1 and used["ingest"] == 1,
           f"sharded_commit_and_prove 2^24 felts over S = 8: launches {used}, want fri_fold {folds} (a block of "
           f"8 shards in one launch a fold; {8 * folds} before), transcript 2, channel steps {folds} (every "
-          "layer's on its top tree's collapse), grind, merkle_open_queries and ingest 1")
+          "layer's on its top tree's collapse), grind, merkle_open_queries, order_openings and ingest 1")
     syncs, finished, opened = finish_counted(fri, fri.dispatch_words(words[None], log_total, [7], cfg, mesh8)[0],
                                              log_total, cfg)
     check(syncs == 0 and not opened and finished == wire24, f"the sharded proof's finish_proof after its "
@@ -1871,9 +1924,9 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     folds = log_total_for(len(datas[0])) - 2
     launched_all_but_exchange(used, "prove_many_sharded 8 x 2^20 felts over (2, 4)")
     check(used["fri_fold"] == 2 * folds and used["grind"] == 2 and used["merkle_open_queries"] == 2
-          and used["transcript"] == 4 and used.get(STEPS) == 2 * folds,
-          f"prove_many_sharded: launches {used}, want for its two dispatches fri_fold {2 * folds}, grind and "
-          f"merkle_open_queries 2, transcript 4, channel steps {2 * folds}")
+          and used["order_openings"] == 2 and used["transcript"] == 4 and used.get(STEPS) == 2 * folds,
+          f"prove_many_sharded: launches {used}, want for its two dispatches fri_fold {2 * folds}, grind, "
+          f"merkle_open_queries and order_openings 2, transcript 4, channel steps {2 * folds}")
     log_total20 = log_total_for(len(datas[1]))
     syncs, opened = 0, {}
     for b, c in enumerate(fri.dispatch_blobs(datas, log_total20, seeds, cfg64, dev)):
@@ -1894,7 +1947,8 @@ def sharded_phase(dev, anchor24: str, wire24: bytes, many_out: list, roots20: li
     check(not api.verify(tampered(out_blob[0][1]), seeds[0]), "a tampered prove_many_per_blob proof verifies")
     launched_all_but_exchange(used_blob, "prove_many_per_blob 8 x 2^20 felts over (2, 4)")
     check(used_blob["fri_fold"] == len(datas) * folds and used_blob["grind"] == len(datas)
-          and used_blob["merkle_open_queries"] == len(datas) and used_blob["transcript"] == 2 * len(datas)
+          and used_blob["merkle_open_queries"] == len(datas) and used_blob["order_openings"] == len(datas)
+          and used_blob["transcript"] == 2 * len(datas)
           and used_blob.get(STEPS) == len(datas) * folds,
           f"prove_many_per_blob: launches {used_blob}, want fri_fold {len(datas) * folds} (a block's 4 shards "
           f"in one launch a fold), grind and merkle_open_queries {len(datas)}, transcript {2 * len(datas)}, "
@@ -2487,9 +2541,11 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
         raw = packed[:, o : o + 64].contiguous()
         got = merkle_ops.merkle_open_queries(cols, trees, raw)
         want = narrow(merkle_ops.merkle_open_queries_plain(cols, trees, raw))
-        check(torch.equal(got, want) and torch.equal(got, packed[:, cs[0].layout.head_words :]),
-              f"merkle_open_queries B = {B} differs from a loop of the plain version or from the batch's packed "
-              "gathers")
+        ordered = merkle_ops.order_openings(got, raw, cs[0].layout.sizes)
+        check(torch.equal(got, want) and torch.equal(ordered, packed[:, cs[0].layout.head_words :])
+              and torch.equal(ordered, narrow(merkle_ops.order_openings_plain(got, raw, cs[0].layout.sizes))),
+              f"merkle_open_queries B = {B} differs from a loop of the plain version, or its order_openings from "
+              "plain or from the batch's packed decommitment")
         errs["merkle_open_queries[batch]"] = max(errs["merkle_open_queries[batch]"], max_abs_err(got, want))
         for b, c in enumerate(cs):  # each row == the packed vector of its blob's batch of one
             single = fri.commit_phase(words[b : b + 1], log_total, seeds[b : b + 1], cfg)[0]
@@ -2509,10 +2565,11 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
                 f"{call:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {compressions} "
                 f"compressions, {read_bytes} distinct bytes read); 8 single launches device {singles:.4f} ms")
             del rows, q_args
-        del cs, cols, trees, packed, raw, got, want, words
+        del cs, cols, trees, packed, raw, got, want, words, ordered
         torch.cuda.empty_cache()
     say("[14] merkle_open_queries B = 1, 3, 8 over commit_phase's layers and trees: bit-equal to a loop "
-        "of the plain version and to the batch's packed gathers; every packed row == a batch of one's")
+        "of the plain version; order_openings of those gathers == plain == the batch's packed decommitment; "
+        "every packed row == a batch of one's")
     lap_ms = (time.perf_counter() - t_phase)
     say(f"[14] kernels checked in {lap_ms:.1f} s")
 
@@ -2578,7 +2635,7 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     finally:
         fri._CommitGraph.run, fri.dispatch_blobs = run, dispatch
     want_used = {"fri_fold": 2 * layers, "transcript": 4, STEPS: 2 * layers, "grind": 2, "merkle_open_queries": 2,
-                 "ingest": 2}
+                 "order_openings": 2, "ingest": 2}
     check(all(main_used.get(k) == v for k, v in want_used.items())
           and all(4 * main_used.get(k, 0) == v for k, v in single_used.items()),
           f"prove_many_sharded launches per call {main_used}: want {want_used} and 1/4 of 8 single replays' "
@@ -2668,13 +2725,22 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
     mesh = sharding.make_mesh(8, 1, devices=[dev] * 8)
     calls = {"prove_many": lambda: api.prove_many(datas, seeds, cfg, device=dev),
              "prove_many_sharded": lambda: sharding.prove_many_sharded(datas, seeds, cfg, mesh)}
-    walls = {k: [] for k in calls}
+    walls, selects = {k: [] for k in calls}, {k: [0, 0.0] for k in calls}
+    fri.reset_select_counts()
     for kind in ("prove_many", "prove_many_sharded", "prove_many_sharded", "prove_many") * 2 + (
             "prove_many", "prove_many_sharded"):
         torch.cuda.synchronize()
+        profiling.reset_span_totals()
         t0 = time.perf_counter()
         calls[kind]()
         walls[kind].append((time.perf_counter() - t0) * 1e3)
+        select = profiling.span_totals()["assemble/select"]
+        selects[kind] = [selects[kind][0] + select.count, selects[kind][1] + select.seconds]
+    check(fri.select_counts() == {"cut": 10 * len(datas), "planned": 0},
+          f"whole calls: select_counts {fri.select_counts()}; want every one of {10 * len(datas)} proofs cut")
+    say(f"[14] assemble/select of the whole calls (profiling.span_totals): "
+        f"{({k: round(sec / n * 1e3, 4) for k, (n, sec) in selects.items()})} ms a blob; select_counts "
+        f"{fri.select_counts()}")
     notes = {}
     for kind, fn in calls.items():
         torch.cuda.synchronize()
@@ -2701,8 +2767,53 @@ def batched_phase(dev, kernels: dict, many_out: list | None = None) -> dict:
             f"{e['bound_ms'] / e['ms']:.3f}); launches on the main path (the counted prove_many_sharded, two "
             f"dispatches) "
             f"{main_used.get(BATCH_FORMS[form][0], 0)}")
+    block_select(dev)
     say(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return main_used
+
+
+def block_select(dev) -> None:
+    """An Ethereum block at `frida-4844-r2`'s shape (9 blobs of 131,072 bytes,
+    log_blowup 1, 70 queries; pow_bits 20, so that the reference grinds in
+    seconds) through `prove_many_sharded` on a one-card mesh, 5 times:
+    roots and wire bytes == `portbench/reference/fri.prove`'s, every proof
+    cut from its ordered row, and the host's assemble/select ms a blob."""
+    import torch
+
+    from frieda_tpu_torch.config import PcsConfig
+    from frieda_tpu_torch.core import fri
+    from frieda_tpu_torch.parallel import sharding
+    from frieda_tpu_torch.parallel.mesh import Mesh
+    from frieda_tpu_torch.utils import profiling
+    from portbench.reference import fri as ref
+
+    cfg = PcsConfig.from_dict({"pow_bits": 20, "fri_config": {"log_blowup_factor": 1, "log_last_layer_degree_bound": 0,
+                                                              "n_queries": 70}})
+    datas = [synthetic_data(131072, 300 + k) for k in range(9)]
+    seeds = [(0x9E3779B97F4A7C15 * (k + 1)) % (1 << 64) for k in range(9)]
+    mesh = Mesh(1, 1, [dev])
+    out = sharding.prove_many_sharded(datas, seeds, cfg, mesh)  # warm-up: tables, the two dispatches' captures
+    fri.reset_select_counts()
+    profiling.reset_span_totals()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = sharding.prove_many_sharded(datas, seeds, cfg, mesh)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check([(c, p.to_bytes()) for c, p in again] == [(c, p.to_bytes()) for c, p in out],
+              "a 9-blob block's proofs changed between calls")
+    select, finish = profiling.span_totals()["assemble/select"], profiling.span_totals()["batch/finish"]
+    check(fri.select_counts() == {"cut": 45, "planned": 0}, f"9-blob block: select_counts {fri.select_counts()}")
+    t0 = time.perf_counter()
+    want = ref.prove(datas, seeds, ref.Protocol(1, 0, 70, 20), dev)
+    check([(c, p.to_bytes()) for c, p in out] == want, "a 9-blob block at frida-4844-r2's shape: roots or wire bytes "
+          "!= portbench/reference's")
+    say(f"[14] a 9-blob block at frida-4844-r2's shape, pow_bits 20, 5 calls: roots and wire bytes == "
+        f"portbench/reference's (reference {time.perf_counter() - t0:.2f} s); select_counts {fri.select_counts()}; "
+        f"assemble/select {select.seconds / select.count * 1e3:.4f} ms a blob, batch/finish "
+        f"{finish.seconds / 5 * 1e3:.3f} ms a block (profiling.span_totals); calls median "
+        f"{statistics.median(walls):.3f} ms of {[round(w, 3) for w in walls]}")
 
 
 def finish_counted(fri, committed, log_total: int, cfg) -> tuple:
@@ -2729,7 +2840,7 @@ def finish_counted(fri, committed, log_total: int, cfg) -> tuple:
 # A kernel's name in a trace -> the wrapper that counts its launches.
 KERNEL_OF_WRAPPER = re.compile(
     r"\b(ingest|fft_pass|fft_exchange|merkle_level|merkle_collapse|merkle_open_queries|merkle_open|fri_fold|"
-    r"transcript|grind)"
+    r"transcript|grind|order_openings)"
     r"(?:_element|_tile)?_kernel\b")
 
 

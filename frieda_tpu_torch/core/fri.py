@@ -25,16 +25,18 @@ last-layer felts; the nonce and query draws) plus one a tree that ends
 without a collapse, and the grind searches on the card. Once the query
 words are drawn, one `merkle_open_queries` launch gathers every raw query's
 pair and authentication path in each layer on the card, as the JAX
-package's oblivious gathers do. The transcript's outputs (the layer roots,
-the last-layer coefficients, a degree flag, the nonce and the raw query
-words) and those gathers make one packed vector in a fixed layout
-(`_packed_layout`). `finish_proof` then makes ONE fetch of it, launches
-nothing, and assembles the proof on the host in numpy: the queries
-deduplicated, the first draw of each kept, the witness planned from the
-known nodes of each level (`_known_levels`) and picked from the gathers.
-The sharded commit phase does the same for a mesh row whose shards all lie
-in one block (every row on one card): the same launch reads its shards'
-trees and top trees, and the packed vector is one device's, word for word.
+package's oblivious gathers do, and one `order_openings` launch orders
+them into the proof's decommitment on the card: the known nodes of each
+level planned from the sorted words, deduplicated, in the proof's order.
+The transcript's outputs (the layer roots, the last-layer coefficients, a
+degree flag, the nonce and the raw query words) and that decommitment make
+one packed vector in a fixed layout (`_packed_layout`). `finish_proof` then
+makes ONE fetch of it, launches nothing, and cuts the proof out of it on
+the host (`_cut`: the counts, one unpack of the values, one of the nodes,
+a slice a layer). The sharded commit phase does the same for a mesh row
+whose shards all lie in one block (every row on one card): the same launch
+reads its shards' trees and top trees, and the packed vector is one
+device's, word for word.
 A row over several devices or processes packs the transcript's outputs
 alone and decommits after the fetch (`plan_openings`, one `merkle_open`
 launch a device).
@@ -249,16 +251,16 @@ class Committed:
     row `row` of the batch's packed outputs is this proof's (`packed`,
     int32, `layout`: the layer roots (8 words each), the last layer's
     coefficients (4 words each), the degree flag, the nonce (lo, hi), the
-    raw query words, then the gathers of every raw query's pairs and
-    authentication paths). Every commit phase makes such rows, one proof a
-    batch of one. `roots`, `last_layer_poly`, `nonce` and `queries` make the
+    raw query words, then the decommitment in the proof's order,
+    `ops.merkle.ordered_section`). Every commit phase makes such rows, one
+    proof a batch of one. `roots`, `last_layer_poly`, `nonce` and `queries` make the
     fetch of the row on first use (`fetch`: the batch's one copy) and keep
     it. The commit phase of a mesh row of several blocks packs the head
-    alone (a layout with no gathers) and names the class that reads its
-    decommitment after the fetch (`opening_cls`, `merkle.ShardedOpening`);
-    set on a `Committed` with gathers, the same class reads it after the
-    fetch instead of the gathers (the tests and chip_smoke.py hold the two
-    to the same bytes)."""
+    alone (a layout with no decommitment) and names the class that reads
+    its decommitment after the fetch (`opening_cls`, `merkle.ShardedOpening`);
+    set on a `Committed` with an ordered decommitment, the same class reads
+    it after the fetch instead (the tests and chip_smoke.py hold the two to
+    the same bytes)."""
 
     opening_cls = None
 
@@ -299,10 +301,10 @@ class Committed:
         if not head["degree_ok"][0]:
             raise AssertionError("FRI last layer exceeds degree bound (internal bug)")
         lo, hi = head["nonce"]
-        raw = head["qpos"]
-        self._host = ([root.astype("<u4").tobytes() for root in head["roots"].reshape(-1, 8)],
+        roots = head["roots"].astype("<u4").tobytes()
+        self._host = ([roots[i : i + 32] for i in range(0, len(roots), 32)],
                       [tuple(int(v) for v in row) for row in head["last"].reshape(-1, 4)],
-                      int(lo) | int(hi) << 32, sorted(set(int(q) for q in raw)), raw)
+                      int(lo) | int(hi) << 32, head["qpos"])
         self._words = words
 
     @property
@@ -322,18 +324,18 @@ class Committed:
         self.fetch()
         return self._host[2]
 
-    @property
+    @functools.cached_property
     def queries(self) -> list:
         """Positions in the first layer's domain (stored order), sorted and
-        deduplicated."""
-        self.fetch()
-        return self._host[3]
+        deduplicated (on first use: only a decommitment planned on the host
+        reads them)."""
+        return sorted(set(self.query_words.tolist()))
 
     @property
     def query_words(self) -> np.ndarray:
         """The raw query draws, with duplicates, in draw order."""
         self.fetch()
-        return self._host[4]
+        return self._host[3]
 
 
 class BatchFetch:
@@ -400,8 +402,7 @@ class PackedLayout(NamedTuple):
     """Offsets (int32 words) of the commit phase's packed vector."""
 
     head: dict  # name -> (offset, count): roots, last, degree_ok, nonce (lo, hi), qpos
-    pair_off: list  # per layer: (4, nq, 2) values of each raw query's pair ([]: no gathers)
-    auth_off: list  # per layer, per level k < log_leaves: (8, nq) sibling nodes
+    order: merkle_ops.OrderedSection | None  # the ordered decommitment, from `head_words` (None: none)
     total: int
     sizes: list  # log_leaves of each layer
 
@@ -414,23 +415,20 @@ class PackedLayout(NamedTuple):
 @functools.lru_cache(maxsize=32)
 def _packed_layout(n: int, n_inner: int, bound: int, nq: int, gather: bool = True) -> PackedLayout:
     """The fixed layout of `Committed.packed` for one configuration: the
-    transcript's outputs, then (with `gather`) `merkle_open_queries`'
-    gathers. Counterpart of `frieda_tpu/core/fri.py:_packed_layout`, whose
-    pair and auth sections these are; the head differs (a 64-bit nonce, no
-    separate evaluations: layer 0's pairs hold them)."""
+    transcript's outputs, then (with `gather`) the decommitment that
+    `order_openings` orders out of `merkle_open_queries`' gathers
+    (`ops.merkle.ordered_section`), no longer than the gathers. Counterpart
+    of `frieda_tpu/core/fri.py:_packed_layout`, whose head this is but for
+    a 64-bit nonce; its pair and auth sections are the gathers'
+    (`ops.merkle.open_queries_offsets`), which stay on the device."""
     sizes = [n] + [n - 1 - l for l in range(n_inner)]
     head, o = {}, 0
     for key, count in (("roots", 8 * len(sizes)), ("last", 4 * bound), ("degree_ok", 1), ("nonce", 2),
                        ("qpos", nq)):
         head[key] = (o, count)
         o += count
-    pair_off, auth_off = [], []
-    for log_leaves in sizes if gather else ():
-        pair_off.append(o)
-        o += 8 * nq
-        auth_off.append([o + 8 * nq * k for k in range(log_leaves)])
-        o += 8 * nq * log_leaves
-    return PackedLayout(head, pair_off, auth_off, o, sizes)
+    order = merkle_ops.ordered_section(tuple(sizes), nq) if gather else None
+    return PackedLayout(head, order, o + (order.words if gather else 0), sizes)
 
 
 _M64 = (1 << 64) - 1
@@ -537,7 +535,8 @@ def _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, gath
     fold: the last layer's coefficients and degree check, its transcript
     step, the grind and the query draws, then (with `gather`) the
     decommitment's gathers read with the query words on the device
-    (`merkle_open_queries`), all packed for the one fetch (`_packed_layout`).
+    (`merkle_open_queries`) and ordered into the proof's decommitment there
+    (`order_openings`), all packed for the one fetch (`_packed_layout`).
     A batch (g (B, 4, M), (B, 9) states, each root (B, 8), each layer's
     trees a list of B) packs (B, layout.total), a row a blob."""
     fri_cfg = pcs_config.fri_config
@@ -554,7 +553,8 @@ def _close(state, g, layers, trees, roots, xs_invs, n, n_inner, pcs_config, gath
     packed = torch.empty((*lead, layout.total), dtype=torch.int32, device=query_words.device)
     torch.cat(head, dim=-1, out=packed[..., : layout.head_words])
     if gather:
-        merkle_ops.merkle_open_queries(layers, trees, query_words, packed[..., layout.head_words :])
+        gathers = merkle_ops.merkle_open_queries(layers, trees, query_words)
+        merkle_ops.order_openings(gathers, query_words, layout.sizes, packed[..., layout.head_words :])
     return packed, layout, bound
 
 
@@ -1037,9 +1037,10 @@ def plan_openings(layers: list, trees: list, queries, opening_cls=Opening) -> tu
 def finish_proof(committed: Committed, log_total: int, pcs_config: PcsConfig = DEFAULT_CONFIG):
     """(commitment, Proof) of a commit phase: the one fetch of its packed
     outputs (which raises AssertionError for a last layer above its degree
-    bound), then the proof assembled on the host from the gathers in it; no
-    launch. A `Committed` that names an `opening_cls` (the commit phase of
-    a mesh row of several blocks) has its decommitment read after the fetch
+    bound), then the proof cut on the host from the decommitment the card
+    ordered in it (`_cut`, the span "assemble/select"); no launch. A
+    `Committed` that names an `opening_cls` (the commit phase of a mesh row
+    of several blocks) has its decommitment read after the fetch
     (`plan_openings`: one `merkle_open` a device and one fetch each).
     Counterpart of `fri._finish_proof`. Ends the lease of a `Committed`
     from a captured commit phase (`Committed.release`), also when it
@@ -1071,24 +1072,43 @@ def reset_grind_totals() -> None:
     _GRIND_TOTALS[:] = [0, 0]
 
 
+_SELECT = {"cut": 0, "planned": 0}  # `select_counts`
+
+
+def select_counts() -> dict:
+    """{"cut", "planned"} since the process started or since
+    `reset_select_counts`: proofs that `finish_proof` cut from a row whose
+    decommitment the card ordered (`order_openings` in the commit phase), and
+    proofs whose decommitment it planned and read on the host after the
+    fetch (a `Committed` that names an `opening_cls`)."""
+    return dict(_SELECT)
+
+
+def reset_select_counts() -> None:
+    """Zero the counts of `select_counts`."""
+    for key in _SELECT:
+        _SELECT[key] = 0
+
+
 def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig):
     c.fetch()
     _GRIND_TOTALS[0] += 1
     _GRIND_TOTALS[1] += c.nonce + 1
-    gathered = c.opening_cls is None
-    if not gathered:
+    ordered = c.opening_cls is None
+    if not ordered:
         opening, eval_sl, plan = plan_openings(c.layers, c.trees, c.queries, c.opening_cls)
         vals, nodes = opening.run()
     with span("prove/assemble"):
         with span("assemble/select"):
-            if not gathered:
+            if ordered:
+                evaluations, layers = _cut(c._words, c.layout)
+            else:
                 node_rows = np.ascontiguousarray(nodes.T).astype("<u4")
                 evaluations = _qm31s(vals, eval_sl)
                 layers = [(_qm31s(vals, wit_sl),
                            [node_rows[j].tobytes() for sl in node_sls for j in range(sl.start, sl.stop)])
                           for wit_sl, node_sls in plan]
-            else:
-                evaluations, layers = _assemble(c._words, c.query_words, c.layout)
+        _SELECT["cut" if ordered else "planned"] += 1
         with span("assemble/objects"):
             layer_proofs = [
                 FriLayerProof(fri_witness=wit, decommitment=MerkleDecommitment(hashes), commitment=c.roots[t])
@@ -1104,43 +1124,31 @@ def _finish_proof(c: Committed, log_total: int, pcs_config: PcsConfig):
     return c.roots[0], proof
 
 
-def _assemble(words: np.ndarray, raw: np.ndarray, layout: PackedLayout) -> tuple:
-    """(evaluations, [(FRI witness, hash witness) per layer]) of the
-    deduplicated proof encoding, selected from the packed vector `words`
-    (uint32, `layout`) of the raw query words `raw`. A known node x of
-    level d above layer 0 stands for the distinct positions raw >> d; the
-    first raw query under it (its slot) gathered its pair and path, so a
-    lone position of layer t (d = t) reveals its sibling's value from the
-    slot's pair, and a lone node at level k of layer t (d = t + k, k >= 1)
-    reveals its sibling's hash from the slot's level-k auth node. The
-    evaluations are layer 0's positions' own values. Counterpart of the
-    selection in `frieda_tpu/core/fri.py:_finish_proof`."""
-    nq, sizes = raw.size, layout.sizes
-    T = len(sizes)
-    level, node, slot, lone = _known_levels(raw, sizes[0])
-    pair_off = np.asarray(layout.pair_off, np.int64)
-    cols = 2 * nq * np.arange(4)
+@functools.lru_cache(maxsize=256)
+def _nodes_struct(count: int) -> struct.Struct:
+    """`count` 32-byte nodes, each its own bytes object."""
+    return struct.Struct("32s" * count)
 
-    def values(sel, flip):  # (m, 4) values of the entries sel, or of their siblings
-        at = pair_off[level[sel]] + 2 * slot[sel] + ((node[sel] & 1) ^ flip)
-        return words[at[:, None] + cols].tolist()
 
-    evaluations = [tuple(v) for v in values(level == 0, 0)]
-    wit_sel = lone & (level < T)
-    witness = [tuple(v) for v in values(wit_sel, 1)]
-    wit_cut = np.r_[0, np.cumsum(np.bincount(level[wit_sel], minlength=T))]
-    # hash witness: layer t takes the lone nodes of the levels d > t, in (d, node) order
-    auth = np.zeros((T, sizes[0]), np.int64)
-    for t, offs in enumerate(layout.auth_off):
-        auth[t, : len(offs)] = offs
-    e_level, e_slot = level[lone], slot[lone]
-    t_idx, e_idx = np.nonzero(e_level[None, :] > np.arange(T)[:, None])
-    at = auth[t_idx, e_level[e_idx] - t_idx] + e_slot[e_idx]
-    blob = words[at[:, None] + nq * np.arange(8)].astype("<u4").tobytes()
-    hashes = struct.unpack("32s" * at.size, blob)  # one 32-byte node a row, cut in C
-    hash_cut = np.r_[0, np.cumsum(np.bincount(t_idx, minlength=T))]
-    layers = [(witness[wit_cut[t] : wit_cut[t + 1]], list(hashes[hash_cut[t] : hash_cut[t + 1]])) for t in range(T)]
-    return evaluations, layers
+def _cut(words: np.ndarray, layout: PackedLayout) -> tuple:
+    """(evaluations, [(FRI witness, hash witness) per layer]) of a proof,
+    cut from the packed vector `words` (uint32, `layout`) whose
+    decommitment the commit phase ordered (`ops.merkle.order_openings`,
+    `ordered_section`): the counts, one unpack of the values into QM31
+    tuples, one of the nodes into 32-byte strings, then a slice a layer.
+    Counterpart of the selection in `frieda_tpu/core/fri.py:_finish_proof`."""
+    T, o, sec = len(layout.sizes), layout.head_words, layout.order
+    counts = words[o : o + 1 + 2 * T].tolist()
+    evals, wits, hashes = counts[0], counts[1 : 1 + T], counts[1 + T :]
+    at = o + sec.values
+    values = list(struct.iter_unpack("<4I", words[at : at + 4 * (evals + sum(wits))]))
+    nodes = _nodes_struct(sum(hashes)).unpack_from(words, 4 * (o + sec.nodes))
+    layers, v, h = [], evals, 0
+    for wit, count in zip(wits, hashes):
+        layers.append((values[v : v + wit], list(nodes[h : h + count])))
+        v += wit
+        h += count
+    return values[:evals], layers
 
 
 def prove_words(words: torch.Tensor, log_total: int, seed, pcs_config: PcsConfig = DEFAULT_CONFIG):

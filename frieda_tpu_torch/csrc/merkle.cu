@@ -137,6 +137,33 @@
 // narrower level is level k - (L - log_shards) of the top tree at s, every
 // level of which is stored. This is core/merkle.py's ShardedOpening._locate
 // on the card.
+//
+// order_openings turns those gathers into a proof's decommitment, so that
+// the host only cuts it: the entries of frieda_tpu/core/fri.py:_finish_proof's
+// selection, deduplicated and in the proof's order, in the same graph
+// replay. One block of kOrderThreads a blob, one raw query word a thread
+// while planning, every thread while writing. The words (masked to the
+// domain, as the gathers mask them) are rank-sorted in shared memory by
+// (word, draw index), so the first of each run of equal words is that
+// position's first draw. high[e] is the highest bit in which sorted word e
+// differs from word e - 1 (-1 for a repeat, 31 for e = 0): e is the first
+// word under its node at every level d <= high[e], so the known nodes of
+// level d are the words with high[e] >= d, in node order, each read at its
+// first draw (any draw under a node gathered the same pair and path). A
+// word with high[e] == d is the right child of a known pair at level d; its
+// left sibling is the nearest f < e with high[f] >= d, which it marks in
+// f's mask (a shared atomicOr). Bits of a word's mask: its lone levels
+// (known and not in a known pair: d <= high[e], not d == high[e] for e >= 1,
+// not marked) and bit 31, a first draw (an evaluation). Warp ballots and
+// one pass over the warps give each set bit its place in a list of word
+// indices a bit (the lone nodes of level 0, 1, ..., n - 1, then the
+// evaluations), and from the list every thread writes entries: the counts
+// (evaluations, each layer's FRI witness = the lone nodes of level t, each
+// layer's hash witness = the lone nodes of every level above t), the values
+// (the evaluation's own element of layer 0's pair, a witness its sibling's
+// element of layer t's pair) and the nodes (layer t's level-(d - t) sibling
+// of a lone node of level d, for every d > t), each section padded with
+// zeros to its capacity, so a row is the same words whatever its draws.
 
 #include <cooperative_groups.h>
 
@@ -155,6 +182,8 @@ constexpr int kMaxOuts = 13;  // distinct powers of two <= kCollapseMax
 constexpr int kOpenThreads = 128;  // 32 reads a block, a quad of lanes each
 constexpr int kOpenLevels = 32;    // levels of a layer, and layers of merkle_open_queries, at most
 constexpr int kLayerWords = 3 + kOpenLevels;
+constexpr int kOrderThreads = 1024;            // order_openings: a blob's block, one query word a thread
+constexpr int kOrderSmemMax = 100 * 1024;      // its dynamic shared memory at most (opted into once)
 
 struct CollapseOuts {
   uint32_t* ptr[kMaxOuts];
@@ -521,6 +550,144 @@ merkle_open_queries_kernel(const OpenLayers layers, const uint32_t* __restrict__
   }
 }
 
+// Shared memory of order_openings for nq words and a list of list_cap
+// entries: the words (then each word's marked levels), the sorted words,
+// their draw indices, high[], the list.
+__host__ __device__ constexpr size_t order_smem_bytes(int nq, long long list_cap) {
+  return size_t(11) * nq + 1 + 2 * size_t(list_cap);
+}
+
+__global__ void __launch_bounds__(kOrderThreads)
+order_openings_kernel(const uint32_t* __restrict__ gathers, long long gather_stride,
+                      const uint32_t* __restrict__ queries, int nq, int n, int T, long long values_cap,
+                      long long nodes_cap, uint32_t* __restrict__ out, long long out_stride) {
+  extern __shared__ uint32_t order_smem[];
+  __shared__ uint32_t base[kOrderThreads / 32][32];  // per warp and bit: its count, then its place
+  __shared__ uint32_t first[33];                     // each bit's first list entry; first[32] the total
+  __shared__ uint32_t hbase[kOpenLevels + 1];        // each layer's first node entry
+  __shared__ long long pair_at[kOpenLevels];         // each layer's pairs in the gathers
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  gathers += blockIdx.x * gather_stride;
+  queries += blockIdx.x * static_cast<long long>(nq);
+  out += blockIdx.x * out_stride;
+  uint32_t* word = order_smem;
+  uint32_t* pos = word + nq;
+  uint16_t* slot = reinterpret_cast<uint16_t*>(pos + nq);
+  int8_t* high = reinterpret_cast<int8_t*>(slot + nq);
+  uint16_t* list = reinterpret_cast<uint16_t*>(high + nq + (nq & 1));
+
+  const uint32_t in_domain = (1u << n) - 1;
+  const int e = tid;  // this thread's raw word, then its sorted word
+  const bool live = e < nq;
+  if (live) word[e] = queries[e] & in_domain;
+  __syncthreads();
+  if (live) {  // rank sort: every (word, draw index) is distinct
+    const uint32_t w = word[e];
+    int r = 0;
+    for (int j = 0; j < nq; ++j) {
+      const uint32_t v = word[j];
+      r += (v < w) | ((v == w) & (j < e));
+    }
+    pos[r] = w;
+    slot[r] = static_cast<uint16_t>(e);
+  }
+  __syncthreads();
+  int hb = -1;
+  if (live) {
+    const uint32_t x = e ? pos[e] ^ pos[e - 1] : 0u;
+    hb = e == 0 ? 31 : (x ? 31 - __clz(x) : -1);
+    high[e] = static_cast<int8_t>(hb);
+    word[e] = 0;  // now the levels at which this word's node is the left child of a known pair
+  }
+  __syncthreads();
+  if (live && e > 0 && hb >= 0) {
+    int f = e - 1;
+    while (high[f] < hb) --f;  // high[0] = 31 ends the walk
+    atomicOr(&word[f], 1u << hb);
+  }
+  __syncthreads();
+  uint32_t mask = 0;
+  if (live && hb >= 0) {
+    const uint32_t levels = hb >= n - 1 ? in_domain : (2u << hb) - 1;
+    mask = (levels & ~(e ? 1u << hb : 0u) & ~word[e]) | (1u << 31);
+  }
+  const uint32_t below = (1u << lane) - 1;
+  for (int b = 0; b < 32; ++b) {
+    const uint32_t bal = __ballot_sync(0xffffffffu, (mask >> b) & 1);
+    if (lane == 0) base[warp][b] = __popc(bal);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    uint32_t sum = 0;
+    for (int w = 0; w < kOrderThreads / 32; ++w) {
+      const uint32_t c = base[w][tid];
+      base[w][tid] = sum;
+      sum += c;
+    }
+    first[tid + 1] = sum;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    first[0] = 0;
+    for (int b = 0; b < 32; ++b) first[b + 1] += first[b];
+    hbase[0] = 0;
+    long long at = 0;
+    for (int t = 0; t < T; ++t) {
+      pair_at[t] = at;
+      at += 8ll * nq * (1 + n - t);
+      hbase[t + 1] = hbase[t] + first[n] - first[t + 1];
+    }
+  }
+  __syncthreads();
+  for (int b = 0; b < 32; ++b) {
+    const uint32_t bal = __ballot_sync(0xffffffffu, (mask >> b) & 1);
+    if ((mask >> b) & 1) list[first[b] + base[warp][b] + __popc(bal & below)] = static_cast<uint16_t>(e);
+  }
+  __syncthreads();
+  const uint32_t evals = first[32] - first[31];
+  if (tid == 0) out[0] = evals;
+  if (tid < T) {
+    out[1 + tid] = first[tid + 1] - first[tid];
+    out[1 + T + tid] = hbase[tid + 1] - hbase[tid];
+  }
+  const long long vals = 1 + 2ll * T;  // the (values_cap, 4) values
+  const long long n_vals = evals + first[T];
+  for (long long x = tid; x < 4 * values_cap; x += kOrderThreads) {
+    const long long v = x >> 2;
+    uint32_t value = 0;
+    if (v < n_vals) {
+      int t = 0;
+      uint32_t at, el;
+      if (v < evals) {  // an evaluation: its own element of layer 0's pair
+        at = list[first[31] + v];
+        el = pos[at] & 1;
+      } else {  // layer t's FRI witness: the sibling's element of layer t's pair
+        const uint32_t g = static_cast<uint32_t>(v - evals);
+        while (first[t + 1] <= g) ++t;
+        at = list[g];
+        el = ((pos[at] >> t) & 1) ^ 1;
+      }
+      value = gathers[pair_at[t] + (x & 3) * 2ll * nq + 2ll * slot[at] + el];
+    }
+    out[vals + x] = value;
+  }
+  const long long nodes = vals + 4 * values_cap;  // the (nodes_cap, 8) nodes
+  const uint32_t n_nodes = hbase[T];
+  for (long long y = tid; y < 8 * nodes_cap; y += kOrderThreads) {
+    const long long h = y >> 3;
+    uint32_t value = 0;
+    if (h < n_nodes) {  // layer t's hash witness: its level-(d - t) sibling of a lone node of level d > t
+      int t = 0;
+      while (hbase[t + 1] <= h) ++t;
+      const uint32_t g = first[t + 1] + static_cast<uint32_t>(h - hbase[t]);
+      int d = t + 1;
+      while (first[d + 1] <= g) ++d;
+      value = gathers[pair_at[t] + 8ll * nq * (1 + d - t) + (y & 7) * static_cast<long long>(nq) + slot[list[g]]];
+    }
+    out[nodes + y] = value;
+  }
+}
+
 constexpr unsigned kGridRowsMax = 65535;  // gridDim.y's limit
 
 template <bool LEAF, bool FUSED>
@@ -691,5 +858,31 @@ extern "C" int frieda_merkle_open_queries(const void* const* cols, const void* c
                                static_cast<cudaStream_t>(stream)>>>(
       layers, static_cast<const uint32_t*>(queries), static_cast<uint32_t>(nq), n_reads, blobs, out_stride,
       static_cast<uint32_t*>(out));
+  FRIEDA_LAUNCH_RESULT();
+}
+
+// gathers: blobs rows of merkle_open_queries' output (gather_stride words
+// apart) for T layers of log sizes n, n - 1, ..., n - T + 1 and nq words;
+// queries: blobs x nq int32 words; out: blobs rows (out_stride words apart)
+// of 1 + 2T counts, the (values_cap, 4) values and the (nodes_cap, 8) nodes
+// (ops/merkle.py:ordered_section), whose list of lone nodes and evaluations
+// holds list_cap entries at most. 1 <= nq <= kOrderThreads, 1 <= T <= n <
+// 32. The caller sizes the capacities and checks the shapes.
+extern "C" int frieda_order_openings(const void* gathers, long long gather_stride, const void* queries, int nq,
+                                     int n, int T, long long values_cap, long long nodes_cap, long long list_cap,
+                                     int blobs, void* out, long long out_stride, void* stream) {
+  const size_t smem = order_smem_bytes(nq, list_cap);
+  if (nq < 1 || nq > kOrderThreads || n < 1 || n >= kOpenLevels || T < 1 || T > n || blobs < 1 ||
+      values_cap < 0 || nodes_cap < 0 || list_cap < nq || smem > static_cast<size_t>(kOrderSmemMax) ||
+      (blobs > 1 && (gather_stride < 1 || out_stride < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      order_openings_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kOrderSmemMax);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  order_openings_kernel<<<dim3(static_cast<unsigned>(blobs)), kOrderThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(gathers), gather_stride, static_cast<const uint32_t*>(queries), nq, n, T,
+      values_cap, nodes_cap, static_cast<uint32_t*>(out), out_stride);
   FRIEDA_LAUNCH_RESULT();
 }

@@ -13,7 +13,7 @@ def kernel_wrappers() -> dict:
     from .fft import fft_exchange, fft_pass
     from .fri import fri_fold
     from .ingest import ingest
-    from .merkle import merkle_collapse, merkle_level, merkle_open, merkle_open_queries
+    from .merkle import merkle_collapse, merkle_level, merkle_open, merkle_open_queries, order_openings
 
     return {
         "ingest": ingest,
@@ -22,6 +22,7 @@ def kernel_wrappers() -> dict:
         "merkle_collapse": merkle_collapse,
         "merkle_open": merkle_open,
         "merkle_open_queries": merkle_open_queries,
+        "order_openings": order_openings,
         "fri_fold": fri_fold,
         "transcript": transcript,
         "grind": grind,

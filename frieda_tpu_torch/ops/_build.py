@@ -48,6 +48,7 @@ _SIGNATURES = {
     "frieda_merkle_open_queries": (ctypes.POINTER(_VP), ctypes.POINTER(_VP), ctypes.POINTER(_VP),
                                    ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_uint), ctypes.POINTER(_LL),
                                    ctypes.POINTER(_LL), _I, _I, _VP, _I, _I, _LL, _VP, _VP),
+    "frieda_order_openings": (_VP, _LL, _VP, _I, _I, _I, _LL, _LL, _LL, _I, _VP, _LL, _VP),
     "frieda_fri_fold": (_VP, _VP, _VP, _VP, _LL, _I, _LL, _LL, _VP),
     "frieda_transcript": (_VP, _I, ctypes.c_ulonglong, _VP, _VP, _VP, _I, _VP, ctypes.c_uint, _VP, _I, _I, _I,
                           _VP),

@@ -29,12 +29,16 @@ each layer, in a grid fixed by the configuration, so that a CUDA graph of
 the commit phase holds it; a layer may be element-sharded over a mesh row
 whose shards all lie in one block here, each read then mapped to its shard's
 part and tree or to the top tree on the card (`open_queries_layers`).
+`order_openings` turns those gathers into the proof's decommitment on the
+card, deduplicated and in the proof's order (`ordered_section`), one block a
+proof, so that the host only cuts it.
 Sources: `csrc/merkle.cu`, `csrc/blake2s.cuh`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -344,6 +348,19 @@ def open_queries_words(log_leaves, nq: int) -> int:
     return sum(8 * nq * (1 + int(L)) for L in log_leaves)
 
 
+def open_queries_offsets(log_leaves, nq: int) -> tuple:
+    """(pair_off, auth_off): where `merkle_open_queries`' output holds layer
+    t's (4, nq, 2) pairs and its level-k (8, nq) sibling nodes, in words
+    (the JAX package's pair and auth sections, `frieda_tpu/core/fri.py:
+    _packed_layout`, from their start)."""
+    pair_off, auth_off, o = [], [], 0
+    for L in log_leaves:
+        pair_off.append(o)
+        auth_off.append([o + 8 * nq * (1 + k) for k in range(int(L))])
+        o += 8 * nq * (1 + int(L))
+    return pair_off, auth_off
+
+
 def query_reads(trees, query_words) -> tuple:
     """(values (V, 2), nodes (R, 3)): `merkle_open_queries`' reads as the job
     rows of `merkle_open`, in the order of its output. Per layer t, with pos
@@ -622,6 +639,141 @@ def merkle_open_queries(columns, trees, query_words: torch.Tensor, out: torch.Te
 
 
 merkle_open_queries.launches = 0
+
+ORDER_QUERIES_MAX = 1024  # query words `order_openings` takes: one a thread of its block
+
+
+class OrderedSection(NamedTuple):
+    """`order_openings`' output for one proof, in int32 words from its
+    start: 1 + 2T counts at 0 (the evaluations, each layer's FRI witness,
+    each layer's hash witness), then the values, (values_cap, 4): the
+    evaluations, then layer 0's witness, layer 1's, ...; then the nodes,
+    (nodes_cap, 8): layer 0's hash witness, layer 1's, ..., each in (level,
+    node) order. Zeros past the counted entries of each."""
+
+    values: int  # offset of the values
+    nodes: int  # offset of the nodes
+    values_cap: int
+    nodes_cap: int
+    words: int
+    list_cap: int  # the kernel's list of lone nodes and evaluations at most
+
+
+@functools.lru_cache(maxsize=32)
+def ordered_section(log_leaves: tuple, nq: int) -> OrderedSection:
+    """The `OrderedSection` of a proof whose T layers have the log sizes
+    n, n - 1, ..., n - T + 1 (`log_leaves`) and nq query words: each
+    capacity from the most known nodes a level d can have, min(nq, 2^(n -
+    d)) (a lone node, and an evaluation, is a known node). No more words
+    than `open_queries_words`."""
+    n, T = log_leaves[0], len(log_leaves)
+    cap = [min(nq, 1 << (n - d)) for d in range(n)]
+    values_cap = cap[0] + sum(cap[:T])
+    nodes_cap = sum(sum(cap[t + 1 :]) for t in range(T))
+    values = 1 + 2 * T
+    nodes = values + 4 * values_cap
+    return OrderedSection(values, nodes, values_cap, nodes_cap, nodes + 8 * nodes_cap, cap[0] + sum(cap))
+
+
+def _proof_sizes(log_leaves) -> tuple:
+    """log_leaves as a tuple of ints, checked: a proof's layers, n, n - 1,
+    ..., n - T + 1 with 1 <= n < OPEN_LEVELS (ValueError otherwise)."""
+    sizes = tuple(int(L) for L in log_leaves)
+    if not sizes or not 1 <= sizes[0] < OPEN_LEVELS or sizes != tuple(range(sizes[0], sizes[0] - len(sizes), -1)):
+        raise ValueError(f"layers of log sizes {list(sizes)}: expected n, n - 1, ..., n - T + 1 with 1 <= n < "
+                         f"{OPEN_LEVELS}")
+    return sizes
+
+
+def order_openings_plain(gathers, query_words, log_leaves) -> torch.Tensor:
+    """Plain version, int64: a proof's `ordered_section` from its gathers
+    (`merkle_open_queries`' output, `open_queries_offsets`) and its nq raw
+    query words (draw order, repeats allowed), read on the host. The known
+    nodes of level d are the distinct words >> d; each reads its gathers at
+    the first draw of its smallest word (every draw under a node gathered
+    the same pair and path), and is lone when node ^ 1 is not known. The
+    evaluations are the distinct words' own values (layer 0's pairs); layer
+    t's FRI witness is the sibling value of each lone node of level t (its
+    pairs), and its hash witness the level-(d - t) sibling node of each lone
+    node of every level d > t, in (level, node) order: the selection of
+    `frieda_tpu/core/fri.py:_finish_proof`. On the gathers' device (the
+    CPU for a numpy array). A batch ((B, words) gathers, (B, nq) words) ->
+    (B, words), row by row."""
+    words = to_numpy_u32(query_words) if isinstance(query_words, torch.Tensor) else np.asarray(query_words)
+    if words.ndim == 2:
+        return torch.stack([order_openings_plain(gathers[b], words[b], log_leaves) for b in range(len(words))])
+    g = to_numpy_u32(gathers).astype(np.int64) if isinstance(gathers, torch.Tensor) else np.asarray(gathers, np.int64)
+    sizes = _proof_sizes(log_leaves)
+    n, T, nq = sizes[0], len(sizes), words.size
+    sec = ordered_section(sizes, nq)
+    pair_off, auth_off = open_queries_offsets(sizes, nq)
+    pos, slot = np.unique(words.astype(np.int64) & ((1 << n) - 1), return_index=True)  # first draws
+    lone_node, lone_slot = [], []
+    for d in range(n):
+        x = pos >> d
+        start = np.r_[True, x[1:] != x[:-1]]
+        node, at = x[start], slot[start]
+        lone = ~np.isin(node ^ 1, node)
+        lone_node.append(node[lone])
+        lone_slot.append(at[lone])
+
+    def pair_values(t, at, el):  # (m, 4): element el of layer t's pair gathered at raw index at
+        return g[(pair_off[t] + 2 * at + el)[:, None] + 2 * nq * np.arange(4)]
+
+    values = [pair_values(0, slot, pos & 1)]
+    values += [pair_values(t, lone_slot[t], (lone_node[t] & 1) ^ 1) for t in range(T)]
+    nodes = [g[(auth_off[t][d - t] + lone_slot[d])[:, None] + nq * np.arange(8)]
+             for t in range(T) for d in range(t + 1, n)]
+    out = np.zeros(sec.words, np.int64)
+    out[0] = pos.size
+    out[1 : 1 + T] = [lone_node[t].size for t in range(T)]
+    out[1 + T : 1 + 2 * T] = [sum(lone_node[d].size for d in range(t + 1, n)) for t in range(T)]
+    vals = np.concatenate(values).reshape(-1)
+    found = np.concatenate(nodes).reshape(-1) if nodes else np.zeros(0, np.int64)
+    out[sec.values : sec.values + vals.size] = vals
+    out[sec.nodes : sec.nodes + found.size] = found
+    return torch.from_numpy(out).to(gathers.device if isinstance(gathers, torch.Tensor) else "cpu")
+
+
+def order_openings(gathers: torch.Tensor, query_words: torch.Tensor, log_leaves,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 form of `order_openings_plain`: the (words,) gathers of one
+    proof over its (nq,) int32 query words into `out` (`ordered_section(
+    log_leaves, nq).words` int32 words, or a new tensor), or a batch's (B,
+    words) gathers and (B, nq) words into (B, section) rows (rows of the
+    gathers and of `out` may lie further apart than their length: a batch's
+    packed vectors). One launch on CUDA tensors, one block a proof: the
+    words are read and ordered on the card, so nothing is uploaded or
+    fetched and a CUDA graph captures it (at most ORDER_QUERIES_MAX words a
+    proof). The plain version on CPU tensors."""
+    sizes = _proof_sizes(log_leaves)
+    lead, nq = tuple(query_words.shape[:-1]), query_words.shape[-1]
+    if query_words.dim() not in (1, 2) or not nq:
+        raise ValueError(f"query words {tuple(query_words.shape)}: (nq >= 1,) for one proof, (B, nq) for a batch")
+    _build.check_u32(query_words, "query_words", lead + (nq,))
+    sec = ordered_section(sizes, nq)
+    if out is None:
+        out = torch.empty(lead + (sec.words,), dtype=torch.int32, device=query_words.device)
+    for name, x, width in (("gathers", gathers, open_queries_words(sizes, nq)), ("out", out, sec.words)):
+        if x.dtype != torch.int32 or tuple(x.shape) != lead + (width,) or x.stride(-1) != 1 \
+                or (x.dim() == 2 and x.shape[0] > 1 and x.stride(0) < width):
+            raise ValueError(f"{name}: expected int32 {lead + (width,)} rows, got {x.dtype} {tuple(x.shape)} "
+                             f"strides {x.stride()}")
+    _build.check_same_device(gathers, query_words, out)
+    if not query_words.is_cuda:
+        return out.copy_(narrow(order_openings_plain(gathers, query_words, sizes)))
+    if nq > ORDER_QUERIES_MAX:
+        raise ValueError(f"{nq} query words: at most {ORDER_QUERIES_MAX} a proof on the card")
+    batch = query_words.dim() == 2
+    _build.check_launch(_build.library().frieda_order_openings(
+        gathers.data_ptr(), gathers.stride(0) if batch else 0, query_words.data_ptr(), nq, sizes[0], len(sizes),
+        sec.values_cap, sec.nodes_cap, sec.list_cap, lead[0] if batch else 1, out.data_ptr(),
+        out.stride(0) if batch else 0, _build.stream_of(out)))
+    order_openings.launches += 1
+    return out
+
+
+order_openings.launches = 0
 
 
 def open_queries_work(trees, query_words) -> tuple:

@@ -324,6 +324,15 @@ def merkle_open_queries_bound(nq: int, out_words: int, read_bytes: int, compress
     return least_ms(4 * nq + read_bytes + 4 * out_words, compressions * BLAKE2S_COMPRESS_INSTR, card)
 
 
+def order_openings_bound(nq: int, values: int, nodes: int, out_words: int, card: str | None = None) -> tuple | None:
+    """`order_openings` of one proof: its nq query words read, the gathered
+    words of the `values` values (16 bytes) and `nodes` nodes (32) it
+    selects read once, and its out_words (counts, values, nodes and the
+    zeros past them) written; no hashing. A batch's launch: the sums over
+    its proofs."""
+    return least_ms(4 * nq + 16 * values + 32 * nodes + 4 * out_words, 0, card)
+
+
 def fri_fold_bound(half: int, card: str | None = None, blobs: int = 1, tables: int = 1) -> tuple | None:
     """`fri_fold` of `blobs` (4, 2 half) QM31 values to (4, half) each: the
     values, each blob's alpha and `tables` inverse tables of `half` words

@@ -1,12 +1,14 @@
 """Port's decommitment on the device side of the commit phase
-(`ops.merkle.merkle_open_queries`, `core/fri._packed_layout`) and its host
-assembly (`fri.finish_proof`), against the JAX package on the CPU: the
-gathers alone against `fri._auth_sibling_nodes` and the pair gathers of
-`_fri_commit_fn.run`; the packed pair and auth sections of whole commit
-phases against `fri.dispatch_commit_phase_staged`'s at the frozen cases'
-shapes; proof wire bytes against `frieda_tpu`'s and the frozen proofs, with
-duplicate raw queries and pow_bits 0; and `finish_proof`'s one fetch and no
-launch. Inputs are seeded numpy arrays; tolerance: exact equality."""
+(`ops.merkle.merkle_open_queries`, `order_openings`, `core/fri._packed_layout`)
+and its host cut (`fri.finish_proof`), against the JAX package on the CPU:
+the gathers alone against `fri._auth_sibling_nodes` and the pair gathers of
+`_fri_commit_fn.run`; whole commit phases' gathers against the pair and auth
+sections of `fri.dispatch_commit_phase_staged`'s packed vector at the
+frozen cases' shapes, and their packed vectors' ordered decommitment against
+the plain ordering of those gathers; proof wire bytes against `frieda_tpu`'s
+and the frozen proofs, with duplicate raw queries and pow_bits 0; and
+`finish_proof`'s one fetch and no launch. Inputs are seeded numpy arrays;
+tolerance: exact equality."""
 
 import pytest
 
@@ -36,7 +38,7 @@ from frieda_tpu_torch.ops import ingest as ingest_ops  # noqa: E402
 from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.utils import convert  # noqa: E402
 from frieda_tpu_torch.utils import profiling  # noqa: E402
-from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32  # noqa: E402
+from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words  # noqa: E402
 
 torch.set_num_threads(1)
@@ -131,7 +133,8 @@ def test_open_queries_checks_its_operands():
 # Every kernel wrapper the prover calls, by module and name.
 DEVICE_STEPS = [(ingest_ops, "ingest"), (fft, "evaluate_auto"), (merkle_ops, "merkle_level"),
                 (merkle_ops, "merkle_collapse"), (merkle_ops, "merkle_open"), (merkle_ops, "merkle_open_queries"),
-                (fri_ops, "fri_fold"), (channel_ops, "transcript"), (channel_ops, "grind")]
+                (merkle_ops, "order_openings"), (fri_ops, "fri_fold"), (channel_ops, "transcript"),
+                (channel_ops, "grind")]
 
 
 def refuse_device_steps(monkeypatch) -> None:
@@ -154,10 +157,12 @@ def _commit(case_cfg: dict, data: bytes, seed) -> tuple:
 
 @pytest.mark.parametrize("name", ["dryrun_960B", "mid_4096B_lastlayer2"])
 def test_packed_sections_match_jax_dispatch(name):
-    """The port's packed vector after its commit phase: each layer's pair
-    section and each level's auth section equal the JAX package's packed
-    vector (`dispatch_commit_phase_staged`) at `_packed_layout`'s pair_off /
-    auth_off, bit for bit, and layer 0's pairs hold the JAX evaluations."""
+    """The port's commit phase: the gathers of its raw query words over its
+    layers and trees, each layer's pair section and each level's auth
+    section (`open_queries_offsets`), equal the JAX package's packed vector
+    (`dispatch_commit_phase_staged`) at its pair_off / auth_off, bit for
+    bit, layer 0's pairs hold the JAX evaluations, and the packed vector
+    after the head is those gathers' plain ordered decommitment."""
     case = CASES[name]
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     committed, cfg, log_total = _commit(case["config"], data, case["seed"])
@@ -173,16 +178,20 @@ def test_packed_sections_match_jax_dispatch(name):
     assert layout == fri._packed_layout(n, n_inner, bound, nq) and layout.sizes == sizes
     vec = to_numpy_u32(committed.packed)
     assert vec.size == layout.total
-    for t, L in enumerate(sizes):
-        assert np.array_equal(vec[layout.pair_off[t] : layout.pair_off[t] + 8 * nq],
-                              jvec[jpair[t] : jpair[t] + 8 * nq]), t
-        for k in range(L):
-            assert np.array_equal(vec[layout.auth_off[t][k] : layout.auth_off[t][k] + 8 * nq],
-                                  jvec[jauth[t][k] : jauth[t][k] + 8 * nq]), (t, k)
     raw = vec[slice(layout.head["qpos"][0], layout.head["qpos"][0] + nq)]
-    pairs = vec[layout.pair_off[0] : layout.pair_off[0] + 8 * nq].reshape(4, nq, 2)
+    gathers = merkle_ops.merkle_open_queries(committed.layers, committed.trees, from_numpy_u32(raw, "cpu"))
+    got = to_numpy_u32(gathers)
+    pair_off, auth_off = merkle_ops.open_queries_offsets(sizes, nq)
+    for t, L in enumerate(sizes):
+        assert np.array_equal(got[pair_off[t] : pair_off[t] + 8 * nq], jvec[jpair[t] : jpair[t] + 8 * nq]), t
+        for k in range(L):
+            assert np.array_equal(got[auth_off[t][k] : auth_off[t][k] + 8 * nq],
+                                  jvec[jauth[t][k] : jauth[t][k] + 8 * nq]), (t, k)
+    pairs = got[: 8 * nq].reshape(4, nq, 2)
     o, c = off["evalvals"]
     assert np.array_equal(pairs[:, np.arange(nq), raw & 1], jvec[o : o + c].reshape(4, nq))
+    assert np.array_equal(vec[layout.head_words :],
+                          to_numpy_u32(narrow(merkle_ops.order_openings_plain(gathers, raw, sizes))))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -222,11 +231,12 @@ def test_a_second_finish_gives_the_same_proof_without_a_fetch(monkeypatch):
 
 
 def test_a_layout_without_gathers_is_the_head_alone():
-    """The sharded commit phase's layout: the same head, no pair or auth
-    section, the vector ending after the query words."""
+    """The sharded commit phase's layout: the same head, no ordered
+    decommitment, the vector ending after the query words."""
     full, head = fri._packed_layout(12, 8, 2, 7), fri._packed_layout(12, 8, 2, 7, gather=False)
     assert head.head == full.head and head.sizes == full.sizes
-    assert head.pair_off == head.auth_off == [] and head.total == head.head_words == full.pair_off[0]
+    assert head.order is None and head.total == head.head_words == full.head_words
+    assert full.total == full.head_words + full.order.words
 
 
 def test_duplicate_queries_and_no_grinding_match_jax():
@@ -245,47 +255,54 @@ def test_duplicate_queries_and_no_grinding_match_jax():
 
 
 def test_assembly_picks_the_first_draw_of_each_position():
-    """The assembly reads each revealed value and node from the first raw
-    draw under it; overwriting every later duplicate's gathers in the
-    packed vector leaves the proof unchanged, and overwriting a first
-    draw's changes it."""
+    """The ordering reads each revealed value and node from the first raw
+    draw under it: with every later duplicate's gathers overwritten, the
+    decommitment ordered into the packed vector gives the same proof, and
+    with a first draw's overwritten it does not."""
     data = synthetic_data(64, 3)
     committed, cfg, log_total = _commit(DUPLICATES, data, 5)
     want = fri.finish_proof(committed, log_total, cfg)[1].to_bytes()
     raw = committed.query_words
     layout = committed.layout
     nq = raw.size
+    pair_off, auth_off = merkle_ops.open_queries_offsets(layout.sizes, nq)
     seen = {}
     later = [i for i, q in enumerate(raw.tolist()) if seen.setdefault(q, i) != i]
     assert later
     for slots, same in ((later, True), ([0], False)):
         c2, _, _ = _commit(DUPLICATES, data, 5)
-        vec = to_numpy_u32(c2.packed).copy()
+        gathers = to_numpy_u32(merkle_ops.merkle_open_queries(c2.layers, c2.trees, from_numpy_u32(raw, "cpu")))
         at = np.array(slots)
         for t in range(len(layout.sizes)):
             for c in range(4):  # the (4, nq, 2) pairs
                 for e in range(2):
-                    vec[layout.pair_off[t] + 2 * nq * c + 2 * at + e] = 0x5A5A5A5A
-            for b in layout.auth_off[t]:  # the (8, nq) nodes
+                    gathers[pair_off[t] + 2 * nq * c + 2 * at + e] = 0x5A5A5A5A
+            for b in auth_off[t]:  # the (8, nq) nodes
                 for w in range(8):
-                    vec[b + w * nq + at] = 0x5A5A5A5A
+                    gathers[b + w * nq + at] = 0x5A5A5A5A
+        vec = to_numpy_u32(c2.packed).copy()
+        vec[layout.head_words :] = to_numpy_u32(narrow(merkle_ops.order_openings_plain(gathers, raw, layout.sizes)))
         c2.batch = (fri.BatchFetch(from_numpy_u32(vec, "cpu")[None]), 0)
         got = fri.finish_proof(c2, log_total, cfg)[1].to_bytes()
         assert (got == want) == same
 
 
 def test_packed_layout_sections_follow_the_jax_layout():
-    """The port's layout is the JAX package's after the head: the same
-    section sizes in the same order, shifted by the difference of the two
-    heads (a two-word nonce; no evaluations section)."""
+    """The port's head is the JAX package's up to its evaluations section (a
+    two-word nonce); its gathers are the JAX pair and auth sections from
+    their start (`open_queries_offsets`); the ordered decommitment that
+    follows the head in the packed vector is no longer than those
+    sections."""
     for n, n_inner, bound, nq in ((8, 5, 1, 8), (12, 7, 4, 12), (26, 22, 1, 20), (24, 20, 1, 64)):
         off, jpair, jauth, total, sizes = jfri._packed_layout(n, n_inner, bound, nq)
         layout = fri._packed_layout(n, n_inner, bound, nq)
-        shift = jpair[0] - layout.pair_off[0]
-        assert shift == 4 * nq - 1 and layout.total == total - shift and layout.sizes == sizes
-        assert [p - shift for p in jpair] == layout.pair_off
-        assert [[a - shift for a in lv] for lv in jauth] == layout.auth_off
-        assert layout.pair_off[0] - layout.head["qpos"][0] == nq
+        shift = jpair[0] - layout.head_words
+        assert shift == 4 * nq - 1 and layout.total <= total - shift and layout.sizes == sizes
+        pair_off, auth_off = merkle_ops.open_queries_offsets(sizes, nq)
+        assert [p - jpair[0] for p in jpair] == pair_off
+        assert [[a - jpair[0] for a in lv] for lv in jauth] == auth_off
+        assert layout.total - layout.head_words == layout.order.words
+        assert layout.head_words - layout.head["qpos"][0] == nq
 
 
 def test_open_queries_bound_counts_each_read():

@@ -5,8 +5,9 @@ block (`core/fri.commit_phase_sharded`), on meshes of CPU devices
 gathers against the single-device plain gathers over the whole row, and a
 Python mirror of the kernel's sharded address mapping, lane by lane, against
 both; the sharded packed vector against the single-device one word for word,
-and its pair and auth sections against the JAX package's mesh
-`_fri_commit_fn` on its virtual 8-device CPU mesh; the sharded
+and the sharded gathers against the pair and auth sections of the JAX
+package's mesh `_fri_commit_fn` on its virtual 8-device CPU mesh, the packed
+vector's ordered decommitment against their plain ordering; the sharded
 `finish_proof`'s one fetch and no device step; the rows that keep
 `merkle.ShardedOpening` (rows of several blocks) and its bytes; the
 wrapper's checks. Inputs are seeded; tolerance: exact equality."""
@@ -36,7 +37,7 @@ from frieda_tpu_torch.ops import merkle as merkle_ops  # noqa: E402
 from frieda_tpu_torch.parallel import sharding  # noqa: E402
 from frieda_tpu_torch.parallel.mesh import Mesh, Sharded  # noqa: E402
 from frieda_tpu_torch.utils import convert  # noqa: E402
-from frieda_tpu_torch.utils.convert import from_numpy_u32, to_numpy_u32, widen  # noqa: E402
+from frieda_tpu_torch.utils.convert import from_numpy_u32, narrow, to_numpy_u32, widen  # noqa: E402
 from frieda_tpu_torch.utils.packing import log_total_for, pad_to_words  # noqa: E402
 
 torch.set_num_threads(1)
@@ -270,18 +271,19 @@ def test_sharded_opening_keeps_its_bytes(monkeypatch):
     split = sharding.make_mesh(1, 8, devices=["cpu", "cpu:0"] * 4)
     assert len(split.blocks(0)) == 8
     c = _prove(data, case["seed"], cfg, split)
-    assert c.opening_cls is merkle.ShardedOpening and not c.layout.pair_off
+    assert c.opening_cls is merkle.ShardedOpening and c.layout.order is None
     assert c.layout.total == c.layout.head_words
     assert fri.finish_proof(c, log_total, cfg)[1].to_bytes().hex() == case["wire_hex"]
     assert len(opens) == 3  # one a device
 
 
 def test_sharded_sections_match_jax_mesh_commit():
-    """The sharded packed vector's pair and auth sections equal those of the
-    JAX package's mesh `_fri_commit_fn` (`_dispatch_commit_phase(mesh=...)`
-    on its virtual 8-device CPU mesh, tests/conftest.py), at the
+    """The sharded commit phase's gathers equal the pair and auth sections of
+    the JAX package's mesh `_fri_commit_fn` (`_dispatch_commit_phase(mesh=
+    ...)` on its virtual 8-device CPU mesh, tests/conftest.py), at the
     tiny_64B_default proof's shape: a 2^7 domain over 8 shards, every
-    layer sharded and read from its shards and its top tree."""
+    layer sharded and read from its shards and its top tree; its packed
+    vector after the head is their plain ordered decommitment."""
     case = CASES["tiny_64B_default"]
     data = synthetic_data(case["data_len"], case["data_seed_offset"])
     c = _prove(data, case["seed"], PcsConfig.from_dict(case["config"]), _mesh(1, 8))
@@ -291,12 +293,17 @@ def test_sharded_sections_match_jax_mesh_commit():
     _, jpair, jauth, total, sizes = jfri._packed_layout(n, n_inner, 1, c.n_queries)
     jvec, vec, nq = np.asarray(packed), to_numpy_u32(c.packed), c.n_queries
     assert jvec.size == total and c.layout.sizes == sizes
+    raw = vec[c.layout.head["qpos"][0] : c.layout.head_words]
+    gathers = to_numpy_u32(merkle_ops.merkle_open_queries(c.layers, c.trees, from_numpy_u32(raw, "cpu")))
+    pair_off, auth_off = merkle_ops.open_queries_offsets(sizes, nq)
     for t, L in enumerate(sizes):
-        at = c.layout.pair_off[t]
-        assert np.array_equal(vec[at : at + 8 * nq], jvec[jpair[t] : jpair[t] + 8 * nq]), t
+        at = pair_off[t]
+        assert np.array_equal(gathers[at : at + 8 * nq], jvec[jpair[t] : jpair[t] + 8 * nq]), t
         for k in range(L):
-            at = c.layout.auth_off[t][k]
-            assert np.array_equal(vec[at : at + 8 * nq], jvec[jauth[t][k] : jauth[t][k] + 8 * nq]), (t, k)
+            at = auth_off[t][k]
+            assert np.array_equal(gathers[at : at + 8 * nq], jvec[jauth[t][k] : jauth[t][k] + 8 * nq]), (t, k)
+    assert np.array_equal(vec[c.layout.head_words :],
+                          to_numpy_u32(narrow(merkle_ops.order_openings_plain(gathers, raw, sizes))))
 
 
 def _block_sharded(mesh: Mesh, block: torch.Tensor) -> Sharded:
